@@ -1,0 +1,608 @@
+// Whole-control-step kernel for Hopper (sm_90a): one launch runs the contact
+// cache build and all `decimation` physics substeps of one control step.
+//
+// Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
+// TPU kernel reached through control_step_pallas), in its main-path
+// specialisation: reuse mode, flat ground (n = +z), actuator-network torque
+// model, contact impulses warm-started from `lam_in`.
+//
+// What it computes, per env (envs are independent):
+//   once:    r = p_cp - pos;  leg-joint Jacobian columns
+//            J[p,:,v] = anc[p,v] * (Sv[v] + Sw[v] x r[p]);  the entries
+//            W00, W01, W11, W22 of W_p = J_p M^-1 J_p^T + eps I
+//   D times: actuator MLP (6 -> H -> H -> 1, softsign) per joint -> x motor
+//            strength -> torque clip -> joint-limit torque -> unconstrained
+//            dynamics twice (midpoint rule) -> row-decoupled projected-Jacobi
+//            contact solve on the total impulse (friction cone saturating
+//            exactly) with lazy gv += M^-1 J^T dlam -> contact point advance
+//            -> velocity clips -> integrate pos / quaternion exp map / q
+//
+// Design for this card.  One thread owns one env and runs the whole scalar
+// program; parallelism is across envs only.  Every operand is env-minor
+// (env is the last, contiguous axis), so the 32 threads of a warp read 32
+// neighbouring floats: each load is one coalesced 128-byte line.  The dense
+// point Jacobian (P*3*nv floats per env) never exists: the base-dof columns
+// are the unit root twists, so J gv = v_lin + w x r and J^T f = (r x f, f) are
+// taken from r directly, and only the leg-joint columns (P * GMAX * 3 floats)
+// are kept, in thread-local memory.  M^-1, the inertia blocks and the
+// actuator weights stay in global memory and are re-read through the
+// read-only path: a warp's working set of them fits L1, and the weights are
+// read at one address by the whole warp (a broadcast).  The state touches
+// global memory once on entry and once on exit.
+//
+// Bound on this card: per env 1,025 floats in and 349 out (5.5 KB) and
+// about 0.3 MFLOP of fp32 on the CUDA cores, so at 4000 envs the least time
+// is set by arithmetic (operations over the fp32 peak), not by memory.  One
+// thread per env gives about one warp per SM at 4000 envs, so the kernel as
+// written is bound by instruction latency, far above that least time; the
+// measured numbers are kept in PERF.md.
+//
+// Rows 0..5 of Sw/Sv must be the unit root twists (rows 0..2: unit angular,
+// rows 3..5: unit linear), as physics/envminor.build_cache_envminor makes
+// them.  The dynamics read them as data; the contact Jacobian relies on it.
+//
+// The topology header is generated by ops/megastep.py from the RobotModel
+// into the build directory.
+#include <cuda_runtime.h>
+#include "megastep_topology.h"
+
+#define NB MS_NB
+#define NJ MS_NJ
+#define NV MS_NV
+#define NP MS_P
+#define GM MS_GMAX
+#define NH MS_H
+#define NF MS_F
+
+enum InIdx {
+  I_SW = 0, I_SV, I_A, I_B, I_M, I_MINV, I_PCP, I_RH, I_MU, I_E, I_G,
+  I_LAM, I_Q, I_QD, I_POS, I_QUAT, I_LIN, I_ANG, I_TGT, I_STR,
+  I_W0, I_B0, I_W1, I_B1, I_W2, I_B2, I_EL, I_ELL, I_VL, I_VLL,
+  I_VLIM, I_TLIM, I_QLO, I_QHI, N_IN
+};
+enum OutIdx {
+  O_Q = 0, O_QD, O_POS, O_QUAT, O_LIN, O_ANG, O_PCP, O_PCPPREV, O_LAM,
+  O_TAU, O_EL, O_ELL, O_VL, O_VLL, N_OUT
+};
+enum FIdx {
+  F_DT = 0, F_RELAX, F_BAUM_DT, F_SLOP, F_MAXDEPEN, F_BOUNCE, F_KLIM,
+  F_DLIM, F_MAXANG, F_MAXLIN, F_EPS, F_HALFDT, N_F
+};
+
+struct MegastepArgs {
+  const float* in[N_IN];
+  float* out[N_OUT];
+  float f[N_F];
+  int npad, D, num_iters, warm_iters, contact;
+};
+
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* o) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float softsign(float x) {
+  return x / (1.0f + fabsf(x));
+}
+
+__device__ __forceinline__ float clampf(float x, float lim) {
+  return fminf(fmaxf(x, -lim), lim);
+}
+
+// M9 row-major 3x3, v (3) -> M v
+__device__ __forceinline__ void m3v(const float* M, const float* v, float* o) {
+  o[0] = M[0] * v[0] + M[1] * v[1] + M[2] * v[2];
+  o[1] = M[3] * v[0] + M[4] * v[1] + M[5] * v[2];
+  o[2] = M[6] * v[0] + M[7] * v[1] + M[8] * v[2];
+}
+
+// M^T v
+__device__ __forceinline__ void m3tv(const float* M, const float* v,
+                                     float* o) {
+  o[0] = M[0] * v[0] + M[3] * v[1] + M[6] * v[2];
+  o[1] = M[1] * v[0] + M[4] * v[1] + M[7] * v[2];
+  o[2] = M[2] * v[0] + M[5] * v[1] + M[8] * v[2];
+}
+
+// out[w] = sum_v Minv[w][v] * x[v], Minv env-minor in global memory
+__device__ __forceinline__ void minv_mul(const float* __restrict__ Minv,
+                                         const float* x, float* out,
+                                         size_t npad, int env) {
+#pragma unroll 1
+  for (int w = 0; w < NV; ++w) {
+    const float* row = Minv + (size_t)(w * NV) * npad + env;
+    float acc = 0.0f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc += __ldg(row + (size_t)v * npad) * x[v];
+    out[w] = acc;
+  }
+}
+
+// Unconstrained dynamics: body twists over the static ancestor mask,
+// velocity-product terms, F = I a + V x* (I V) in 3x3 blocks, projection onto
+// the twist rows, qdd = M^-1 (tau - bias) + centripetal term.
+__device__ __noinline__ void dyn_core(
+    const float (*sw)[3], const float (*sv)[3], const float* __restrict__ A,
+    const float* __restrict__ B, const float* __restrict__ mass,
+    const float* __restrict__ Minv, const float* g, const float* tau,
+    const float* gv, float* qdd, size_t npad, int env) {
+  float Vw[NB][3], Vv[NB][3];
+#pragma unroll 1
+  for (int b = 0; b < NB; ++b) {
+    float w[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
+    for (int d = 0; d < NV; ++d) {
+      if (MS_ANC[d * NB + b]) {
+        const float s = gv[d];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          w[i] += sw[d][i] * s;
+          v[i] += sv[d][i] * s;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) { Vw[b][i] = w[i]; Vv[b][i] = v[i]; }
+  }
+
+  float Cw[NJ][3], Cv[NJ][3];
+#pragma unroll 1
+  for (int j = 0; j < NJ; ++j) {
+    const int jb = MS_JOINT_BODY[j];
+    const float qd = gv[6 + j];
+    float c1[3], c2[3], c3[3];
+    cross3(Vw[jb], sw[6 + j], c1);
+    cross3(Vw[jb], sv[6 + j], c2);
+    cross3(Vv[jb], sw[6 + j], c3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Cw[j][i] = c1[i] * qd;
+      Cv[j][i] = (c2[i] + c3[i]) * qd;
+    }
+  }
+
+  float Fw[NB][3], Fv[NB][3];
+  float Fws[3] = {0.0f, 0.0f, 0.0f}, Fvs[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+  for (int b = 0; b < NB; ++b) {
+    float aw[3] = {0.0f, 0.0f, 0.0f};
+    float av[3] = {-g[0], -g[1], -g[2]};
+    for (int j = 0; j < NJ; ++j) {
+      if (MS_ANC[(6 + j) * NB + b]) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) { aw[i] += Cw[j][i]; av[i] += Cv[j][i]; }
+      }
+    }
+    float A9[9], B9[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      A9[k] = __ldg(A + (size_t)(b * 9 + k) * npad + env);
+      B9[k] = __ldg(B + (size_t)(b * 9 + k) * npad + env);
+    }
+    const float mb = __ldg(mass + (size_t)b * npad + env);
+    float t1[3], t2[3], IVw[3], IVv[3], IAw[3], IAv[3];
+    m3v(A9, Vw[b], t1); m3v(B9, Vv[b], t2);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) IVw[i] = t1[i] + t2[i];
+    m3tv(B9, Vw[b], t1);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) IVv[i] = t1[i] + mb * Vv[b][i];
+    m3v(A9, aw, t1); m3v(B9, av, t2);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) IAw[i] = t1[i] + t2[i];
+    m3tv(B9, aw, t1);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) IAv[i] = t1[i] + mb * av[i];
+    float x1[3], x2[3], x3[3];
+    cross3(Vw[b], IVw, x1); cross3(Vv[b], IVv, x2); cross3(Vw[b], IVv, x3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float fw = IAw[i] + x1[i] + x2[i];
+      const float fv = IAv[i] + x3[i];
+      Fw[b][i] = fw; Fv[b][i] = fv;
+      Fws[i] += fw; Fvs[i] += fv;
+    }
+  }
+
+  // tb = tau - bias; root rows of the twist basis are unit vectors
+  float tb[NV];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    tb[i] = tau[i] - Fws[i];
+    tb[3 + i] = tau[3 + i] - Fvs[i];
+  }
+#pragma unroll 1
+  for (int j = 0; j < NJ; ++j) {
+    float acc = 0.0f;
+    for (int b = 0; b < NB; ++b) {
+      if (MS_ANC[(6 + j) * NB + b]) {
+        acc += sw[6 + j][0] * Fw[b][0] + sw[6 + j][1] * Fw[b][1]
+             + sw[6 + j][2] * Fw[b][2]
+             + sv[6 + j][0] * Fv[b][0] + sv[6 + j][1] * Fv[b][1]
+             + sv[6 + j][2] * Fv[b][2];
+      }
+    }
+    tb[6 + j] = tau[6 + j] - acc;
+  }
+  minv_mul(Minv, tb, qdd, npad, env);
+  float corr[3];
+  cross3(gv, gv + 3, corr);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) qdd[3 + i] += corr[i];
+}
+
+// Velocity of contact point p: base part from r (unit root twists), leg part
+// from the kept Jacobian columns.
+__device__ __forceinline__ void jdot_p(int p, const float* gv,
+                                       const float (*r)[3],
+                                       const float (*Jl)[GM][3], float* v) {
+  float c[3];
+  cross3(gv, r[p], c);
+  v[0] = gv[3] + c[0]; v[1] = gv[4] + c[1]; v[2] = gv[5] + c[2];
+  const int lo = MS_PT_LO[p], n = MS_PT_N[p];
+  for (int k = 0; k < n; ++k) {
+    const float s = gv[lo + k];
+    v[0] += Jl[p][k][0] * s; v[1] += Jl[p][k][1] * s; v[2] += Jl[p][k][2] * s;
+  }
+}
+
+// jta += J_p^T f
+__device__ __forceinline__ void jt_acc_p(int p, const float* f,
+                                         const float (*r)[3],
+                                         const float (*Jl)[GM][3],
+                                         float* jta) {
+  float c[3];
+  cross3(r[p], f, c);
+  jta[0] += c[0]; jta[1] += c[1]; jta[2] += c[2];
+  jta[3] += f[0]; jta[4] += f[1]; jta[5] += f[2];
+  const int lo = MS_PT_LO[p], n = MS_PT_N[p];
+  for (int k = 0; k < n; ++k)
+    jta[lo + k] += Jl[p][k][0] * f[0] + Jl[p][k][1] * f[1]
+                 + Jl[p][k][2] * f[2];
+}
+
+__global__ void __launch_bounds__(128)
+megastep_kernel(const MegastepArgs a) {
+  const int env = blockIdx.x * blockDim.x + threadIdx.x;
+  if (env >= a.npad) return;          // ragged edge of the last block
+  const size_t npad = (size_t)a.npad;
+#define LD(idx, row) __ldg(a.in[idx] + (size_t)(row) * npad + env)
+#define ST(idx, row, val) a.out[idx][(size_t)(row) * npad + env] = (val)
+#define LDC(idx, k) __ldg(a.in[idx] + (k))     // same address for the warp
+
+  const float dt = a.f[F_DT], relax = a.f[F_RELAX];
+  const float* Minv = a.in[I_MINV];
+
+  // ---- entry state ----
+  float sw[NV][3], sv[NV][3];
+#pragma unroll 1
+  for (int d = 0; d < NV; ++d)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      sw[d][i] = LD(I_SW, d * 3 + i);
+      sv[d][i] = LD(I_SV, d * 3 + i);
+    }
+  float q[NJ], qd[NJ], el[NJ], ell[NJ], vl[NJ], vll[NJ], tau_m[NJ];
+#pragma unroll 1
+  for (int j = 0; j < NJ; ++j) {
+    q[j] = LD(I_Q, j); qd[j] = LD(I_QD, j);
+    el[j] = LD(I_EL, j); ell[j] = LD(I_ELL, j);
+    vl[j] = LD(I_VL, j); vll[j] = LD(I_VLL, j);
+    tau_m[j] = 0.0f;
+  }
+  float pos[3], lin[3], ang[3], quat[4], g[3], ref[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pos[i] = LD(I_POS, i); lin[i] = LD(I_LIN, i); ang[i] = LD(I_ANG, i);
+    g[i] = LD(I_G, i); ref[i] = pos[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) quat[i] = LD(I_QUAT, i);
+  const float mu = LD(I_MU, 0), rest = LD(I_E, 0);
+
+  // ---- contact cache, once per control step ----
+  float pcp[NP][3], r[NP][3], lam[NP][3], Jl[NP][GM][3];
+  float W00[NP], W01[NP], W11[NP], inv_wnn[NP];
+  const bool have_seed = a.in[I_LAM] != nullptr;
+#pragma unroll 1
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      pcp[p][i] = LD(I_PCP, p * 3 + i);
+      r[p][i] = pcp[p][i] - pos[i];
+      lam[p][i] = have_seed ? LD(I_LAM, p * 3 + i) : 0.0f;
+    }
+    const int lo = MS_PT_LO[p], n = MS_PT_N[p];
+    // J rows of this point over its dofs: 6 base + n leg joints
+    float Jp[6 + GM][3];
+    Jp[0][0] = 0.0f;     Jp[0][1] = -r[p][2]; Jp[0][2] = r[p][1];
+    Jp[1][0] = r[p][2];  Jp[1][1] = 0.0f;     Jp[1][2] = -r[p][0];
+    Jp[2][0] = -r[p][1]; Jp[2][1] = r[p][0];  Jp[2][2] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) Jp[3 + k][i] = (k == i) ? 1.0f : 0.0f;
+    for (int k = 0; k < GM; ++k) {
+      float c[3] = {0.0f, 0.0f, 0.0f};
+      float mask = 0.0f;
+      if (k < n) {
+        cross3(sw[lo + k], r[p], c);
+        mask = MS_PT_ANC[p * GM + k];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) c[i] = mask * (sv[lo + k][i] + c[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) { Jl[p][k][i] = c[i]; Jp[6 + k][i] = c[i]; }
+    }
+    // W[i][j] = sum_v J[j][v] * t_i[v],  t_i[v] = sum_w J[i][w] Minv[w][v]
+    const int nd = 6 + n;
+    float w00 = 0.0f, w01 = 0.0f, w11 = 0.0f, w22 = 0.0f;
+    for (int kv = 0; kv < nd; ++kv) {
+      const int dv = kv < 6 ? kv : lo + kv - 6;
+      float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
+      for (int kw = 0; kw < nd; ++kw) {
+        const int dw = kw < 6 ? kw : lo + kw - 6;
+        const float mi = __ldg(Minv + (size_t)(dw * NV + dv) * npad + env);
+        t0 += Jp[kw][0] * mi; t1 += Jp[kw][1] * mi; t2 += Jp[kw][2] * mi;
+      }
+      w00 += Jp[kv][0] * t0; w01 += Jp[kv][1] * t0;
+      w11 += Jp[kv][1] * t1; w22 += Jp[kv][2] * t2;
+    }
+    W00[p] = w00 + a.f[F_EPS]; W01[p] = w01; W11[p] = w11 + a.f[F_EPS];
+    inv_wnn[p] = relax / (w22 + a.f[F_EPS]);
+  }
+
+  // ---- D substeps ----
+#pragma unroll 1
+  for (int si = 0; si < a.D; ++si) {
+    // torque model: per-joint MLP on [err, el, ell, qd, vl, vll]; the
+    // weights are the nonzero blocks of the block-diagonal matrices
+    float tau_full[NV];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) tau_full[i] = 0.0f;
+#pragma unroll 1
+    for (int j = 0; j < NJ; ++j) {
+      const float err = q[j] - LD(I_TGT, si * NJ + j);
+      const float x[NF] = {err, el[j], ell[j], qd[j], vl[j], vll[j]};
+      float h0[NH], h1[NH];
+#pragma unroll 4
+      for (int o = 0; o < NH; ++o) {
+        const int row = NH * j + o;
+        float acc = 0.0f;
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+          acc += LDC(I_W0, row * (NJ * NF) + NJ * f + j) * x[f];
+        h0[o] = softsign(acc + LDC(I_B0, row));
+      }
+#pragma unroll 2
+      for (int o = 0; o < NH; ++o) {
+        const int row = NH * j + o;
+        const float* wrow = a.in[I_W1] + (size_t)row * (NJ * NH) + NH * j;
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NH; ++i) acc += __ldg(wrow + i) * h0[i];
+        h1[o] = softsign(acc + LDC(I_B1, row));
+      }
+      float t = 0.0f;
+#pragma unroll
+      for (int o = 0; o < NH; ++o)
+        t += LDC(I_W2, j * (NJ * NH) + NH * j + o) * h1[o];
+      t += LDC(I_B2, j);
+      ell[j] = el[j]; el[j] = err; vll[j] = vl[j]; vl[j] = qd[j];
+      t = t * LD(I_STR, j);
+      t = clampf(t, LDC(I_TLIM, j));
+      tau_m[j] = t;
+      // joint-limit spring / damper
+      const float over = fmaxf(q[j] - LDC(I_QHI, j), 0.0f);
+      const float under = fmaxf(LDC(I_QLO, j) - q[j], 0.0f);
+      const float at_lim = (over > 0.0f || under > 0.0f) ? 1.0f : 0.0f;
+      const float tau_lim = a.f[F_KLIM] * (under - over)
+                          - a.f[F_DLIM] * at_lim * qd[j];
+      tau_full[6 + j] = t + tau_lim;
+    }
+
+    // unconstrained dynamics at the anchor point, midpoint rule
+    float delta[3], cd[3], gv[NV], qdd[NV], gvm[NV];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) delta[i] = ref[i] - pos[i];
+    cross3(ang, delta, cd);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) { gv[i] = ang[i]; gv[3 + i] = lin[i] + cd[i]; }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) gv[6 + j] = qd[j];
+    dyn_core(sw, sv, a.in[I_A], a.in[I_B], a.in[I_M], Minv, g, tau_full, gv,
+             qdd, npad, env);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) gvm[v] = gv[v] + a.f[F_HALFDT] * qdd[v];
+    dyn_core(sw, sv, a.in[I_A], a.in[I_B], a.in[I_M], Minv, g, tau_full, gvm,
+             qdd, npad, env);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) gv[v] = gv[v] + dt * qdd[v];   // gv_free
+
+    if (si == a.D - 1) {
+#pragma unroll 1
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < 3; ++i) ST(O_PCPPREV, p * 3 + i, pcp[p][i]);
+    }
+
+    if (a.contact) {
+      const bool warm = a.warm_iters > 0 && (si > 0 || have_seed);
+      const int iters = warm ? a.warm_iters : a.num_iters;
+      // gaps and velocity targets from the free velocity
+      float target[NP], active[NP];
+#pragma unroll 1
+      for (int p = 0; p < NP; ++p) {
+        const float phi = LD(I_RH, p) - pcp[p][2];
+        active[p] = phi > 0.0f ? 1.0f : 0.0f;
+        float v0[3];
+        jdot_p(p, gv, r, Jl, v0);
+        const float vn0 = v0[2];
+        const float bounce = vn0 < -a.f[F_BOUNCE] ? -rest * vn0 : 0.0f;
+        const float bias = fminf(
+            a.f[F_BAUM_DT] * fmaxf(phi - a.f[F_SLOP], 0.0f),
+            a.f[F_MAXDEPEN]);
+        target[p] = fmaxf(bounce, bias);
+      }
+      float jta[NV], dgv[NV];
+      if (warm) {
+        // pre-apply the seed impulse: gv = gv0 + M^-1 J^T lam0
+#pragma unroll
+        for (int v = 0; v < NV; ++v) jta[v] = 0.0f;
+#pragma unroll 1
+        for (int p = 0; p < NP; ++p) jt_acc_p(p, lam[p], r, Jl, jta);
+        minv_mul(Minv, jta, dgv, npad, env);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) gv[v] += dgv[v];
+      } else {
+#pragma unroll 1
+        for (int p = 0; p < NP; ++p)
+          lam[p][0] = lam[p][1] = lam[p][2] = 0.0f;
+      }
+#pragma unroll 1
+      for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) jta[v] = 0.0f;
+#pragma unroll 1
+        for (int p = 0; p < NP; ++p) {
+          float v[3];
+          jdot_p(p, gv, r, Jl, v);
+          const float vn = v[2], vtx = v[0], vty = v[1];
+          const float vtn = sqrtf(vtx * vtx + vty * vty + 1e-18f);
+          const float itn = 1.0f / vtn;
+          const float tx = vtx * itn, ty = vty * itn;
+          const float w_tt = fmaxf(
+              tx * tx * W00[p] + 2.0f * tx * ty * W01[p] + ty * ty * W11[p],
+              1e-6f);
+          const float dln = (target[p] - vn) * inv_wnn[p];
+          const float dlt = -relax * vtn / w_tt;
+          const float ln = fmaxf(lam[p][2] + dln, 0.0f);
+          float lx = lam[p][0] + dlt * tx;
+          float ly = lam[p][1] + dlt * ty;
+          const float ltn = sqrtf(lx * lx + ly * ly + 1e-18f);
+          const float max_t = mu * ln;
+          const float scale = ltn > max_t ? max_t / ltn : 1.0f;
+          lx = lx * scale * active[p];
+          ly = ly * scale * active[p];
+          const float lz = ln * active[p];
+          const float ap[3] = {lx - lam[p][0], ly - lam[p][1],
+                               lz - lam[p][2]};
+          lam[p][0] = lx; lam[p][1] = ly; lam[p][2] = lz;
+          jt_acc_p(p, ap, r, Jl, jta);
+        }
+        minv_mul(Minv, jta, dgv, npad, env);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) gv[v] += dgv[v];
+      }
+      // advance the points with the clamped velocities
+      float gcl[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) gcl[v] = clampf(gv[v], LDC(I_VLIM, v));
+#pragma unroll 1
+      for (int p = 0; p < NP; ++p) {
+        float v[3];
+        jdot_p(p, gcl, r, Jl, v);
+        pcp[p][0] += dt * v[0]; pcp[p][1] += dt * v[1]; pcp[p][2] += dt * v[2];
+      }
+    } else {
+#pragma unroll 1
+      for (int p = 0; p < NP; ++p) lam[p][0] = lam[p][1] = lam[p][2] = 0.0f;
+    }
+
+    // clips + integration
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) qd[j] = clampf(gv[6 + j], LDC(I_VLIM, 6 + j));
+    float vref[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ang[i] = clampf(gv[i], a.f[F_MAXANG]);
+      vref[i] = clampf(gv[3 + i], a.f[F_MAXLIN]);
+    }
+    cross3(ang, delta, cd);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      lin[i] = vref[i] - cd[i];
+      pos[i] = pos[i] + dt * lin[i];
+    }
+    {
+      // quaternion exp map, xyzw, world angular velocity
+      const float angle = sqrtf(ang[0] * ang[0] + ang[1] * ang[1]
+                                + ang[2] * ang[2]);
+      const float ia = fmaxf(angle, 1e-9f);
+      float ax[3] = {ang[0] / ia, ang[1] / ia, ang[2] / ia};
+      const float an = fmaxf(
+          sqrtf(ax[0] * ax[0] + ax[1] * ax[1] + ax[2] * ax[2]), 1e-9f);
+      ax[0] = ax[0] / an; ax[1] = ax[1] / an; ax[2] = ax[2] / an;
+      const float half = 0.5f * (angle * dt);
+      const float s = sinf(half);
+      const float dx = ax[0] * s, dy = ax[1] * s, dz = ax[2] * s;
+      const float dw = cosf(half);
+      const float qx = quat[0], qy = quat[1], qz = quat[2], qw = quat[3];
+      const float rx = dw * qx + dx * qw + dy * qz - dz * qy;
+      const float ry = dw * qy - dx * qz + dy * qw + dz * qx;
+      const float rz = dw * qz + dx * qy - dy * qx + dz * qw;
+      const float rw = dw * qw - dx * qx - dy * qy - dz * qz;
+      const float inv = 1.0f / fmaxf(
+          sqrtf(rx * rx + ry * ry + rz * rz + rw * rw), 1e-9f);
+      quat[0] = rx * inv; quat[1] = ry * inv;
+      quat[2] = rz * inv; quat[3] = rw * inv;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) q[j] = q[j] + dt * qd[j];
+  }
+
+  // ---- exit state ----
+#pragma unroll 1
+  for (int j = 0; j < NJ; ++j) {
+    ST(O_Q, j, q[j]); ST(O_QD, j, qd[j]); ST(O_TAU, j, tau_m[j]);
+    ST(O_EL, j, el[j]); ST(O_ELL, j, ell[j]);
+    ST(O_VL, j, vl[j]); ST(O_VLL, j, vll[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    ST(O_POS, i, pos[i]); ST(O_LIN, i, lin[i]); ST(O_ANG, i, ang[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ST(O_QUAT, i, quat[i]);
+#pragma unroll 1
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ST(O_PCP, p * 3 + i, pcp[p][i]);
+      ST(O_LAM, p * 3 + i, lam[p][i]);
+    }
+#undef LD
+#undef ST
+#undef LDC
+}
+
+// Plain C interface for ctypes.  `in` / `out` are host arrays of device
+// pointers in InIdx / OutIdx order (in[I_LAM] may be null: no cross-step
+// seed), `f` the FIdx scalars, `ip` = {npad, D, num_iters, warm_iters,
+// contact, threads per block}.  Launches on `stream`, does not synchronise,
+// returns the launch's cudaError_t (0 = launched).
+extern "C" int megastep_launch(const void* const* in, void* const* out,
+                               const float* f, const int* ip, void* stream) {
+  MegastepArgs a;
+  for (int i = 0; i < N_IN; ++i) a.in[i] = static_cast<const float*>(in[i]);
+  for (int i = 0; i < N_OUT; ++i) a.out[i] = static_cast<float*>(out[i]);
+  for (int i = 0; i < N_F; ++i) a.f[i] = f[i];
+  a.npad = ip[0]; a.D = ip[1]; a.num_iters = ip[2]; a.warm_iters = ip[3];
+  a.contact = ip[4];
+  const int threads = ip[5];
+  if (threads < 1 || threads > 128 || a.npad < 1 || a.D < 1)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (a.npad + threads - 1) / threads;
+  megastep_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* megastep_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int megastep_counts(int* n_in, int* n_out, int* n_f) {
+  *n_in = N_IN; *n_out = N_OUT; *n_f = N_F;
+  return 0;
+}

@@ -1,0 +1,555 @@
+"""The WHOLE control step in one kernel launch, env-minor.
+
+Counterpart of the JAX package's ops/pallas_megastep.py.  Three things live
+here:
+
+- `control_step_reference`: the plain PyTorch version, same signature and
+  outputs as the JAX `control_step_pallas`, composed from the plain cores
+  `ops/contact.cache_core`, `ops/dynamics.dyn_core`,
+  `ops/contact.contact_core`.  It runs anywhere and is what the kernel is
+  held against.
+- `control_step`: the wrapper.  CPU tensors go to the plain version; CUDA
+  tensors go to the hand-written kernel `csrc/megastep.cu` (replaces
+  `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.  There
+  is no fallback from the kernel to the plain version.
+- `blockdiag_actuator_weights`: host helper that lays the 12 per-joint
+  actuator MLPs (6 -> 32 -> 32 -> 1, softsign) out as block-diagonal
+  matrices, with features stacked as X[12 f + j] = feature f of joint j.
+  The plain version evaluates them as three dense products; the kernel
+  reads only the nonzero blocks.
+
+The kernel is built at first use with `nvcc` for sm_90a into `build/` at the
+repo root (or `$WTW_TORCH_BUILD_DIR`), from `csrc/megastep.cu` and a topology
+header generated from the RobotModel, and is bound through `ctypes`.
+
+Bound of the kernel on an H100 (see csrc/megastep.cu and `work_per_env`):
+about 5.5 KB moved and 0.26 MFLOP fp32 per env and control step; at 4000 envs
+the least time is tens of microseconds and is set by arithmetic.
+
+`launches` counts kernel launches (and nothing else).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from . import contact as pc
+from . import dynamics as pd
+
+# number of times `control_step` launched the CUDA kernel
+launches = 0
+
+# threads per block of the CUDA kernel: one env per thread; at 4000 envs a
+# 32-thread block spreads the batch over the most SMs
+KERNEL_THREADS = 32
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "csrc", "megastep.cu")
+_LIBS = {}          # hash of (source, topology header) -> ctypes library
+last_build = None   # dict(seconds, cached, command, library, log) of the last build
+
+
+def blockdiag_actuator_weights(params, device="cuda"):
+    """ActuatorNetParams-like (w0 (32,6), b0, w1 (32,32), b1, w2 (1,32), b2,
+    numpy or tensors) -> block-diagonal (W0b (384, 72), b0b (384, 1),
+    W1b (384, 384), b1b (384, 1), W2b (12, 384), b2b (12, 1)) tensors so
+    the 12 per-joint MLPs evaluate as three products on feature-stacked
+    inputs X (72, B) with X[12f + j] = feature f of joint j."""
+    def _np(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    w0, b0 = _np(params.w0), _np(params.b0)   # (32, 6)
+    w1, b1 = _np(params.w1), _np(params.b1)   # (32, 32)
+    w2, b2 = _np(params.w2), _np(params.b2)   # (1, 32)
+    H, F = w0.shape                           # 32, 6
+    J = 12
+    W0b = np.zeros((J * H, J * F), np.float32)
+    W1b = np.zeros((J * H, J * H), np.float32)
+    W2b = np.zeros((J, J * H), np.float32)
+    for j in range(J):
+        for f in range(F):
+            W0b[j * H:(j + 1) * H, f * J + j] = w0[:, f]
+        W1b[j * H:(j + 1) * H, j * H:(j + 1) * H] = w1
+        W2b[j, j * H:(j + 1) * H] = w2[0]
+    b0b = np.tile(b0, J)[:, None]
+    b1b = np.tile(b1, J)[:, None]
+    b2b = np.full((J, 1), float(b2[0]), np.float32)
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in (W0b, b0b, W1b, b1b, W2b, b2b))
+
+
+def _softsign(x):
+    return x / (1.0 + torch.abs(x))
+
+
+def _cross3(a, b):
+    """(3, B) x (3, B) -> (3, B)."""
+    return torch.cat([
+        a[1:2] * b[2:3] - a[2:3] * b[1:2],
+        a[2:3] * b[0:1] - a[0:1] * b[2:3],
+        a[0:1] * b[1:2] - a[1:2] * b[0:1]], dim=0)
+
+
+def _quat_integrate(quat, omega, dt):
+    """(4, B) xyzw rows, (3, B) world angular velocity -> (4, B).
+    Matches ops/quat.py:quat_integrate step for step (norm guard, axis
+    renormalization inside quat_from_angle_axis, final normalize)."""
+    angle = torch.sqrt(omega[0:1] ** 2 + omega[1:2] ** 2
+                       + omega[2:3] ** 2)                     # (1, B)
+    axis = omega / torch.clamp(angle, min=1e-9)
+    # quat_from_angle_axis re-normalizes the axis
+    an = torch.sqrt(axis[0:1] ** 2 + axis[1:2] ** 2 + axis[2:3] ** 2)
+    axis = axis / torch.clamp(an, min=1e-9)
+    half = 0.5 * (angle * dt)
+    s = torch.sin(half)
+    dq = torch.cat([axis * s, torch.cos(half)], dim=0)       # (4, B)
+    dx, dy, dz, dw = dq[0:1], dq[1:2], dq[2:3], dq[3:4]
+    qx, qy, qz, qw = quat[0:1], quat[1:2], quat[2:3], quat[3:4]
+    rx = dw * qx + dx * qw + dy * qz - dz * qy
+    ry = dw * qy - dx * qz + dy * qw + dz * qx
+    rz = dw * qz + dx * qy - dy * qx + dz * qw
+    rw = dw * qw - dx * qx - dy * qy - dz * qz
+    norm = torch.sqrt(rx * rx + ry * ry + rz * rz + rw * rw)
+    inv = 1.0 / torch.clamp(norm, min=1e-9)
+    return torch.cat([rx, ry, rz, rw], dim=0) * inv
+
+
+def _topology(model):
+    """Static tables of the robot the kernel and the plain version share."""
+    anc = np.asarray(model.anc_dof_body).astype(bool)          # (nv, nb)
+    anc_p = anc[:, np.asarray(model.cp_body)].T                # (P, nv)
+    groups = tuple(pc.point_dof_groups(anc_p))
+    return anc, anc_p, groups
+
+
+def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
+                           q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
+                           tgt_t, strengths_t, ctrl_inputs,
+                           vlim, tlim, qlo, qhi, lam_in_t=None, *,
+                           model, control_type: str,
+                           dt: float, num_iters: int, warm_iters: int = 0,
+                           relaxation: float,
+                           baumgarte: float, slop: float, max_depen: float,
+                           bounce_thresh: float, contact: bool,
+                           limit_stiffness: float, limit_damping: float,
+                           max_base_ang_vel: float, max_base_lin_vel: float,
+                           decimation: int, eps: float = 1e-6):
+    """One whole control step (`decimation` physics substeps), env-minor,
+    in plain PyTorch (reuse mode: cache from `em`, anchored at the entry
+    state).
+
+    `em` is the physics/envminor.EnvMinorCache for the entry state;
+    `tgt_t` (D, 12, Npad) carries per-substep effective joint-position
+    targets; `ctrl_inputs` is (kp_eff_t, kd_eff_t) for P control or
+    (W0b, b0b, W1b, b1b, W2b, b2b, el_t, ell_t, vl_t, vll_t) for the
+    actuator network.  `vlim`/`tlim`/`qlo`/`qhi` are (rows, 1) per-dof
+    bound columns.  `n_t` is None on flat ground, else (P, 3, Npad) surface
+    normals.  `lam_in_t` (P, 3, Npad) is the cross-step warm seed.
+
+    Returns (q, qd, pos, quat, lin, ang, pcp, pcp_prev, lam, tau_last
+    [, el, ell, vl, vll]) — all env-minor."""
+    nv, nb = model.nv, model.nb
+    nj = nv - 6
+    P = model.cp_body.shape[0]
+    D = decimation
+    f32 = q_t.dtype
+    dev = q_t.device
+    bt = tuple(q_t.shape[1:])
+
+    anc, anc_p, groups = _topology(model)
+    joint_body = np.asarray(model.joint_body)
+    anc_pn = torch.tensor(anc_p, dtype=f32, device=dev)
+    warm0 = lam_in_t is not None
+
+    Sw, Sv, Ab, Bb, mb, Minv, pcp = (em.Sw_t, em.Sv_t, em.A_t, em.B_t,
+                                     em.m_t, em.Minv_t, em.p_cp_t)
+    q, qd, pos, quat, lin, ang = q_t, qd_t, pos_t, quat_t, lin_t, ang_t
+    if control_type == "P":
+        kp, kd = ctrl_inputs
+        hist = ()
+    else:
+        W0b, b0b, W1b, b1b, W2b, b2b, el, ell, vl, vll = ctrl_inputs
+        hist = (el, ell, vl, vll)
+
+    # contact cache once per control step; r = contact points about the
+    # anchor (= entry base position)
+    r = pcp - pos.unsqueeze(0)
+    J, W = pc.cache_core(anc_pn, Sw, Sv, Minv, r, eps=eps)
+
+    ref_pt = pos
+    pcp_prev = pcp
+    lam = (torch.zeros((P, 3) + bt, dtype=f32, device=dev)
+           if lam_in_t is None else lam_in_t)
+    tau_m = torch.zeros((nj,) + bt, dtype=f32, device=dev)
+    zeros6 = torch.zeros((6,) + bt, dtype=f32, device=dev)
+    vlim_j = vlim[6:]
+
+    for si in range(D):
+        tgt_s = tgt_t[si]
+        # warm start: substeps after the first seed the iteration with the
+        # previous substep's impulses and run the shorter warm iteration
+        # count; with a cross-step seed the first substep warm-starts too
+        warm = warm_iters > 0 and (si > 0 or warm0)
+
+        # -- torque model --
+        if control_type == "P":
+            tau_m = kp * (tgt_s - q) - kd * qd
+        else:
+            el, ell, vl, vll = hist
+            err = q - tgt_s
+            X = torch.cat([err, el, ell, qd, vl, vll], dim=0)
+            h = _softsign(W0b @ X + b0b)
+            h = _softsign(W1b @ h + b1b)
+            tau_m = W2b @ h + b2b
+            hist = (err, el, qd, vl)
+        tau_m = tau_m * strengths_t
+        tau_m = torch.maximum(torch.minimum(tau_m, tlim), -tlim)
+
+        # joint-limit torques
+        over = torch.clamp(q - qhi, min=0.0)
+        under = torch.clamp(qlo - q, min=0.0)
+        at_lim = torch.logical_or(over > 0, under > 0).to(f32)
+        tau_lim = limit_stiffness * (under - over) \
+            - limit_damping * at_lim * qd
+        tau_full = torch.cat([zeros6, tau_m + tau_lim], dim=0)
+
+        # -- unconstrained dynamics at the anchor point, midpoint rule --
+        delta = ref_pt - pos
+        v_ref = lin + _cross3(ang, delta)
+        gv = torch.cat([ang, v_ref, qd], dim=0)               # (nv, B)
+        qdd1 = pd.dyn_core(Sw, Sv, Ab, Bb, mb, Minv, g_t, tau_full, gv,
+                           anc=anc, joint_body=joint_body,
+                           nb=nb, nj=nj, nv=nv)
+        gv_mid = gv + (0.5 * dt) * qdd1
+        qdd = pd.dyn_core(Sw, Sv, Ab, Bb, mb, Minv, g_t, tau_full, gv_mid,
+                          anc=anc, joint_body=joint_body,
+                          nb=nb, nj=nj, nv=nv)
+        gv_free = gv + dt * qdd
+
+        # -- contact solve + point advance --
+        if contact:
+            gv_new, pcp_new, lam = pc.contact_core(
+                J, W, Minv, pcp, gv_free, rh_t, mu_t, e_t, vlim,
+                num_iters=warm_iters if warm else num_iters,
+                relaxation=relaxation, dt=dt,
+                baumgarte=baumgarte, slop=slop, max_depen=max_depen,
+                bounce_thresh=bounce_thresh, groups=groups, n=n_t,
+                lam0=lam if warm else None)
+        else:
+            gv_new = gv_free
+            pcp_new = pcp
+            lam = torch.zeros((P, 3) + bt, dtype=f32, device=dev)
+        pcp_prev = pcp
+        pcp = pcp_new
+
+        # -- clips + integration --
+        qd = torch.maximum(torch.minimum(gv_new[6:], vlim_j), -vlim_j)
+        ang = torch.clamp(gv_new[0:3], -max_base_ang_vel, max_base_ang_vel)
+        v_ref_n = torch.clamp(gv_new[3:6], -max_base_lin_vel,
+                              max_base_lin_vel)
+        lin = v_ref_n - _cross3(ang, delta)
+        pos = pos + dt * lin
+        quat = _quat_integrate(quat, ang, dt)
+        q = q + dt * qd
+
+    results = [q, qd, pos, quat, lin, ang, pcp, pcp_prev, lam, tau_m]
+    if control_type != "P":
+        results += list(hist)
+    return tuple(results)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+
+def topology_header(model, hidden: int, features: int) -> str:
+    """C header with the robot's static tables for csrc/megastep.cu."""
+    anc, anc_p, groups = _topology(model)
+    nv, nb = anc.shape
+    nj = nv - 6
+    P = anc_p.shape[0]
+    pt_lo = np.full(P, 6, np.int64)
+    pt_n = np.zeros(P, np.int64)
+    pos = 6
+    for (s, p, lo, hi) in groups:
+        if lo is None:
+            continue
+        if lo != pos:
+            raise NotImplementedError("joint ranges must tile [6, nv)")
+        pt_lo[s:p] = lo
+        pt_n[s:p] = hi - lo
+        pos = hi
+    if pos != nv:
+        raise NotImplementedError("joint ranges must tile [6, nv)")
+    gmax = max(1, int(pt_n.max()))
+    pt_anc = np.zeros((P, gmax), np.float32)
+    for p in range(P):
+        for k in range(int(pt_n[p])):
+            pt_anc[p, k] = float(anc_p[p, pt_lo[p] + k])
+    # every point depends on all six base dofs
+    assert anc_p[:, :6].all()
+
+    def arr(ctype, name, vals, fmt):
+        body = ", ".join(fmt(v) for v in vals)
+        return (f"__constant__ {ctype} {name}[{len(vals)}] = {{{body}}};")
+
+    lines = [
+        "// generated by walk_these_ways_tpu_torch/ops/megastep.py",
+        "#pragma once",
+        f"#define MS_NB {nb}", f"#define MS_NJ {nj}", f"#define MS_NV {nv}",
+        f"#define MS_P {P}", f"#define MS_GMAX {gmax}",
+        f"#define MS_H {hidden}", f"#define MS_F {features}",
+        arr("unsigned char", "MS_ANC", anc.astype(int).reshape(-1),
+            lambda v: str(int(v))),
+        arr("int", "MS_JOINT_BODY", np.asarray(model.joint_body),
+            lambda v: str(int(v))),
+        arr("int", "MS_PT_LO", pt_lo, lambda v: str(int(v))),
+        arr("int", "MS_PT_N", pt_n, lambda v: str(int(v))),
+        arr("float", "MS_PT_ANC", pt_anc.reshape(-1),
+            lambda v: f"{float(v):.1f}f"),
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def build_dir() -> str:
+    root = os.environ.get("WTW_TORCH_BUILD_DIR")
+    if root:
+        return root
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(os.path.dirname(pkg), "build")
+
+
+def _find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the control-step kernel is built "
+                       "from csrc/megastep.cu at first CUDA use")
+
+
+def build_library(model, hidden: int = 32, features: int = 6):
+    """Compile csrc/megastep.cu for sm_90a (once per topology and source)
+    and load it.  Returns the ctypes library.  Raises on any failure."""
+    global last_build
+    header = topology_header(model, hidden, features)
+    with open(_CSRC, "rb") as fh:
+        src = fh.read()
+    key = hashlib.sha1(src + header.encode()).hexdigest()[:16]
+    if key in _LIBS:
+        return _LIBS[key]
+    out_dir = os.path.join(build_dir(), f"megastep_{key}")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libmegastep.so")
+    cached = os.path.exists(lib_path)
+    t0 = time.time()
+    cmd = None
+    log = ""
+    if not cached:
+        with open(os.path.join(out_dir, "megastep_topology.h"), "w") as fh:
+            fh.write(header)
+        tmp = lib_path + f".tmp{os.getpid()}"
+        # -Xptxas -v: registers and stack per function go into the build log
+        cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-I", out_dir, "-o", tmp, _CSRC]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    lib.megastep_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p]
+    lib.megastep_launch.restype = ctypes.c_int
+    lib.megastep_error_string.argtypes = [ctypes.c_int]
+    lib.megastep_error_string.restype = ctypes.c_char_p
+    lib.megastep_counts.argtypes = [ctypes.c_void_p] * 3
+    lib.megastep_counts.restype = ctypes.c_int
+    counts = [ctypes.c_int() for _ in range(3)]
+    lib.megastep_counts(*[ctypes.byref(c) for c in counts])
+    if [c.value for c in counts] != [_N_IN, _N_OUT, _N_F]:
+        raise RuntimeError("csrc/megastep.cu and ops/megastep.py disagree "
+                           "on the kernel's argument lists")
+    last_build = dict(seconds=time.time() - t0, cached=cached,
+                      command=" ".join(cmd) if cmd else None,
+                      library=lib_path, log=log)
+    _LIBS[key] = lib
+    return lib
+
+
+_N_IN, _N_OUT, _N_F = 34, 14, 12
+
+
+def _check(name, x, shape, dev):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x)}")
+    if x.device != dev:
+        raise ValueError(f"{name}: on {x.device}, expected {dev}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected float32")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return x
+
+
+def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
+                 q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
+                 tgt_t, strengths_t, ctrl_inputs,
+                 vlim, tlim, qlo, qhi, lam_in_t=None, *,
+                 model, control_type: str,
+                 dt: float, num_iters: int, warm_iters: int = 0,
+                 relaxation: float,
+                 baumgarte: float, slop: float, max_depen: float,
+                 bounce_thresh: float, contact: bool,
+                 limit_stiffness: float, limit_damping: float,
+                 max_base_ang_vel: float, max_base_lin_vel: float,
+                 decimation: int, eps: float = 1e-6):
+    """One whole control step, env-minor; arguments and results as
+    `control_step_reference`.
+
+    Tensors on the CPU: the plain version.  Tensors on a CUDA device: the
+    kernel of csrc/megastep.cu, launched on the current stream without
+    synchronising, outputs allocated here.  The kernel covers the main
+    path's specialisation (flat ground, actuator network); anything else
+    on a CUDA device raises, as does a failed build or launch."""
+    global launches
+    kw = dict(model=model, control_type=control_type, dt=dt,
+              num_iters=num_iters, warm_iters=warm_iters,
+              relaxation=relaxation, baumgarte=baumgarte, slop=slop,
+              max_depen=max_depen, bounce_thresh=bounce_thresh,
+              contact=contact, limit_stiffness=limit_stiffness,
+              limit_damping=limit_damping,
+              max_base_ang_vel=max_base_ang_vel,
+              max_base_lin_vel=max_base_lin_vel, decimation=decimation,
+              eps=eps)
+    dev = q_t.device
+    if dev.type == "cpu":
+        return control_step_reference(
+            em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t, lin_t,
+            ang_t, tgt_t, strengths_t, ctrl_inputs, vlim, tlim, qlo, qhi,
+            lam_in_t, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"control_step: unsupported device {dev}")
+    if n_t is not None:
+        raise NotImplementedError(
+            "control_step on CUDA: heightfield normals (n_t) need the "
+            "general-normal kernel variant, which is not written yet")
+    if control_type != "actuator_net":
+        raise NotImplementedError(
+            "control_step on CUDA: only control_type='actuator_net' has a "
+            "kernel; the P-control variant is not written yet")
+
+    nv, nb = model.nv, model.nb
+    nj = nv - 6
+    P = model.cp_body.shape[0]
+    D = int(decimation)
+    Npad = q_t.shape[-1]
+    W0b, b0b, W1b, b1b, W2b, b2b, el_t, ell_t, vl_t, vll_t = ctrl_inputs
+    H = W1b.shape[0] // nj
+    F = W0b.shape[1] // nj
+    if F != 6:
+        raise NotImplementedError("actuator network with 6 inputs per joint")
+    ins = [
+        ("Sw_t", em.Sw_t, (nv, 3, Npad)), ("Sv_t", em.Sv_t, (nv, 3, Npad)),
+        ("A_t", em.A_t, (nb, 9, Npad)), ("B_t", em.B_t, (nb, 9, Npad)),
+        ("m_t", em.m_t, (nb, Npad)), ("Minv_t", em.Minv_t, (nv, nv, Npad)),
+        ("p_cp_t", em.p_cp_t, (P, 3, Npad)), ("rh_t", rh_t, (P, Npad)),
+        ("mu_t", mu_t, (1, Npad)), ("e_t", e_t, (1, Npad)),
+        ("g_t", g_t, (3, Npad)), ("lam_in_t", lam_in_t, (P, 3, Npad)),
+        ("q_t", q_t, (nj, Npad)), ("qd_t", qd_t, (nj, Npad)),
+        ("pos_t", pos_t, (3, Npad)), ("quat_t", quat_t, (4, Npad)),
+        ("lin_t", lin_t, (3, Npad)), ("ang_t", ang_t, (3, Npad)),
+        ("tgt_t", tgt_t, (D, nj, Npad)),
+        ("strengths_t", strengths_t, (nj, Npad)),
+        ("W0b", W0b, (nj * H, nj * F)), ("b0b", b0b, (nj * H, 1)),
+        ("W1b", W1b, (nj * H, nj * H)), ("b1b", b1b, (nj * H, 1)),
+        ("W2b", W2b, (nj, nj * H)), ("b2b", b2b, (nj, 1)),
+        ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
+        ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)),
+        ("vlim", vlim, (nv, 1)), ("tlim", tlim, (nj, 1)),
+        ("qlo", qlo, (nj, 1)), ("qhi", qhi, (nj, 1)),
+    ]
+    assert len(ins) == _N_IN
+    ptrs = []
+    for name, x, shape in ins:
+        if x is None and name == "lam_in_t":
+            ptrs.append(None)
+            continue
+        ptrs.append(_check(name, x, shape, dev).data_ptr())
+
+    lib = build_library(model, H, F)
+
+    out_shapes = [(nj, Npad), (nj, Npad), (3, Npad), (4, Npad), (3, Npad),
+                  (3, Npad), (P, 3, Npad), (P, 3, Npad), (P, 3, Npad),
+                  (nj, Npad)] + [(nj, Npad)] * 4
+    with torch.cuda.device(dev):
+        outs = tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                     for s in out_shapes)
+        in_arr = (ctypes.c_void_p * _N_IN)(*ptrs)
+        out_arr = (ctypes.c_void_p * _N_OUT)(*[o.data_ptr() for o in outs])
+        f_arr = (ctypes.c_float * _N_F)(
+            dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
+            limit_stiffness, limit_damping, max_base_ang_vel,
+            max_base_lin_vel, eps, 0.5 * dt)
+        i_arr = (ctypes.c_int * 6)(Npad, D, int(num_iters), int(warm_iters),
+                                   int(bool(contact)), KERNEL_THREADS)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.megastep_launch(in_arr, out_arr, f_arr, i_arr,
+                                 ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.megastep_error_string(rc).decode()
+        raise RuntimeError(f"megastep kernel launch failed: {rc} ({msg})")
+    launches += 1
+    return outs
+
+
+def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
+                 features: int = 6):
+    """(bytes moved, fp32 operations) per env for one control step on the
+    main path (flat, actuator network, every substep warm-started): each
+    input read once and each output written once, and the arithmetic the
+    algorithm needs with its static sparsity (a multiply-add counts 2).
+    The actuator weights and the bound columns are shared by all envs and
+    are not counted per env."""
+    nv, nb = model.nv, model.nb
+    nj = nv - 6
+    P = model.cp_body.shape[0]
+    D = decimation
+    anc, anc_p, groups = _topology(model)
+    floats_in = (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv + P * 3 + P + 1 + 1
+                 + 3 + P * 3 + 2 * nj + 3 + 4 + 3 + 3 + D * nj + nj + 4 * nj)
+    floats_out = 2 * nj + 3 + 4 + 3 + 3 + 3 * P * 3 + nj + 4 * nj
+    nd = anc_p.sum(axis=1)                    # dofs per point
+    jnz = int(3 * nd.sum())                   # nonzero J entries
+    cache = int(sum(3 * 2 * d * d + 4 * 2 * d for d in nd)) + 9 * jnz // 3
+    mlp = nj * 2 * (features * hidden + hidden * hidden + hidden) \
+        + nj * 2 * hidden * 4
+    n_anc = int(anc.sum())
+    dyn = (2 * 6 * n_anc                       # body twists
+           + nj * 3 * 9 + 6 * int(anc[6:].sum())
+           + nb * (4 * 15 + 2 * 18 + 3 * 9 + 12)
+           + 12 * int(anc[6:].sum()) + 2 * nv * nv + nv + 9)
+    minv = 2 * nv * nv
+    sweep = 2 * jnz * 2 + P * 40 + minv
+    solve = (2 * jnz + P * 10) + (2 * jnz + minv) + warm_iters * sweep \
+        + (2 * jnz + 6 * P + nv)
+    integ = 100 + 4 * nv
+    ops = cache + D * (mlp + 10 * nj + 2 * dyn + 4 * nv + solve + integ)
+    return 4 * (floats_in + floats_out), ops
