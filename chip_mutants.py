@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Mutation check of `chip_smoke.py` on one NVIDIA GPU.
+
+    python3 chip_mutants.py
+
+For each mutant below: copies `chip_smoke.py`, the port's package and
+`resources/` into `build/mutants/<name>/`, makes ONE edit in one kernel
+source there, runs `python3 chip_smoke.py` in the copy and records its exit
+code and the first check that failed.  The smoke test must exit non-zero on
+every mutant, and at the check named here; kernels that the edit does not
+reach must still pass before it.  Prints one JSON line per mutant and a last
+line `{"ok": ..., "mutants": n}`; exits non-zero if a mutant survived.
+
+The working tree is never edited.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join("walk_these_ways_tpu_torch", "csrc")
+# (name, source, text to replace, replacement, the check that must fail)
+MUTANTS = (
+    ("shared_dynamics_bias_sign", "wtw_device.cuh",
+     "tb[6 + j] = tau[6 + j] - acc;", "tb[6 + j] = tau[6 + j] + acc;",
+     "control_step"),
+    ("dynamics_substep_integration_sign", "dynamics_substep.cu",
+     "gv[v] = gv[v] + a.c.dt * qdd[v];", "gv[v] = gv[v] - a.c.dt * qdd[v];",
+     "dynamics_substep"),
+    ("contact_cache_drops_the_cross_product", "contact_cache.cu",
+     "const float j = m * (sv[i] + c[i]);", "const float j = m * (sv[i]);",
+     "contact_cache"),
+    ("shared_contact_solve_friction_sign", "wtw_contact.cuh",
+     "const float dlt = -c.relax * vtn / w_tt;",
+     "const float dlt = c.relax * vtn / w_tt;", "dynamics_substep"),
+    ("contact_substep_halved_relaxation", "contact_substep.cu",
+     "a.c.relax = f[F_RELAX];", "a.c.relax = 0.5f * f[F_RELAX];",
+     "contact_substep"),
+    ("contact_cache_does_not_compile", "contact_cache.cu",
+     "const size_t npad = (size_t)a.npad;", "const size_t npad = (size_t)a.npad",
+     "build"),
+)
+
+
+def run_mutant(name, source, old, new, expect):
+    work = os.path.join(ROOT, "build", "mutants", name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), work)
+    for d in ("walk_these_ways_tpu_torch", "resources"):
+        shutil.copytree(os.path.join(ROOT, d), os.path.join(work, d),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(work, CSRC, source)
+    with open(path) as fh:
+        text = fh.read()
+    if text.count(old) != 1:
+        raise SystemExit(f"{name}: {old!r} stands {text.count(old)} times in "
+                         f"{source}, expected once")
+    with open(path, "w") as fh:
+        fh.write(text.replace(old, new))
+    env = dict(os.environ, WTW_TORCH_BUILD_DIR=os.path.join(work, "build"))
+    p = subprocess.run([sys.executable, "chip_smoke.py"], cwd=work, env=env,
+                       capture_output=True, text=True)
+    passed, failed_at = [], None
+    for line in p.stdout.splitlines():
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if not isinstance(rec, dict):
+            continue
+        if rec.get("phase") == "kernel_vs_plain":
+            if rec["ok"]:
+                passed.append(f"{rec['kernel']}:{rec['state']}")
+            else:
+                failed_at = dict(kernel=rec["kernel"], state=rec["state"],
+                                 max_abs_err=rec["max_abs_err"])
+                break
+    err_tail = p.stderr.strip().splitlines()[-1:] or [""]
+    where = failed_at["kernel"] if failed_at else (
+        "build" if "nvcc failed" in p.stderr else None)
+    ok = p.returncode != 0 and where == expect \
+        and '"ok": true, "device"' not in p.stdout
+    print(json.dumps(dict(
+        mutant=name, source=os.path.join(CSRC, source), edit=[old, new],
+        exit_code=p.returncode, expected_to_fail_at=expect, failed_at=where,
+        first_failure=failed_at, passed_before=passed,
+        last_error_line=err_tail[0][:300], ok=ok)), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return ok
+
+
+def main():
+    results = [run_mutant(*m) for m in MUTANTS]
+    print(json.dumps(dict(ok=all(results), mutants=len(results),
+                          killed=sum(results))))
+    sys.exit(0 if all(results) else 1)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,12 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the control-step kernel from csrc/megastep.cu with nvcc, holds it
-against its plain PyTorch version on the card at the main path's shapes
-(4000 envs), then drives the port's main path — the policy rollout of
-`mob_train_cfg(4000)` — through the entry points a user calls, and checks
-what comes out.  Prints one JSON line per phase; needs one CUDA device and no
-network; exits non-zero if any phase fails or no CUDA device is present.
+Builds the port's four kernels from csrc/*.cu with nvcc (one nvcc each, all
+started together), holds each against its plain PyTorch version on the card
+at the shapes the paths below give it (4000 envs), then drives the port's
+paths through the entry points a user calls and checks what comes out:
+
+- the policy rollout of `mob_train_cfg(4000)` on the default route (one
+  control-step kernel launch per step),
+- the same rollout on the per-substep route (`sim.megastep=False`: one
+  contact-cache launch per control step, one dynamics-substep launch per
+  physics substep), and one control step of both routes held against each
+  other,
+- the contact-substep kernel driven directly (no env branch reaches it),
+- PPO training iterations (`learn/ppo.make_train_iteration`) on both routes.
+
+Prints one JSON line per phase; needs one CUDA device and no network; exits
+non-zero if any phase fails or no CUDA device is present.
 
 The last line of the output is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": n}}
@@ -31,9 +41,10 @@ if not torch.cuda.is_available():
 from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
     LeggedRobotEnv, make_generator)
 from walk_these_ways_tpu_torch.go1_config import mob_train_cfg  # noqa: E402
+from walk_these_ways_tpu_torch.learn import ppo  # noqa: E402
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
 from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
-from walk_these_ways_tpu_torch.ops import megastep  # noqa: E402
+from walk_these_ways_tpu_torch.ops import _build, contact, dynamics, megastep  # noqa: E402
 from walk_these_ways_tpu_torch.physics import engine  # noqa: E402
 from walk_these_ways_tpu_torch.utils import convert  # noqa: E402
 
@@ -42,20 +53,25 @@ OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
              "lam", "tau", "el", "ell", "vl", "vll")
 # Kernel vs plain version on the card: |a - b| <= ATOL + RTOL * |b|.
 # Both are float32.  nvcc contracts a*b+c into one fused multiply-add and the
-# kernel sums in its own order, while the plain version rounds every
+# kernels sum in their own order, while the plain versions round every
 # elementwise op; over 4 substeps x (2 dynamics evaluations + 3 solver sweeps)
-# those roundings are amplified by M^-1 (entries up to 1e2) into joint
-# velocities that reach the 28 rad/s clip.  The largest error measured at
-# 4000 envs is 3e-5 (on a joint velocity): the bound leaves a factor of a few.
+# — or 16 sweeps from a cold start — those roundings are amplified by M^-1
+# (entries up to 1e2) into joint velocities that reach the 28 rad/s clip.  The
+# largest error measured at 4000 envs is 3e-5 (on a joint velocity): the bound
+# leaves a factor of a few.
 ATOL, RTOL = 2e-4, 2e-4
+TOLERANCE = ("|kernel - plain| <= atol + rtol |plain|; float32 both, fused "
+             "multiply-adds and another summation order in the kernel, "
+             "amplified by M^-1 into joint velocities of up to 28 rad/s")
 N_ENVS = 4000       # the full width of mob_train_cfg
-ROLLOUT_STEPS = 64  # control steps of the main-path rollout
+ROLLOUT_STEPS = 24  # control steps of each rollout (one PPO iteration's)
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s on CUDA cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 # directory of the JAX package, which this script names and never imports
 JAX_PACKAGE = "walk_these_ways_" + "tpu"
+CSRC = "walk_these_ways_tpu_torch/csrc/"
 
 
 def say(**kw):
@@ -80,6 +96,40 @@ def time_cuda(fn, reps, warmup=3):
     return e0.elapsed_time(e1) / reps
 
 
+def time_host(fn, reps=2):
+    """Least host-clock time of `fn` ending in a synchronise, in ms."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.time() - t0) * 1e3)
+    return best
+
+
+def reset_counts():
+    megastep.launches = 0
+    contact.cache_launches = 0
+    contact.substep_launches = 0
+    dynamics.launches = 0
+
+
+def counts():
+    return dict(control_step=megastep.launches,
+                contact_cache=contact.cache_launches,
+                contact_substep=contact.substep_launches,
+                dynamics_substep=dynamics.launches)
+
+
+def bound(nbytes, nops, n):
+    b_ms = nbytes * n / PEAK_BYTES_S * 1e3
+    o_ms = nops * n / PEAK_FP32_S * 1e3
+    return dict(bytes_per_env=nbytes, fp32_ops_per_env=nops,
+                bytes_bound_ms=b_ms, ops_bound_ms=o_ms,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="operations" if o_ms >= b_ms else "bytes")
+
+
 def kernel_call_of(env, state):
     """(args, kwargs) of the control-step call that `env.step` makes from
     `state`."""
@@ -90,37 +140,228 @@ def kernel_call_of(env, state):
         env.cfg.control.decimation, lam_in)
 
 
-def compare(name, args, kwargs, n_valid):
-    """Kernel vs plain version on the same inputs, on the card."""
-    out_k = megastep.control_step(*args, **kwargs)
-    torch.cuda.synchronize()
-    out_r = megastep.control_step_reference(*args, **kwargs)
+def compare(kernel, state_name, names, out_k, out_r, n_valid):
+    """Kernel outputs vs plain-version outputs, on the card.  The valid
+    lanes must agree within the tolerance; every lane, padded ones included,
+    must be finite."""
     torch.cuda.synchronize()
     errs, worst_abs, ok = {}, 0.0, True
-    for nm, a, b in zip(OUT_NAMES, out_k, out_r):
+    for nm, a, b in zip(names, out_k, out_r):
+        if not bool(torch.isfinite(a).all()):
+            raise SystemExit(f"{kernel} '{state_name}': non-finite values in "
+                             f"{nm} (padded lanes included)")
         a, b = a[..., :n_valid], b[..., :n_valid]
-        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
-            raise SystemExit(f"kernel phase '{name}': non-finite values in {nm}")
+        if not bool(torch.isfinite(b).all()):
+            raise SystemExit(f"{kernel} '{state_name}': non-finite values in "
+                             f"the plain version's {nm}")
         d = (a - b).abs()
         max_abs = float(d.max())
-        max_rel = float((d / (b.abs() + ATOL / RTOL)).max())
         bad = int((d > ATOL + RTOL * b.abs()).sum())
-        errs[nm] = dict(max_abs=max_abs, max_rel=max_rel, beyond_tol=bad,
-                        ref_max=float(b.abs().max()))
+        errs[nm] = dict(max_abs=max_abs,
+                        max_rel=float((d / (b.abs() + ATOL / RTOL)).max()),
+                        beyond_tol=bad, ref_max=float(b.abs().max()))
         worst_abs = max(worst_abs, max_abs)
         ok = ok and bad == 0
-    say(phase="kernel_vs_plain", state=name, n_envs=n_valid, atol=ATOL,
-        rtol=RTOL, ok=ok, max_abs_err=worst_abs,
-        tolerance="|kernel - plain| <= atol + rtol |plain|; float32 both, "
-                  "fused multiply-adds and another summation order in the "
-                  "kernel, amplified over 4 substeps into joint velocities "
-                  "of up to 28 rad/s",
-        outputs=errs,
-        contact_impulse_max=errs["lam"]["ref_max"])
+    say(phase="kernel_vs_plain", kernel=kernel, state=state_name,
+        n_envs=n_valid, atol=ATOL, rtol=RTOL, ok=ok, max_abs_err=worst_abs,
+        tolerance=TOLERANCE, outputs=errs)
     if not ok:
-        raise SystemExit(f"kernel phase '{name}': control-step kernel "
-                         "disagrees with its plain version")
+        raise SystemExit(f"{kernel} '{state_name}': kernel disagrees with "
+                         "its plain version")
     return worst_abs
+
+
+def substep_inputs(env, state):
+    """What the per-substep route hands its kernels at the first substep of
+    a control step from `state`: the env-minor cache, the anchor-point
+    velocity and the torques (env-minor, block 256)."""
+    m, p = env.model, env.sim_params
+    block = engine.SUBSTEP_BLOCK
+    dyn = env.dynamics_params(state)[1]
+    em, rh_t, mu_t, e_t, g_t, _ = engine.build_pallas_env_inputs(
+        m, state.phys, dyn, env.terrain, block)
+    anc_p = torch.tensor(
+        np.asarray(m.anc_dof_body)[:, np.asarray(m.cp_body)].T,
+        dtype=torch.float32, device=DEV).contiguous()
+    tau, _, _, _ = env._compute_torques(state)
+    tau_t = contact.to_env_minor(
+        torch.cat([torch.zeros((env.num_envs, 6), device=DEV), tau], dim=-1),
+        block)
+    gv_t = contact.to_env_minor(torch.cat(
+        [state.phys.base_ang_vel, state.phys.base_lin_vel, state.phys.qd],
+        dim=-1), block)
+    vlim = engine._velocity_bounds(m, p, torch.float32, DEV)
+    solver = dict(num_iters=p.num_contact_iters, relaxation=p.relaxation,
+                  dt=p.dt, baumgarte=p.contact_baumgarte, slop=p.contact_slop,
+                  max_depen=p.max_depenetration_velocity,
+                  bounce_thresh=p.bounce_threshold_velocity)
+    topo = dict(anc=m.anc_dof_body, joint_body=m.joint_body,
+                cp_body=m.cp_body)
+    return dict(em=em, anc_p=anc_p, rh_t=rh_t, mu_t=mu_t, e_t=e_t, g_t=g_t,
+                tau_t=tau_t, gv_t=gv_t, vlim=vlim, solver=solver, topo=topo)
+
+
+def substep_kernel_calls(x):
+    """The three kernels' argument lists from `substep_inputs`.  K2 is fed
+    the free velocity of the plain dynamics, so that its result can be held
+    against K3's as well."""
+    em = x["em"]
+    k1 = (x["anc_p"], em.Sw_t, em.Sv_t, em.Minv_t, em.r_t)
+    J_t, W_t = contact.build_contact_cache(*k1)
+    k3 = (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, x["g_t"],
+          x["tau_t"], x["gv_t"], J_t, W_t, em.p_cp_t, x["rh_t"], x["mu_t"],
+          x["e_t"], x["vlim"])
+    k3_kw = dict(x["topo"], **x["solver"])
+    gv_free = dynamics.dynamics_substep_reference(
+        *k3, **dict(k3_kw, contact=False))[0].contiguous()
+    k2 = (J_t, W_t, em.Minv_t, em.p_cp_t, gv_free, x["rh_t"], x["mu_t"],
+          x["e_t"], x["vlim"])
+    return k1, k2, k3, k3_kw
+
+
+def compare_substep_kernels(env, state, state_name, worst):
+    n = env.num_envs
+    x = substep_inputs(env, state)
+    k1, k2, k3, k3_kw = substep_kernel_calls(x)
+    worst["contact_cache"] = max(worst.get("contact_cache", 0.0), compare(
+        "contact_cache", state_name, ("J", "W"),
+        contact.build_contact_cache(*k1),
+        contact.cache_core(*k1, eps=1e-6), n))
+    out3 = dynamics.dynamics_substep(*k3, **k3_kw)
+    worst["dynamics_substep"] = max(
+        worst.get("dynamics_substep", 0.0), compare(
+            "dynamics_substep", state_name, ("gv", "pcp", "lam"), out3,
+            dynamics.dynamics_substep_reference(*k3, **k3_kw), n))
+    out2 = contact.contact_substep(*k2, **x["solver"])
+    worst["contact_substep"] = max(
+        worst.get("contact_substep", 0.0), compare(
+            "contact_substep", state_name, ("gv", "pcp", "lam"), out2,
+            contact.contact_core(*k2, **x["solver"]), n))
+    # K2 on the plain free velocity against K3 (its own dynamics in-kernel)
+    compare("contact_substep_vs_dynamics_substep", state_name,
+            ("gv", "pcp", "lam"), out2, out3, n)
+    return (k1, k2, k3, k3_kw, x)
+
+
+def timing(kernel, fn_kernel, fn_plain, work, n, **extra):
+    ms = time_cuda(fn_kernel, 20)
+    plain_ms = time_host(fn_plain)
+    b = bound(*work, n)
+    say(phase="kernel_timing", kernel=kernel, n_envs=n, kernel_ms=ms,
+        plain_ms=plain_ms, **b, **extra,
+        note="kernel timed over 20 back-to-back launches on one input set "
+             "(inputs L2-resident); plain version is one eager call, the "
+             "less of two")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"])
+
+
+def check_rollout(name, env, state, obs, ro, steps, seconds, expect_counts,
+                  smi):
+    N = env.num_envs
+    got = counts()
+    finite = all(bool(torch.isfinite(v).all()) for v in
+                 list(obs.values()) + [ro.rewards, ro.actions, ro.values,
+                                       ro.log_probs, ro.base_height,
+                                       state.phys.q, state.phys.base_pos,
+                                       state.phys.base_quat,
+                                       state.contact_lam_t])
+    n_resets = int(ro.num_resets.sum())
+    # a reset env starts its episode anew: its length restarts from 0
+    reinit = int((state.episode_length < steps + 1).sum())
+    mean_h = float(state.phys.base_pos[:, 2].mean())
+    shapes_ok = (tuple(obs["obs"].shape) == (N, 70)
+                 and tuple(obs["obs_history"].shape) == (N, 2100)
+                 and tuple(obs["privileged_obs"].shape) == (N, 2)
+                 and tuple(ro.actions.shape) == (steps, N, 12))
+    ok = (finite and shapes_ok and got == expect_counts and n_resets > 0
+          and reinit > 0 and 0.10 < mean_h < 0.45)
+    say(phase=name, config="mob_train_cfg", n_envs=N, steps=steps,
+        seconds=seconds, env_steps_per_s=N * steps / seconds, gpu=smi,
+        kernel_launches=got, expected_launches=expect_counts, finite=finite,
+        shapes_ok=shapes_ok, envs_reset=n_resets, envs_reinitialised=reinit,
+        mean_base_height=mean_h, mean_reward=float(ro.rewards.mean()),
+        ok=ok)
+    if not ok:
+        raise SystemExit(f"{name} phase failed")
+    return got
+
+
+def seconds_of(f):
+    """(host-clock seconds of `f()` ending in a synchronise, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = f()
+    torch.cuda.synchronize()
+    return time.time() - t0, out
+
+
+def train_phase(route, env, gen, iterations, expect_per_iter):
+    """PPO iterations through `make_train_iteration`, then one more
+    iteration put together here from its three parts (`collect`,
+    `compute_gae`, `update`) to read the rollout / update split."""
+    args = ppo.PPO_Args()
+    ts = ppo.init_train_state(gen, env, args)
+    fn = ppo.make_train_iteration(env, args, num_steps=ROLLOUT_STEPS)
+    state, obs = env.reset(gen)
+    before = [p.detach().clone() for p in ts.policy.parameters()]
+    for it in range(iterations):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, obs, ts, m = fn(state, obs, ts)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = counts()
+        losses = dict(value_loss=float(m.value_loss),
+                      surrogate_loss=float(m.surrogate_loss),
+                      adaptation_loss=float(m.adaptation_loss),
+                      adaptation_test_loss=float(m.adaptation_test_loss),
+                      mean_kl=float(m.mean_kl),
+                      mean_reward=float(m.mean_reward))
+        params_finite = all(bool(torch.isfinite(p).all())
+                            for p in ts.policy.parameters())
+        moved = max(float((p.detach() - b).abs().max())
+                    for p, b in zip(ts.policy.parameters(), before))
+        ok = (all(np.isfinite(v) for v in losses.values())
+              and params_finite and moved > 0
+              # the learning rate is a float32, as are its clamps
+              and np.float32(1e-5) <= np.float32(m.lr) <= np.float32(1e-2)
+              and got == expect_per_iter and ts.iteration == it + 1
+              and bool(torch.isfinite(state.phys.base_pos).all()))
+        say(phase="train_iteration", route=route, iteration=it,
+            n_envs=env.num_envs, num_steps=ROLLOUT_STEPS, seconds=seconds,
+            env_steps_per_s=env.num_envs * ROLLOUT_STEPS / seconds,
+            lr=m.lr, **losses, params_finite=params_finite,
+            largest_parameter_change=moved, kernel_launches=got,
+            expected_launches=expect_per_iter,
+            envelope_exits=float(m.envelope_exits), ok=ok)
+        if not ok:
+            raise SystemExit(f"train_iteration ({route}) failed")
+    t_roll, (state, obs, traj, _) = seconds_of(lambda: ppo.collect(
+        env, state, obs, ts.policy, ts.rng, ROLLOUT_STEPS, args.gamma))
+
+    def gae():
+        with torch.no_grad():
+            last = ts.policy.evaluate(obs["obs_history"],
+                                      obs["privileged_obs"])
+            return ppo.flatten_rollout(traj, *ppo.compute_gae(
+                traj, last, args.gamma, args.lam))
+
+    t_gae, data = seconds_of(gae)
+    perm = torch.randperm(data[0].shape[0], generator=ts.rng, device=DEV)
+    t_upd, (lr, ms) = seconds_of(lambda: ppo.update(
+        ts.policy, (ts.optimizer, ts.adapt_optimizer), ts.lr, data, perm,
+        args))
+    ok = bool(torch.isfinite(ms.value_loss).all()
+              & torch.isfinite(ms.surrogate_loss).all())
+    say(phase="train_iteration_split", route=route, iteration=iterations,
+        what="one more iteration, put together from collect, compute_gae "
+             "and update as train_iteration does",
+        rollout_seconds=t_roll, gae_seconds=t_gae, update_seconds=t_upd,
+        seconds=t_roll + t_gae + t_upd, lr=lr, ok=ok)
+    if not ok:
+        raise SystemExit(f"train_iteration_split ({route}) failed")
 
 
 def main():
@@ -134,22 +375,37 @@ def main():
                "--format=csv,noheader"])
     say(phase="environment", python=sys.version.split()[0],
         torch=torch.__version__, cuda=torch.version.cuda,
-        nvcc=run([megastep._find_nvcc(), "--version"]).splitlines()[-2:],
+        nvcc=run([_build.find_nvcc(), "--version"]).splitlines()[-2:],
         gpu=smi, device=torch.cuda.get_device_name(0),
         device_count=torch.cuda.device_count())
 
     N = N_ENVS
     cfg = mob_train_cfg(N)
+    cfg_sub = dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, megastep=False))
+    cfg_cold = dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, contact_warm_start=False))
     env = LeggedRobotEnv(cfg, device=DEV)
+    env_sub = LeggedRobotEnv(cfg_sub, device=DEV)
+    env_cold = LeggedRobotEnv(cfg_cold, device=DEV)
     gen = make_generator(SEED, DEV)
+    m = env.model
+    nv, P = m.nv, m.cp_body.shape[0]
 
-    # ---- build ---------------------------------------------------------
-    megastep.build_library(env.model, 32, 6)
-    b = megastep.last_build
-    say(phase="build", source="walk_these_ways_tpu_torch/csrc/megastep.cu",
-        seconds=b["seconds"], cached=b["cached"], command=b["command"],
-        ptxas=[ln for ln in b["log"].splitlines() if "registers" in ln
-               or "stack frame" in ln][:4])
+    # ---- build: one nvcc per source, all started together ----------------
+    t0 = time.time()
+    _build.build_libraries([
+        megastep.library_spec(m, 32, 6), contact.cache_spec(nv, P),
+        contact.substep_spec(nv, P),
+        dynamics.library_spec(m.anc_dof_body, m.joint_body, m.cp_body)])
+    for name in ("megastep", "contact_cache", "contact_substep",
+                 "dynamics_substep"):
+        b = _build.builds[name]
+        say(phase="build", source=CSRC + name + ".cu", seconds=b["seconds"],
+            cached=b["cached"], command=b["command"],
+            ptxas=[ln for ln in b["log"].splitlines() if "registers" in ln
+                   or "stack frame" in ln][:4])
+    say(phase="build_all", sources=4, seconds=time.time() - t0)
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
@@ -161,127 +417,226 @@ def main():
     convert.actor_critic_from_numpy({k: ref[k] for k in ref.files},
                                     module=policy)
 
-    # ---- kernel phase: K4 against its plain version at N envs ----------
+    # ---- kernels against their plain versions at N envs, two states -----
+    worst = {}
     state, obs = env.reset(gen)
-    worst = compare("after_reset", *kernel_call_of(env, state), N)
+    args, kwargs = kernel_call_of(env, state)
+    worst["control_step"] = compare(
+        "control_step", "after_reset", OUT_NAMES,
+        megastep.control_step(*args, **kwargs),
+        megastep.control_step_reference(*args, **kwargs), N)
+    compare_substep_kernels(env_sub, state, "after_reset", worst)
     # 24 control steps of random actions in: feet and bodies on the ground
     for _ in range(24):
         a = torch.randn((N, 12), generator=gen, device=DEV)
         state, obs, _, _, _ = env.step(state, a)
     args, kwargs = kernel_call_of(env, state)
-    worst = max(worst, compare("24_random_steps_in", args, kwargs, N))
+    out_r = megastep.control_step_reference(*args, **kwargs)
+    worst["control_step"] = max(worst["control_step"], compare(
+        "control_step", "24_random_steps_in", OUT_NAMES,
+        megastep.control_step(*args, **kwargs), out_r, N))
+    say(phase="contacts", state="24_random_steps_in",
+        contact_impulse_max=float(out_r[8][..., :N].abs().max()))
+    k1, k2, k3, k3_kw, x = compare_substep_kernels(
+        env_sub, state, "24_random_steps_in", worst)
 
-    kernel_ms = time_cuda(lambda: megastep.control_step(*args, **kwargs), 20)
-    t0 = time.time()
-    megastep.control_step_reference(*args, **kwargs)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    megastep.control_step_reference(*args, **kwargs)
-    torch.cuda.synchronize()
-    plain_ms = min(t1 - t0, time.time() - t1) * 1e3
+    # ---- kernel timing, bounds, plain versions' times ---------------------
+    timed = {}
     t0 = time.time()
     engine.build_pallas_env_inputs(env.model, state.phys,
-                                   env.control_step_inputs(state)[1],
+                                   env.dynamics_params(state)[1],
                                    env.terrain, engine.MEGASTEP_BLOCK)
     torch.cuda.synchronize()
     cache_ms = (time.time() - t0) * 1e3
-    nbytes, nops = megastep.work_per_env(
-        env.model, cfg.control.decimation, cfg.sim.num_contact_iters_warm)
-    bytes_ms = nbytes * N / PEAK_BYTES_S * 1e3
-    ops_ms = nops * N / PEAK_FP32_S * 1e3
-    say(phase="kernel_timing", n_envs=N, kernel_ms=kernel_ms,
-        plain_ms=plain_ms, entry_cache_build_ms=cache_ms,
-        bytes_per_env=nbytes, fp32_ops_per_env=nops, bytes_bound_ms=bytes_ms,
-        ops_bound_ms=ops_ms, threads_per_block=megastep.KERNEL_THREADS,
-        note="kernel timed over 20 back-to-back launches on one input set "
-             "(inputs L2-resident); plain version is one eager call")
+    timed["control_step"] = timing(
+        "control_step", lambda: megastep.control_step(*args, **kwargs),
+        lambda: megastep.control_step_reference(*args, **kwargs),
+        megastep.work_per_env(m, cfg.control.decimation,
+                              cfg.sim.num_contact_iters_warm), N,
+        entry_cache_build_ms=cache_ms,
+        threads_per_block=megastep.KERNEL_THREADS)
+    anc_p_np = np.asarray(m.anc_dof_body)[:, np.asarray(m.cp_body)].T
+    timed["contact_cache"] = timing(
+        "contact_cache", lambda: contact.build_contact_cache(*k1),
+        lambda: contact.cache_core(*k1, eps=1e-6),
+        contact.cache_work_per_env(anc_p_np), N,
+        threads_per_block=contact.CACHE_THREADS)
+    iters = cfg.sim.num_contact_iters
+    timed["contact_substep"] = timing(
+        "contact_substep",
+        lambda: contact.contact_substep(*k2, **x["solver"]),
+        lambda: contact.contact_core(*k2, **x["solver"]),
+        contact.substep_work_per_env(nv, P, iters), N,
+        threads_per_block=contact.SUBSTEP_THREADS)
+    timed["dynamics_substep"] = timing(
+        "dynamics_substep", lambda: dynamics.dynamics_substep(*k3, **k3_kw),
+        lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
+        dynamics.work_per_env(m.anc_dof_body, m.cp_body, iters), N,
+        threads_per_block=dynamics.KERNEL_THREADS)
 
-    # ---- small-input agreement: CUDA env (kernel) vs CPU env (plain) ----
+    # ---- small-input agreement: CUDA env (kernels) vs CPU env (plain) ----
     n_small = 64
-    quiet = dataclasses.replace(
-        mob_train_cfg(n_small),
-        noise=dataclasses.replace(cfg.noise, add_noise=False))
-    env_c = LeggedRobotEnv(quiet, device="cpu")
-    env_g = LeggedRobotEnv(quiet, device=DEV)
-    s_c, _ = env_c.reset(make_generator(SEED + 1, "cpu"))
+    small_err = {}
+    for route, sim in (("control_step", cfg.sim), ("substep", cfg_sub.sim)):
+        quiet = dataclasses.replace(
+            mob_train_cfg(n_small), sim=sim,
+            noise=dataclasses.replace(cfg.noise, add_noise=False))
+        env_c = LeggedRobotEnv(quiet, device="cpu")
+        env_g = LeggedRobotEnv(quiet, device=DEV)
+        s_c, _ = env_c.reset(make_generator(SEED + 1, "cpu"))
 
-    def to_dev(x):
-        if isinstance(x, torch.Tensor):
-            return x.to(DEV)
-        if isinstance(x, torch.Generator):
-            return make_generator(SEED + 1, DEV)
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*[to_dev(v) for v in x])
-        return x
+        def to_dev(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(DEV)
+            if isinstance(v, torch.Generator):
+                return make_generator(SEED + 1, DEV)
+            if isinstance(v, tuple) and hasattr(v, "_fields"):
+                return type(v)(*[to_dev(u) for u in v])
+            return v
 
-    s_g = to_dev(s_c)
-    cpu_gen = make_generator(SEED + 2, "cpu")
-    small_err = 0.0
-    for _ in range(3):
-        a = 0.5 * torch.randn((n_small, 12), generator=cpu_gen)
-        s_c, o_c, r_c, d_c, _ = env_c.step(s_c, a)
-        s_g, o_g, r_g, d_g, _ = env_g.step(s_g, a.to(DEV))
-        small_err = max(small_err,
-                        float((o_g["obs"].cpu() - o_c["obs"]).abs().max()),
-                        float((r_g.cpu() - r_c).abs().max()))
-        if not torch.equal(d_g.cpu(), d_c):
-            raise SystemExit("small-input check: done masks differ")
-    small_ok = small_err <= 1e-3
+        s_g = to_dev(s_c)
+        cpu_gen = make_generator(SEED + 2, "cpu")
+        err = 0.0
+        for _ in range(3):
+            a = 0.5 * torch.randn((n_small, 12), generator=cpu_gen)
+            s_c, o_c, r_c, d_c, _ = env_c.step(s_c, a)
+            s_g, o_g, r_g, d_g, _ = env_g.step(s_g, a.to(DEV))
+            err = max(err, float((o_g["obs"].cpu() - o_c["obs"]).abs().max()),
+                      float((r_g.cpu() - r_c).abs().max()))
+            if not torch.equal(d_g.cpu(), d_c):
+                raise SystemExit("small-input check: done masks differ")
+        small_err[route] = err
+    small_ok = max(small_err.values()) <= 1e-3
     say(phase="small_input_agreement", n_envs=n_small, steps=3,
-        what="obs and reward, env on the card (kernel) vs env on the CPU "
-             "(plain version), same state and actions", max_abs_err=small_err,
-        atol=1e-3, ok=small_ok)
+        what="obs and reward, env on the card (kernels) vs env on the CPU "
+             "(plain versions), same state and actions, on both routes",
+        max_abs_err=small_err, atol=1e-3, ok=small_ok)
     if not small_ok:
         raise SystemExit("small-input check: card and CPU env disagree")
 
-    # ---- main path: the rollout ------------------------------------------
+    # ---- main path: the rollout on the default route ----------------------
     steps = ROLLOUT_STEPS
     state, obs = env.reset(gen)
     torch.cuda.synchronize()
-    megastep.launches = 0
+    reset_counts()
     t0 = time.time()
     state, obs, ro = rollout(env, policy, steps, gen, state=state, obs=obs)
     torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = megastep.launches
+    main_counts = check_rollout(
+        "main_path", env, state, obs, ro, steps, time.time() - t0,
+        dict(control_step=steps, contact_cache=0, contact_substep=0,
+             dynamics_substep=0), smi)
 
-    finite = all(bool(torch.isfinite(v).all()) for v in
-                 list(obs.values()) + [ro.rewards, ro.actions, ro.values,
-                                       ro.log_probs, state.phys.q,
-                                       state.phys.base_pos,
-                                       state.phys.base_quat,
-                                       state.contact_lam_t])
-    n_resets = int(ro.num_resets.sum())
-    # a reset env starts its episode anew: its length restarts from 0
-    reinit = int((state.episode_length < steps + 1).sum())
-    mean_h = float(state.phys.base_pos[:, 2].mean())
-    shapes_ok = (tuple(obs["obs"].shape) == (N, 70)
-                 and tuple(obs["obs_history"].shape) == (N, 2100)
-                 and tuple(obs["privileged_obs"].shape) == (N, 2)
-                 and tuple(ro.actions.shape) == (steps, N, 12))
-    main_ok = (finite and shapes_ok and launches == steps and n_resets > 0
-               and reinit > 0 and 0.10 < mean_h < 0.45)
-    say(phase="main_path", config="mob_train_cfg", n_envs=N, steps=steps,
-        seconds=seconds, env_steps_per_s=N * steps / seconds, gpu=smi,
-        kernel_launches=launches, finite=finite, shapes_ok=shapes_ok,
-        envs_reset=n_resets, envs_reinitialised=reinit,
-        mean_base_height=mean_h, mean_reward=float(ro.rewards.mean()),
-        ok=main_ok)
-    if not main_ok:
-        raise SystemExit("main-path phase failed")
+    # ---- the same rollout on the per-substep route -------------------------
+    D = cfg.control.decimation
+    state_s, obs_s = env_sub.reset(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state_s, obs_s, ro_s = rollout(env_sub, policy, steps, gen, state=state_s,
+                                   obs=obs_s)
+    torch.cuda.synchronize()
+    sub_counts = check_rollout(
+        "substep_route", env_sub, state_s, obs_s, ro_s, steps,
+        time.time() - t0,
+        dict(control_step=0, contact_cache=steps, contact_substep=0,
+             dynamics_substep=steps * D), smi)
+
+    # ---- one control step by both routes from one state --------------------
+    a = torch.randn((N, 12), generator=gen, device=DEV)
+    s_sub, *_ = env_sub.step(
+        state._replace(rng=make_generator(SEED + 3, DEV)), a)
+    s_k4, *_ = env_cold.step(
+        state._replace(rng=make_generator(SEED + 3, DEV)), a)
+    torch.cuda.synchronize()
+    # untouched by resets (an env reset in this step draws a fresh state)
+    keep = (s_sub.episode_length > 0) & (s_k4.episode_length > 0)
+    route_err, route_bad = {}, 0
+    for leaf in s_sub.phys._fields:
+        u, v = getattr(s_sub.phys, leaf)[keep], getattr(s_k4.phys, leaf)[keep]
+        d = (u - v).abs()
+        route_err[leaf] = float(d.max())
+        route_bad += int((d > ATOL + RTOL * v.abs()).sum())
+    route_ok = route_bad == 0 and int(keep.sum()) > N // 2
+    say(phase="route_agreement", n_envs=N, envs_compared=int(keep.sum()),
+        what="PhysicsState after one control step from one state and the "
+             "same actions: per-substep route (torque model in PyTorch, K1, "
+             "4 x K3) vs the control-step kernel with contact_warm_start off "
+             "(cold start, 16 sweeps every substep)",
+        atol=ATOL, rtol=RTOL, tolerance=TOLERANCE, max_abs_err=route_err,
+        beyond_tol=route_bad, ok=route_ok)
+    if not route_ok:
+        raise SystemExit("route_agreement: the two routes disagree")
+
+    # ---- the contact-substep kernel, driven directly ------------------------
+    # No env branch launches it alone (as in the JAX package): a control
+    # step's four substeps as {plain dynamics, contact-substep kernel},
+    # held against the dynamics-substep kernel over the same four substeps.
+    xs = substep_inputs(env_sub, state)
+    k1, _, k3, k3_kw = substep_kernel_calls(xs)[:4]
+    reset_counts()
+    gv_a = gv_b = xs["gv_t"]
+    pcp_a = pcp_b = xs["em"].p_cp_t
+    for _ in range(D):
+        k3_a = k3[:8] + (gv_a,) + k3[9:11] + (pcp_a,) + k3[12:]
+        gv_free = dynamics.dynamics_substep_reference(
+            *k3_a, **dict(k3_kw, contact=False))[0].contiguous()
+        gv_a, pcp_a, lam_a = contact.contact_substep(
+            k3[9], k3[10], k3[5], pcp_a, gv_free, *k3[12:16], **xs["solver"])
+        k3_b = k3[:8] + (gv_b,) + k3[9:11] + (pcp_b,) + k3[12:]
+        gv_b, pcp_b, lam_b = dynamics.dynamics_substep(*k3_b, **k3_kw)
+    torch.cuda.synchronize()
+    direct_counts = counts()
+    direct_err = max(float((u[..., :N] - v[..., :N]).abs().max()) for u, v in
+                     ((gv_a, gv_b), (pcp_a, pcp_b), (lam_a, lam_b)))
+    direct_ok = (direct_counts["contact_substep"] == D
+                 and direct_counts["dynamics_substep"] == D
+                 and direct_err <= 1e-3
+                 and bool(torch.isfinite(gv_a).all()))
+    say(phase="contact_substep_direct", n_envs=N, substeps=D,
+        what="four substeps of {plain dynamics, contact-substep kernel} vs "
+             "four launches of the dynamics-substep kernel",
+        kernel_launches=direct_counts, max_abs_err=direct_err, atol=1e-3,
+        ok=direct_ok)
+    if not direct_ok:
+        raise SystemExit("contact_substep_direct phase failed")
+
+    # ---- PPO training iterations on both routes ----------------------------
+    train_phase("control_step", env, gen, 2,
+                dict(control_step=steps, contact_cache=0, contact_substep=0,
+                     dynamics_substep=0))
+    train_phase("substep", env_sub, gen, 1,
+                dict(control_step=0, contact_cache=steps, contact_substep=0,
+                     dynamics_substep=steps * D))
 
     say(phase="total", seconds=time.time() - t_start)
     print(smi, flush=True)
+    launches = dict(control_step=main_counts["control_step"],
+                    contact_cache=sub_counts["contact_cache"],
+                    contact_substep=direct_counts["contact_substep"],
+                    dynamics_substep=sub_counts["dynamics_substep"])
+    if min(launches.values()) < 1:
+        raise SystemExit(f"a kernel was never launched on its path: {launches}")
+    rows = (
+        ("control_step", "control_step (K4: whole control step, flat ground, "
+         "actuator net, warm start)", "megastep.cu",
+         "/ops/pallas_megastep.py:154"),
+        ("contact_cache", "build_contact_cache (K1: point Jacobians J and "
+         "effective masses W)", "contact_cache.cu",
+         "/ops/pallas_contact.py:131"),
+        ("contact_substep", "contact_substep (K2: contact solve + point "
+         "advance on cached J/W)", "contact_substep.cu",
+         "/ops/pallas_contact.py:372"),
+        ("dynamics_substep", "dynamics_substep (K3: unconstrained dynamics, "
+         "midpoint rule, then the contact solve)", "dynamics_substep.cu",
+         "/ops/pallas_dynamics.py:139"))
     say(kernels=[dict(
-        name="control_step (K4: whole control step, flat ground, actuator "
-             "net, warm start)",
-        route="cuda",
-        source="walk_these_ways_tpu_torch/csrc/megastep.cu",
-        replaces=JAX_PACKAGE + "/ops/pallas_megastep.py:154",
-        launches=launches, max_abs_err=worst, ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=None)])
+        name=title, route="cuda", source=CSRC + src,
+        replaces=JAX_PACKAGE + site, launches=launches[key],
+        max_abs_err=worst[key], ms=timed[key]["ms"],
+        plain_ms=timed[key]["plain_ms"], bound_ms=timed[key]["bound_ms"],
+        bound_by=timed[key]["bound_by"], library_ms=None)
+        for key, title, src, site in rows])
     say(ok=True, device=dict(platform="gpu",
                              kind=torch.cuda.get_device_name(0),
                              count=torch.cuda.device_count()))

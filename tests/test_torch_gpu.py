@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU (marker `gpu`).
 
-They build the control-step kernel with nvcc and launch it, so they skip on a
-machine without a CUDA device.  Run them on the card with
+They build the kernels with nvcc and launch them, so they skip on a machine
+without a CUDA device.  Run them on the card with
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:cacheprovider
 """
 import numpy as np
@@ -10,7 +10,7 @@ import torch
 
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv, make_generator
 from walk_these_ways_tpu_torch.go1_config import mob_train_cfg
-from walk_these_ways_tpu_torch.ops import megastep
+from walk_these_ways_tpu_torch.ops import contact, dynamics, megastep
 from walk_these_ways_tpu_torch.physics import engine
 
 pytestmark = pytest.mark.gpu
@@ -68,3 +68,88 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
         megastep.control_step(*args, **dict(kwargs, control_type="P"))
     with pytest.raises(ValueError):
         megastep.control_step(*args[:6], args[6][:, :64], *args[7:], **kwargs)
+
+
+def _substep_inputs(cuda, n=256):
+    """Inputs of the three per-substep kernels 10 random steps in."""
+    env = LeggedRobotEnv(mob_train_cfg(n), device=cuda)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    for _ in range(10):
+        state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
+                                                device=cuda))
+    m = env.model
+    em, rh_t, mu_t, e_t, g_t, _ = engine.build_pallas_env_inputs(
+        m, state.phys, env.dynamics_params(state)[1], env.terrain,
+        engine.SUBSTEP_BLOCK)
+    anc_p = torch.tensor(
+        np.asarray(m.anc_dof_body)[:, np.asarray(m.cp_body)].T,
+        dtype=torch.float32, device=cuda).contiguous()
+    p = env.sim_params
+    vlim = engine._velocity_bounds(m, p, torch.float32, cuda)
+    statics = dict(num_iters=p.num_contact_iters, relaxation=p.relaxation,
+                   dt=p.dt, baumgarte=p.contact_baumgarte,
+                   slop=p.contact_slop,
+                   max_depen=p.max_depenetration_velocity,
+                   bounce_thresh=p.bounce_threshold_velocity)
+    gv = contact.to_env_minor(torch.cat(
+        [state.phys.base_ang_vel, state.phys.base_lin_vel, state.phys.qd],
+        dim=-1), engine.SUBSTEP_BLOCK)
+    tau = torch.zeros_like(gv)
+    tau[6:, :n] = state.torques.T
+    return m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau
+
+
+def _close(outs_k, outs_r):
+    torch.cuda.synchronize()
+    for a, b in zip(outs_k, outs_r):
+        assert bool(torch.isfinite(a).all())      # padded lanes included
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_contact_cache_kernel_matches_plain_version_on_the_card(cuda):
+    """|kernel - plain| <= 2e-4 + 2e-4 |plain| (float32; fused multiply-adds
+    and another summation order in the kernel)."""
+    m, em, anc_p, *_ = _substep_inputs(cuda)
+    before = contact.cache_launches
+    out_k = contact.build_contact_cache(anc_p, em.Sw_t, em.Sv_t, em.Minv_t,
+                                        em.r_t)
+    assert contact.cache_launches == before + 1
+    _close(out_k, contact.cache_core(anc_p, em.Sw_t, em.Sv_t, em.Minv_t,
+                                     em.r_t, eps=1e-6))
+
+
+def test_contact_substep_kernel_matches_plain_version_on_the_card(cuda):
+    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau = \
+        _substep_inputs(cuda)
+    J_t, W_t = contact.build_contact_cache(anc_p, em.Sw_t, em.Sv_t,
+                                           em.Minv_t, em.r_t)
+    args = (J_t, W_t, em.Minv_t, em.p_cp_t, gv, rh_t, mu_t, e_t, vlim)
+    before = contact.substep_launches
+    out_k = contact.contact_substep(*args, **statics)
+    assert contact.substep_launches == before + 1
+    out_r = contact.contact_core(*args, **statics)
+    assert float(out_r[2].abs().max()) > 1e-3        # contacts active
+    _close(out_k, out_r)
+
+
+@pytest.mark.parametrize("with_contact", [True, False])
+def test_dynamics_substep_kernel_matches_plain_version_on_the_card(
+        cuda, with_contact):
+    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau = \
+        _substep_inputs(cuda)
+    J_t, W_t = contact.build_contact_cache(anc_p, em.Sw_t, em.Sv_t,
+                                           em.Minv_t, em.r_t)
+    args = (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, g_t, tau,
+            gv, J_t, W_t, em.p_cp_t, rh_t, mu_t, e_t, vlim)
+    kw = dict(anc=m.anc_dof_body, joint_body=m.joint_body, cp_body=m.cp_body,
+              contact=with_contact, **statics)
+    before = dynamics.launches
+    out_k = dynamics.dynamics_substep(*args, **kw)
+    assert dynamics.launches == before + 1
+    _close(out_k, dynamics.dynamics_substep_reference(*args, **kw))
+    with pytest.raises(NotImplementedError):
+        dynamics.dynamics_substep(*args, torch.zeros_like(em.p_cp_t), **kw)
+    with pytest.raises(ValueError):
+        dynamics.dynamics_substep(*args[:8], gv[:, :128], *args[9:], **kw)

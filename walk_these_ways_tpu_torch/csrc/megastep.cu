@@ -41,15 +41,13 @@
 // rows 3..5: unit linear), as physics/envminor.build_cache_envminor makes
 // them.  The dynamics read them as data; the contact Jacobian relies on it.
 //
-// The topology header is generated by ops/megastep.py from the RobotModel
-// into the build directory.
+// The topology header is generated by ops/_build.py from the RobotModel into
+// the build directory; the device helpers shared with the other kernels
+// (cross3, m3v, m3tv, minv_mul, dyn_core) live in wtw_device.cuh.
 #include <cuda_runtime.h>
-#include "megastep_topology.h"
+#include "wtw_topology.h"
+#include "wtw_device.cuh"
 
-#define NB MS_NB
-#define NJ MS_NJ
-#define NV MS_NV
-#define NP MS_P
 #define GM MS_GMAX
 #define NH MS_H
 #define NF MS_F
@@ -76,161 +74,6 @@ struct MegastepArgs {
   int npad, D, num_iters, warm_iters, contact;
 };
 
-__device__ __forceinline__ void cross3(const float* a, const float* b,
-                                       float* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ float softsign(float x) {
-  return x / (1.0f + fabsf(x));
-}
-
-__device__ __forceinline__ float clampf(float x, float lim) {
-  return fminf(fmaxf(x, -lim), lim);
-}
-
-// M9 row-major 3x3, v (3) -> M v
-__device__ __forceinline__ void m3v(const float* M, const float* v, float* o) {
-  o[0] = M[0] * v[0] + M[1] * v[1] + M[2] * v[2];
-  o[1] = M[3] * v[0] + M[4] * v[1] + M[5] * v[2];
-  o[2] = M[6] * v[0] + M[7] * v[1] + M[8] * v[2];
-}
-
-// M^T v
-__device__ __forceinline__ void m3tv(const float* M, const float* v,
-                                     float* o) {
-  o[0] = M[0] * v[0] + M[3] * v[1] + M[6] * v[2];
-  o[1] = M[1] * v[0] + M[4] * v[1] + M[7] * v[2];
-  o[2] = M[2] * v[0] + M[5] * v[1] + M[8] * v[2];
-}
-
-// out[w] = sum_v Minv[w][v] * x[v], Minv env-minor in global memory
-__device__ __forceinline__ void minv_mul(const float* __restrict__ Minv,
-                                         const float* x, float* out,
-                                         size_t npad, int env) {
-#pragma unroll 1
-  for (int w = 0; w < NV; ++w) {
-    const float* row = Minv + (size_t)(w * NV) * npad + env;
-    float acc = 0.0f;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) acc += __ldg(row + (size_t)v * npad) * x[v];
-    out[w] = acc;
-  }
-}
-
-// Unconstrained dynamics: body twists over the static ancestor mask,
-// velocity-product terms, F = I a + V x* (I V) in 3x3 blocks, projection onto
-// the twist rows, qdd = M^-1 (tau - bias) + centripetal term.
-__device__ __noinline__ void dyn_core(
-    const float (*sw)[3], const float (*sv)[3], const float* __restrict__ A,
-    const float* __restrict__ B, const float* __restrict__ mass,
-    const float* __restrict__ Minv, const float* g, const float* tau,
-    const float* gv, float* qdd, size_t npad, int env) {
-  float Vw[NB][3], Vv[NB][3];
-#pragma unroll 1
-  for (int b = 0; b < NB; ++b) {
-    float w[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
-    for (int d = 0; d < NV; ++d) {
-      if (MS_ANC[d * NB + b]) {
-        const float s = gv[d];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          w[i] += sw[d][i] * s;
-          v[i] += sv[d][i] * s;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) { Vw[b][i] = w[i]; Vv[b][i] = v[i]; }
-  }
-
-  float Cw[NJ][3], Cv[NJ][3];
-#pragma unroll 1
-  for (int j = 0; j < NJ; ++j) {
-    const int jb = MS_JOINT_BODY[j];
-    const float qd = gv[6 + j];
-    float c1[3], c2[3], c3[3];
-    cross3(Vw[jb], sw[6 + j], c1);
-    cross3(Vw[jb], sv[6 + j], c2);
-    cross3(Vv[jb], sw[6 + j], c3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Cw[j][i] = c1[i] * qd;
-      Cv[j][i] = (c2[i] + c3[i]) * qd;
-    }
-  }
-
-  float Fw[NB][3], Fv[NB][3];
-  float Fws[3] = {0.0f, 0.0f, 0.0f}, Fvs[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 1
-  for (int b = 0; b < NB; ++b) {
-    float aw[3] = {0.0f, 0.0f, 0.0f};
-    float av[3] = {-g[0], -g[1], -g[2]};
-    for (int j = 0; j < NJ; ++j) {
-      if (MS_ANC[(6 + j) * NB + b]) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) { aw[i] += Cw[j][i]; av[i] += Cv[j][i]; }
-      }
-    }
-    float A9[9], B9[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      A9[k] = __ldg(A + (size_t)(b * 9 + k) * npad + env);
-      B9[k] = __ldg(B + (size_t)(b * 9 + k) * npad + env);
-    }
-    const float mb = __ldg(mass + (size_t)b * npad + env);
-    float t1[3], t2[3], IVw[3], IVv[3], IAw[3], IAv[3];
-    m3v(A9, Vw[b], t1); m3v(B9, Vv[b], t2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IVw[i] = t1[i] + t2[i];
-    m3tv(B9, Vw[b], t1);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IVv[i] = t1[i] + mb * Vv[b][i];
-    m3v(A9, aw, t1); m3v(B9, av, t2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IAw[i] = t1[i] + t2[i];
-    m3tv(B9, aw, t1);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IAv[i] = t1[i] + mb * av[i];
-    float x1[3], x2[3], x3[3];
-    cross3(Vw[b], IVw, x1); cross3(Vv[b], IVv, x2); cross3(Vw[b], IVv, x3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float fw = IAw[i] + x1[i] + x2[i];
-      const float fv = IAv[i] + x3[i];
-      Fw[b][i] = fw; Fv[b][i] = fv;
-      Fws[i] += fw; Fvs[i] += fv;
-    }
-  }
-
-  // tb = tau - bias; root rows of the twist basis are unit vectors
-  float tb[NV];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    tb[i] = tau[i] - Fws[i];
-    tb[3 + i] = tau[3 + i] - Fvs[i];
-  }
-#pragma unroll 1
-  for (int j = 0; j < NJ; ++j) {
-    float acc = 0.0f;
-    for (int b = 0; b < NB; ++b) {
-      if (MS_ANC[(6 + j) * NB + b]) {
-        acc += sw[6 + j][0] * Fw[b][0] + sw[6 + j][1] * Fw[b][1]
-             + sw[6 + j][2] * Fw[b][2]
-             + sv[6 + j][0] * Fv[b][0] + sv[6 + j][1] * Fv[b][1]
-             + sv[6 + j][2] * Fv[b][2];
-      }
-    }
-    tb[6 + j] = tau[6 + j] - acc;
-  }
-  minv_mul(Minv, tb, qdd, npad, env);
-  float corr[3];
-  cross3(gv, gv + 3, corr);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) qdd[3 + i] += corr[i];
-}
 
 // Velocity of contact point p: base part from r (unit root twists), leg part
 // from the kept Jacobian columns.

@@ -22,10 +22,15 @@ physics} -> kinematic quantities -> teleport/resample/gait-clock/push/DR
 callbacks -> termination -> rewards -> masked auto-reset -> observations ->
 shift last_* buffers.
 
-Physics runs only on the control-step kernel route (one launch per control
-step, ops/megastep.py): `sim.use_pallas_contact`, `sim.megastep` and
-`sim.reuse_matrices` all on, flat ground.  The other physics branches of the
-reference, the train/eval env split and heightfield terrain raise
+Physics runs on the two env-minor kernel routes (`sim.use_pallas_contact`
+on, flat ground): with `sim.megastep` and `sim.reuse_matrices` one launch of
+the whole-control-step kernel per control step (ops/megastep.py); with
+`sim.megastep` off one contact-cache launch per control step and one
+dynamics-substep launch per physics substep (ops/contact.py,
+ops/dynamics.py), the torque model evaluated between them
+(`_compute_torques`), in reuse or exact mode.  The dense physics branches
+of the reference (`use_pallas_contact` off), exact mode inside the
+control-step kernel, the train/eval env split and heightfield terrain raise
 NotImplementedError until their slices of the port are written.
 """
 from __future__ import annotations
@@ -145,13 +150,16 @@ class LeggedRobotEnv:
             raise NotImplementedError(
                 "the train/eval env split belongs to the evaluation slice "
                 "of the port, which is not written yet")
-        if not (cfg.sim.use_pallas_contact and cfg.sim.megastep
-                and cfg.sim.reuse_matrices):
+        if not cfg.sim.use_pallas_contact:
             raise NotImplementedError(
-                "only the control-step kernel route is ported "
-                "(sim.use_pallas_contact, sim.megastep and "
-                "sim.reuse_matrices all on); the per-substep and exact "
-                "physics branches belong to a later slice")
+                "only the env-minor kernel routes are ported "
+                "(sim.use_pallas_contact on); the dense physics branches "
+                "belong to a later slice")
+        if cfg.sim.megastep and not cfg.sim.reuse_matrices:
+            raise NotImplementedError(
+                "exact mode inside the control-step kernel belongs to a "
+                "later slice; sim.megastep=False runs exact mode through "
+                "the per-substep kernels")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # float32 throughout: products must not drop to TF32
@@ -453,6 +461,49 @@ class LeggedRobotEnv:
         return ms, mo, kp, kd
 
     # -- torque model ------------------------------------------------------
+    def _compute_torques(self, state: EnvState):
+        """One substep of the torque pipeline (legged_robot.py:907-946).
+        Returns (torques, joint-position target, lag buffer, updated
+        actuator-history fields)."""
+        cfg = self.cfg
+        actions_scaled = state.actions * cfg.control.action_scale
+        actions_scaled = actions_scaled * self._hip_scale[None, :]
+
+        if cfg.domain_rand.randomize_lag_timesteps:
+            lag = torch.cat(
+                [state.lag_buffer[:, 1:], actions_scaled[:, None, :]], dim=1)
+            target = lag[:, 0] + self.default_dof_pos[None, :]
+        else:
+            lag = state.lag_buffer
+            target = actions_scaled + self.default_dof_pos[None, :]
+
+        q, qd = state.phys.q, state.phys.qd
+        if cfg.control.control_type == "actuator_net":
+            err = q - target + state.motor_offsets
+            tau = actuator_net.eval_torques(
+                self.actuator_params,
+                err, state.joint_pos_err_last, state.joint_pos_err_last_last,
+                qd, state.joint_vel_last, state.joint_vel_last_last)
+            new_hist = dict(
+                joint_pos_err_last_last=state.joint_pos_err_last,
+                joint_pos_err_last=err,
+                joint_vel_last_last=state.joint_vel_last,
+                joint_vel_last=qd,
+            )
+        elif cfg.control.control_type == "P":
+            tau = (self.p_gains[None, :] * state.Kp_factors
+                   * (target - q + state.motor_offsets)
+                   - self.d_gains[None, :] * state.Kd_factors * qd)
+            new_hist = {}
+        else:
+            raise NameError(
+                f"Unknown controller type: {cfg.control.control_type}")
+
+        tau = tau * state.motor_strengths
+        tau = torch.maximum(torch.minimum(tau, self.torque_limits),
+                            -self.torque_limits)
+        return tau, target, lag, new_hist
+
     def _substep_targets(self, state: EnvState):
         """Per-substep joint-position targets for one control step — the
         decimation-unrolled form of the lag-buffer shift (reference
@@ -629,22 +680,26 @@ class LeggedRobotEnv:
             base_lin_vel=vel6[:, :3], base_ang_vel=vel6[:, 3:],
             q=q, qd=torch.zeros((N, 12), device=dev))
 
-    def control_step_inputs(self, state: EnvState):
-        """What one control step feeds the physics from `state` (its
-        `actions` already clipped): (gravity (3,), DynamicsParams,
-        raw targets (N, D, 12), final lag buffer, effective targets,
-        ctrl tuple, cross-step impulse seed or None).  Gravity is -9.8 here
-        as in the reference step."""
-        cfg = self.cfg
-        N = self.num_envs
+    def dynamics_params(self, state: EnvState):
+        """(gravity (3,), DynamicsParams) of one control step from `state`.
+        Gravity is -9.8 here as in the reference step."""
         gravity = state.gravity_offset + self._gravity_base
         dyn = engine.DynamicsParams(
             payload=state.payloads,
             com_displacement=state.com_displacements,
             friction=state.friction_coeffs,
             restitution=state.restitutions,
-            gravity=gravity[None, :].repeat(N, 1),
+            gravity=gravity[None, :].repeat(self.num_envs, 1),
         )
+        return gravity, dyn
+
+    def control_step_inputs(self, state: EnvState):
+        """What one control step feeds the control-step kernel from `state`
+        (its `actions` already clipped): (gravity (3,), DynamicsParams,
+        raw targets (N, D, 12), final lag buffer, effective targets,
+        ctrl tuple, cross-step impulse seed or None)."""
+        cfg = self.cfg
+        gravity, dyn = self.dynamics_params(state)
         tgt_raw, lag_final = self._substep_targets(state)
         if cfg.control.control_type == "actuator_net":
             tgt_eff = tgt_raw - state.motor_offsets[:, None, :]
@@ -675,24 +730,52 @@ class LeggedRobotEnv:
         state = state._replace(actions=actions,
                                prev_foot_velocities=state.foot_velocities)
 
-        # 2. decimation loop (legged_robot.py:74-81) as one launch of the
-        # whole-control-step kernel: torque model + all decimation substeps
-        # + integration, J/W built in-kernel, cache anchored at the entry
-        # state (reuse mode)
+        # 2. decimation loop (legged_robot.py:74-81)
         D = cfg.control.decimation
-        gravity, dyn, tgt_raw, lag_final, tgt_eff, ctrl, lam_in = \
-            self.control_step_inputs(state)
-        cross_warm = lam_in is not None
-        phys2, lam_t, p_cp_t, p_cp_prev_t, torques, hist = \
-            engine.control_step_megakernel(
-                m, self.sim_params, state.phys, dyn, self.terrain,
-                tgt_eff, state.motor_strengths, self.torque_limits,
-                ctrl, D, lam_in_t=lam_in)
-        state = state._replace(phys=phys2, torques=torques, **hist)
-        if cross_warm:
-            state = state._replace(contact_lam_t=lam_t)
-        state = state._replace(
-            joint_pos_target=tgt_raw[:, -1], lag_buffer=lag_final)
+        if cfg.sim.megastep:
+            # one launch of the whole-control-step kernel: torque model +
+            # all decimation substeps + integration, J/W built in-kernel,
+            # cache anchored at the entry state (reuse mode)
+            gravity, dyn, tgt_raw, lag_final, tgt_eff, ctrl, lam_in = \
+                self.control_step_inputs(state)
+            cross_warm = lam_in is not None
+            phys2, lam_t, p_cp_t, p_cp_prev_t, torques, hist = \
+                engine.control_step_megakernel(
+                    m, self.sim_params, state.phys, dyn, self.terrain,
+                    tgt_eff, state.motor_strengths, self.torque_limits,
+                    ctrl, D, lam_in_t=lam_in)
+            state = state._replace(phys=phys2, torques=torques, **hist)
+            if cross_warm:
+                state = state._replace(contact_lam_t=lam_t)
+            state = state._replace(
+                joint_pos_target=tgt_raw[:, -1], lag_buffer=lag_final)
+        else:
+            # per-substep kernels: the torque model between the launches.
+            # Reuse mode: one cache anchored at the control step's first
+            # geometry, contact points advanced at velocity level across
+            # substeps.  Exact mode: a fresh cache (FK/CRBA/M^-1/J/W) and
+            # fresh FK points per substep.  Every substep cold-starts the
+            # solver; `contact_lam_t` is left untouched.
+            gravity, dyn = self.dynamics_params(state)
+            reuse = cfg.sim.reuse_matrices
+            cache = p_cp_t = p_cp_prev_t = lam_t = None
+            if reuse:
+                cache = engine.build_dynamics_cache(
+                    m, self.sim_params, state.phys, dyn, self.terrain)
+                p_cp_t = cache.pallas_ops.p_cp_t
+            for _ in range(D):
+                tau, target, lag, hist = self._compute_torques(state)
+                if not reuse:
+                    cache = engine.build_dynamics_cache(
+                        m, self.sim_params, state.phys, dyn, self.terrain)
+                    p_cp_t = cache.pallas_ops.p_cp_t
+                p_cp_prev_t = p_cp_t
+                phys2, lam_t, p_cp_t = engine.physics_substep_cached(
+                    m, self.sim_params, state.phys, tau, dyn, self.terrain,
+                    cache, p_cp_t)
+                state = state._replace(phys=phys2, torques=tau,
+                                       joint_pos_target=target,
+                                       lag_buffer=lag, **hist)
         cinfo_last = engine.contact_report_from_lam_t(
             m, lam_t, self.sim_params.dt, N)
         foot_positions, foot_velocities = engine.foot_state_from_pcp_t(

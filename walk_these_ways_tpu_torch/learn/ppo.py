@@ -1,0 +1,365 @@
+"""PPO with concurrent state estimation (ppo_cse) on PyTorch.
+
+Counterpart of the JAX package's learn/ppo.py (reference:
+go1_gym_learn/ppo_cse/ppo.py + rollout_storage.py + the rollout loop in
+ppo_cse/__init__.py:138-206).  One training iteration is a 24-step rollout
+through the env, GAE, 5 epochs x 4 minibatches of clipped-surrogate PPO with
+KL-adaptive LR, plus the supervised adaptation-module regression.  It is
+three plain functions that `make_train_iteration` composes: `collect`,
+`compute_gae` and `update`.  The stacked rollout IS the storage.
+
+The simulator is never differentiated: gradients flow through the three
+MLPs of the ActorCritic only (plain `torch.matmul` products), so no kernel
+needs a backward.
+
+Parity notes (semantics matched to the reference, file:line):
+- timeout bootstrap: rewards += gamma * value * time_out (ppo.py:84-86);
+  the values are those taken BEFORE env.step
+- GAE reverse scan (rollout_storage.py:76-90), advantages normalized over
+  the whole batch with the population deviation
+- one permutation per update reused across epochs (rollout_storage.py:100-124);
+  minibatches are contiguous slices of the permuted data
+- KL-adaptive LR: x/ 1.5 outside [desired/2, 2*desired], clamped to
+  [1e-5, 1e-2], adjusted per minibatch BEFORE the gradient step
+  (ppo.py:118-132); kept in float32 like the JAX package's
+- the main Adam updates ALL params (incl. the adaptation module, which
+  receives policy gradients through the actor's latent) with grad-norm clip
+  1.0 (ppo.py:44,152-158): gradients are scaled by max_norm / norm when
+  norm > max_norm, with no epsilon in the divisor
+- a second Adam(1e-3) trains only the adaptation module on MSE(pred, priv)
+  over the first 80% of each minibatch, with the remaining 20% as test loss
+  (ppo.py:163-192); it runs after the main step on the updated params.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..models import actor_critic as ac
+
+
+@dataclasses.dataclass(frozen=True)
+class PPO_Args:
+    """reference ppo_cse/ppo.py:13-30"""
+    value_loss_coef: float = 1.0
+    use_clipped_value_loss: bool = True
+    clip_param: float = 0.2
+    entropy_coef: float = 0.01
+    num_learning_epochs: int = 5
+    num_mini_batches: int = 4
+    learning_rate: float = 1e-3
+    adaptation_module_learning_rate: float = 1e-3
+    num_adaptation_module_substeps: int = 1
+    schedule: str = "adaptive"
+    gamma: float = 0.99
+    lam: float = 0.95
+    desired_kl: float = 0.01
+    max_grad_norm: float = 1.0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The learner's state.  The policy and the optimizers are updated in
+    place by `update`; `lr`, `iteration` are replaced."""
+    policy: ac.ActorCritic
+    optimizer: torch.optim.Adam          # all parameters, lr set per minibatch
+    adapt_optimizer: torch.optim.Adam    # the adaptation module only
+    lr: float                            # adaptive learning rate (a float32)
+    rng: torch.Generator                 # action noise and the permutation
+    iteration: int = 0
+
+
+class IterMetrics(NamedTuple):
+    value_loss: torch.Tensor
+    surrogate_loss: torch.Tensor
+    adaptation_loss: torch.Tensor
+    adaptation_test_loss: torch.Tensor
+    mean_kl: torch.Tensor
+    lr: float
+    mean_reward: torch.Tensor          # mean per-step reward this iter
+    ep_sums_done: torch.Tensor         # (n_terms+1,) summed over finished eps
+    ep_count_done: torch.Tensor
+    ep_len_done: torch.Tensor
+    # eval-slice episode stats (zero: the env has no eval split yet)
+    eval_ep_sums_done: torch.Tensor
+    eval_ep_count_done: torch.Tensor
+    eval_ep_len_done: torch.Tensor
+    curriculum_area: torch.Tensor      # (C,) mean weight per gait category
+    # crash-guard terminations this iteration; a healthy run logs 0
+    envelope_exits: torch.Tensor
+
+
+class Transition(NamedTuple):
+    """One rollout step, or (stacked, leading dim T) a whole rollout."""
+    obs_history: torch.Tensor
+    privileged_obs: torch.Tensor
+    actions: torch.Tensor
+    rewards: torch.Tensor
+    dones: torch.Tensor
+    values: torch.Tensor
+    log_probs: torch.Tensor
+    mu: torch.Tensor
+    sigma: torch.Tensor
+
+
+class UpdateMetrics(NamedTuple):
+    """Per minibatch update, in order (epochs x minibatches,)."""
+    value_loss: torch.Tensor
+    surrogate_loss: torch.Tensor
+    adaptation_loss: torch.Tensor
+    adaptation_test_loss: torch.Tensor
+    kl: torch.Tensor
+    lr: tuple                          # the lr each update's step used
+
+
+def make_optimizers(policy: ac.ActorCritic, args: PPO_Args):
+    main = torch.optim.Adam(policy.parameters(), lr=args.learning_rate,
+                            eps=1e-8)
+    adapt = torch.optim.Adam(policy.adaptation.parameters(),
+                             lr=args.adaptation_module_learning_rate,
+                             eps=1e-8)
+    return main, adapt
+
+
+def init_train_state(rng, env, args: PPO_Args = PPO_Args()) -> TrainState:
+    """`rng`: a generator on the env's device, or a seed for one.  It seeds
+    the initial weights and then draws the action noise and permutations."""
+    if not isinstance(rng, torch.Generator):
+        gen = torch.Generator(device=env.device)
+        gen.manual_seed(int(rng))
+        rng = gen
+    policy = ac.ActorCritic(env.num_obs, env.num_privileged_obs,
+                            env.num_obs_history, env.num_actions,
+                            generator=rng, device=env.device)
+    main_opt, adapt_opt = make_optimizers(policy, args)
+    return TrainState(policy=policy, optimizer=main_opt,
+                      adapt_optimizer=adapt_opt,
+                      lr=float(np.float32(args.learning_rate)), rng=rng,
+                      iteration=0)
+
+
+# -- the three parts of an iteration ------------------------------------------
+
+
+@torch.no_grad()
+def collect(env, env_state, obs_dict, policy: ac.ActorCritic,
+            gen: torch.Generator, num_steps: int, gamma: float):
+    """Roll the sampled policy out for `num_steps` control steps.
+
+    Returns (env_state, obs_dict, traj: Transition stacked over steps,
+    logs: tuple of per-step stacked (ep_sums_done, ep_count_done,
+    ep_len_done, eval_ep_sums_done, eval_ep_count_done, eval_ep_len_done,
+    envelope_exits))."""
+    steps, logs = [], []
+    for _ in range(num_steps):
+        hist = obs_dict["obs_history"]
+        priv = obs_dict["privileged_obs"]
+        actions, logp, mu, sigma = policy.sample_actions(hist, gen)
+        values = policy.evaluate(hist, priv)
+        env_state, obs_dict, rew, done, info = env.step(env_state, actions)
+        # timeout bootstrap (ppo.py:84-86)
+        rew = rew + gamma * values * info.time_outs.to(rew.dtype)
+        steps.append(Transition(
+            obs_history=hist, privileged_obs=priv, actions=actions,
+            rewards=rew, dones=done, values=values, log_probs=logp, mu=mu,
+            sigma=sigma.contiguous()))
+        logs.append((info.ep_sums_done, info.ep_count_done, info.ep_len_done,
+                     info.eval_ep_sums_done, info.eval_ep_count_done,
+                     info.eval_ep_len_done, info.envelope_exits))
+    traj = Transition(*[torch.stack(col) for col in zip(*steps)])
+    logs = tuple(torch.stack(col) for col in zip(*logs))
+    return env_state, obs_dict, traj, logs
+
+
+def compute_gae(traj: Transition, last_values: torch.Tensor,
+                gamma: float, lam: float):
+    """Reverse scan over the (T, N) rollout.  Returns (returns (T, N),
+    advantages normalized over the whole batch (T, N))."""
+    T = traj.rewards.shape[0]
+    adv = torch.zeros_like(last_values)
+    advs = [None] * T
+    next_values = last_values
+    for k in range(T - 1, -1, -1):
+        not_terminal = 1.0 - traj.dones[k].to(torch.float32)
+        delta = traj.rewards[k] + not_terminal * gamma * next_values \
+            - traj.values[k]
+        adv = delta + not_terminal * gamma * lam * adv
+        advs[k] = adv
+        next_values = traj.values[k]
+    advs = torch.stack(advs)
+    returns = advs + traj.values
+    norm_advs = (advs - advs.mean()) / (advs.std(unbiased=False) + 1e-8)
+    return returns, norm_advs
+
+
+def _clip_by_global_norm(params, max_norm: float):
+    """Scale the gradients by max_norm / norm when norm > max_norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+def flatten_rollout(traj: Transition, returns, advantages):
+    """(T, N, ...) -> (T*N, ...): the nine columns `update` consumes."""
+    def flat(x):
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+    return tuple(flat(x) for x in (
+        traj.obs_history, traj.privileged_obs, traj.actions, traj.log_probs,
+        traj.mu, traj.sigma, traj.values, returns, advantages))
+
+
+def update(policy: ac.ActorCritic, optimizers, lr: float, data, perm,
+           args: PPO_Args = PPO_Args()):
+    """The PPO update on one flattened rollout: `data` the nine
+    (batch, ...) columns of `flatten_rollout`, `perm` one (batch,)
+    permutation.  The data is shuffled ONCE; minibatches are contiguous
+    slices of it, in the same order in every epoch.  `optimizers` =
+    (main Adam over all parameters, Adam over the adaptation module).
+    Updates `policy` and the optimizers in place.  Returns (lr after the
+    last minibatch, UpdateMetrics)."""
+    main_opt, adapt_opt = optimizers
+    params = [p for g in main_opt.param_groups for p in g["params"]]
+    adapt_params = [p for g in adapt_opt.param_groups for p in g["params"]]
+    data = tuple(x[perm] for x in data)
+    batch = data[0].shape[0]
+    mb = batch // args.num_mini_batches
+    lr = np.float32(lr)
+    f32 = np.float32
+    rows = []
+    lrs = []
+    for _ in range(args.num_learning_epochs):
+        for i in range(args.num_mini_batches):
+            (hist_mb, priv_mb, act_mb, old_logp_mb, old_mu_mb, old_sigma_mb,
+             tv_mb, ret_mb, adv_mb) = (x[i * mb:(i + 1) * mb] for x in data)
+
+            mean = policy.actor_mean(hist_mb)
+            std = policy.std.expand_as(mean)
+            logp = ac.gaussian_log_prob(act_mb, mean, std)
+            value = policy.evaluate(hist_mb, priv_mb)
+            ratio = torch.exp(logp - old_logp_mb)
+            surr = -adv_mb * ratio
+            surr_clipped = -adv_mb * torch.clamp(
+                ratio, 1.0 - args.clip_param, 1.0 + args.clip_param)
+            s_loss = torch.mean(torch.maximum(surr, surr_clipped))
+            if args.use_clipped_value_loss:
+                v_clipped = tv_mb + torch.clamp(
+                    value - tv_mb, -args.clip_param, args.clip_param)
+                v_loss = torch.maximum(
+                    torch.square(value - ret_mb),
+                    torch.square(v_clipped - ret_mb)).mean()
+            else:
+                v_loss = torch.square(ret_mb - value).mean()
+            entropy = ac.gaussian_entropy(std)
+            loss = s_loss + args.value_loss_coef * v_loss \
+                - args.entropy_coef * entropy.mean()
+            main_opt.zero_grad(set_to_none=True)
+            loss.backward()
+
+            # KL-adaptive LR BEFORE the gradient step (ppo.py:118-132)
+            with torch.no_grad():
+                kl = torch.sum(
+                    torch.log(std / old_sigma_mb + 1e-5)
+                    + (torch.square(old_sigma_mb)
+                       + torch.square(old_mu_mb - mean))
+                    / (2.0 * torch.square(std)) - 0.5, dim=-1)
+                kl_mean = torch.mean(kl)
+            kl_f = f32(kl_mean.item())
+            if kl_f > f32(args.desired_kl * 2.0):
+                lr = max(f32(1e-5), lr / f32(1.5))
+            if kl_f < f32(args.desired_kl / 2.0) and kl_f > f32(0.0):
+                lr = min(f32(1e-2), lr * f32(1.5))
+            for group in main_opt.param_groups:
+                group["lr"] = float(lr)
+            lrs.append(float(lr))
+            with torch.no_grad():
+                _clip_by_global_norm(params, args.max_grad_norm)
+            main_opt.step()
+
+            # adaptation substep on the updated params (ppo.py:163-192)
+            num_train = hist_mb.shape[0] // 5 * 4
+            a_loss = torch.zeros((), device=hist_mb.device)
+            a_test = torch.zeros((), device=hist_mb.device)
+            for _ in range(args.num_adaptation_module_substeps):
+                pred = policy.adaptation_forward(hist_mb)
+                a_loss = torch.mean(
+                    torch.square(pred[:num_train] - priv_mb[:num_train]))
+                with torch.no_grad():
+                    a_test = torch.mean(
+                        torch.square(pred[num_train:] - priv_mb[num_train:]))
+                grads = torch.autograd.grad(a_loss, adapt_params)
+                for p, g in zip(adapt_params, grads):
+                    p.grad = g
+                adapt_opt.step()
+            rows.append(torch.stack([v_loss.detach(), s_loss.detach(),
+                                     a_loss.detach(), a_test, kl_mean]))
+    main_opt.zero_grad(set_to_none=True)
+    m = torch.stack(rows)
+    return float(lr), UpdateMetrics(
+        value_loss=m[:, 0], surrogate_loss=m[:, 1], adaptation_loss=m[:, 2],
+        adaptation_test_loss=m[:, 3], kl=m[:, 4], lr=tuple(lrs))
+
+
+# -- the iteration -------------------------------------------------------------
+
+
+def make_train_iteration(env, args: PPO_Args = PPO_Args(),
+                         num_steps: int = 24, eval_expert: bool = False):
+    """Build the one-iteration training function.
+
+    Returns fn: (env_state, obs_dict, train_state) ->
+                (env_state, obs_dict, train_state, IterMetrics)
+
+    The train/eval env split of the reference (eval envs acting
+    deterministically beside the training envs) is not ported yet."""
+    if eval_expert or env.num_eval_envs > 0:
+        raise NotImplementedError(
+            "eval envs and eval_expert belong to the evaluation slice of "
+            "the port (ROADMAP queue 1, item 18), which is not written yet")
+
+    def train_iteration(env_state, obs_dict, ts: TrainState):
+        policy = ts.policy
+        # -- rollout (ppo_cse/__init__.py:138-186) ------------------------
+        env_state, obs_dict, traj, logs = collect(
+            env, env_state, obs_dict, policy, ts.rng, num_steps, args.gamma)
+
+        # -- GAE (ppo.py:93-95) -------------------------------------------
+        with torch.no_grad():
+            last_values = policy.evaluate(obs_dict["obs_history"],
+                                          obs_dict["privileged_obs"])
+            returns, advantages = compute_gae(traj, last_values, args.gamma,
+                                              args.lam)
+
+        # -- update: one permutation, reused across epochs ----------------
+        data = flatten_rollout(traj, returns, advantages)
+        perm = torch.randperm(data[0].shape[0], generator=ts.rng,
+                              device=data[0].device)
+        lr, ms = update(policy, (ts.optimizer, ts.adapt_optimizer), ts.lr,
+                        data, perm, args)
+
+        metrics = IterMetrics(
+            value_loss=ms.value_loss.mean(),
+            surrogate_loss=ms.surrogate_loss.mean(),
+            adaptation_loss=ms.adaptation_loss.mean(),
+            adaptation_test_loss=ms.adaptation_test_loss.mean(),
+            mean_kl=ms.kl.mean(),
+            lr=lr,
+            mean_reward=traj.rewards.mean(),
+            ep_sums_done=logs[0].sum(dim=0),
+            ep_count_done=logs[1].sum(),
+            ep_len_done=logs[2].sum(),
+            eval_ep_sums_done=logs[3].sum(dim=0),
+            eval_ep_count_done=logs[4].sum(),
+            eval_ep_len_done=logs[5].sum(),
+            curriculum_area=torch.mean(env_state.curriculum.weights, dim=-1),
+            envelope_exits=logs[6].sum(),
+        )
+        ts = dataclasses.replace(ts, lr=lr, iteration=ts.iteration + 1)
+        return env_state, obs_dict, ts, metrics
+
+    return train_iteration

@@ -1,14 +1,21 @@
-"""Env-minor contact pipeline: layout helpers and the plain PyTorch cores.
+"""Env-minor contact pipeline: layout helpers, the plain PyTorch cores and
+the wrappers of the two contact kernels.
 
 Counterpart of the JAX package's ops/pallas_contact.py.  The env batch is
 the LAST axis of every operand (env-minor `(..., N)` layout), so that in the
-CUDA control-step kernel (csrc/megastep.cu) neighbouring threads read
-neighbouring addresses.
+CUDA kernels neighbouring threads read neighbouring addresses.
 
 `cache_core` and `contact_core` are plain tensor functions.  They are the
-arithmetic the control-step kernel is held against (ops/megastep.py
-`control_step_reference` composes them) and what standalone contact kernels
-will be held against once those are written.
+arithmetic the kernels are held against (ops/megastep.py
+`control_step_reference` composes them too).
+
+`build_contact_cache` (once per control step) and `contact_substep` (once
+per physics substep) are the wrappers: CPU tensors go to the plain cores,
+CUDA tensors to the hand-written kernels `csrc/contact_cache.cu` and
+`csrc/contact_substep.cu` (they replace `_cache_kernel` and
+`_substep_kernel` of ops/pallas_contact.py), or the call raises.  There is no
+fallback from a kernel to its plain version.  `cache_launches` and
+`substep_launches` count kernel launches (and nothing else).
 
 - `cache_core`: point Jacobians J[p,i,v] = anc[p,v] * (Sv[v,i] + Sw[v] x r[p])
   and the 3x3 effective-mass matrices W_p = J_p M^-1 J_p^T + eps I.
@@ -24,6 +31,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import _build
+
+# number of times the wrappers launched their CUDA kernels
+cache_launches = 0      # build_contact_cache -> csrc/contact_cache.cu
+substep_launches = 0    # contact_substep     -> csrc/contact_substep.cu
+
+# threads per block: the cache kernel runs one thread per (env, point), the
+# substep kernel one thread per env (32 spreads 4096 envs over the most SMs)
+CACHE_THREADS = 128
+SUBSTEP_THREADS = 32
 
 # -- env-minor transpose helpers --------------------------------------------
 
@@ -281,3 +299,155 @@ def contact_core(J, W, Minv, p_cp, gv0, rh, mu, e, vlim, *,
     # advance with the clamped velocities the integrator will apply
     gv_cl = torch.maximum(torch.minimum(gv, vlim), -vlim)
     return gv, p_cp + dt * jdot(gv_cl), lam
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: wrappers
+# ---------------------------------------------------------------------------
+
+_CACHE_COUNTS = (5, 2, 1)
+_SUBSTEP_COUNTS = (9, 3, 6)
+
+
+def cache_spec(nv: int, P: int):
+    """What `_build.build_libraries` needs to build csrc/contact_cache.cu."""
+    return ("contact_cache", _build.dims_header(nv, P), _CACHE_COUNTS)
+
+
+def substep_spec(nv: int, P: int):
+    """What `_build.build_libraries` needs to build
+    csrc/contact_substep.cu."""
+    return ("contact_substep", _build.dims_header(nv, P), _SUBSTEP_COUNTS)
+
+
+def cache_library(nv: int, P: int):
+    """Compile csrc/contact_cache.cu for sm_90a (once per size and source)
+    and load it.  Raises on any failure."""
+    return _build.build_library(*cache_spec(nv, P))
+
+
+def substep_library(nv: int, P: int):
+    """Compile csrc/contact_substep.cu for sm_90a and load it."""
+    return _build.build_library(*substep_spec(nv, P))
+
+
+def build_contact_cache(anc, Sw_t, Sv_t, Minv_t, r_t, eps: float = 1e-6):
+    """anc (P, nv) static mask; Sw_t/Sv_t (nv, 3, Npad); Minv_t
+    (nv, nv, Npad); r_t (P, 3, Npad).  Returns J_t (P, 3, nv, Npad),
+    W_t (P, 9, Npad).
+
+    Tensors on the CPU: `cache_core`.  Tensors on a CUDA device: the kernel
+    of csrc/contact_cache.cu, launched on the current stream without
+    synchronising, outputs allocated here; a failed build or launch
+    raises."""
+    global cache_launches
+    dev = Sw_t.device
+    if dev.type == "cpu":
+        return cache_core(anc, Sw_t, Sv_t, Minv_t, r_t, eps=eps)
+    if dev.type != "cuda":
+        raise ValueError(f"build_contact_cache: unsupported device {dev}")
+    nv, _, Npad = Sw_t.shape
+    P = r_t.shape[0]
+    ins = [("anc", anc, (P, nv)), ("Sw_t", Sw_t, (nv, 3, Npad)),
+           ("Sv_t", Sv_t, (nv, 3, Npad)), ("Minv_t", Minv_t, (nv, nv, Npad)),
+           ("r_t", r_t, (P, 3, Npad))]
+    ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
+    lib = cache_library(nv, P)
+    with torch.cuda.device(dev):
+        outs = (torch.empty((P, 3, nv, Npad), dtype=torch.float32, device=dev),
+                torch.empty((P, 9, Npad), dtype=torch.float32, device=dev))
+        _build.launch(lib, "contact_cache", ptrs, outs, (eps,),
+                      (Npad, CACHE_THREADS),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    cache_launches += 1
+    return outs
+
+
+def contact_substep(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
+                    num_iters: int, relaxation: float, dt: float,
+                    baumgarte: float, slop: float, max_depen: float,
+                    bounce_thresh: float):
+    """One contact substep, everything env-minor: J_t (P, 3, nv, Npad),
+    W_t (P, 9, Npad), Minv_t (nv, nv, Npad), pcp_t (P, 3, Npad), gv_t
+    (nv, Npad) the free velocity, rh_t (P, Npad), mu_t/e_t (1, Npad);
+    `vlim` (nv, 1) holds the per-row velocity bounds used for the point
+    advance.  Returns (gv_new_t (nv, Npad), pcp_new_t (P, 3, Npad),
+    lam_t (P, 3, Npad)).
+
+    Tensors on the CPU: `contact_core` (dense J, cold start, flat ground).
+    Tensors on a CUDA device: the kernel of csrc/contact_substep.cu, or the
+    call raises."""
+    global substep_launches
+    kw = dict(num_iters=num_iters, relaxation=relaxation, dt=dt,
+              baumgarte=baumgarte, slop=slop, max_depen=max_depen,
+              bounce_thresh=bounce_thresh)
+    dev = gv_t.device
+    if dev.type == "cpu":
+        return contact_core(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t,
+                            vlim, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"contact_substep: unsupported device {dev}")
+    nv, Npad = gv_t.shape
+    P = pcp_t.shape[0]
+    ins = [("J_t", J_t, (P, 3, nv, Npad)), ("W_t", W_t, (P, 9, Npad)),
+           ("Minv_t", Minv_t, (nv, nv, Npad)), ("pcp_t", pcp_t, (P, 3, Npad)),
+           ("gv_t", gv_t, (nv, Npad)), ("rh_t", rh_t, (P, Npad)),
+           ("mu_t", mu_t, (1, Npad)), ("e_t", e_t, (1, Npad)),
+           ("vlim", vlim, (nv, 1))]
+    ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
+    lib = substep_library(nv, P)
+    with torch.cuda.device(dev):
+        outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
+                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
+                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))
+        _build.launch(lib, "contact_substep", ptrs, outs,
+                      (dt, relaxation, baumgarte / dt, slop, max_depen,
+                       bounce_thresh),
+                      (Npad, num_iters, SUBSTEP_THREADS),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    substep_launches += 1
+    return outs
+
+
+# -- work counts (bytes moved, fp32 operations) per env -----------------------
+
+
+def cache_ops(nd) -> int:
+    """fp32 operations of the J/W build for points that depend on `nd[p]`
+    dofs each (a multiply-add counts 2): per nonzero J column a cross
+    product, an add and the mask (15), then three rows t_i = J_i M^-1 and
+    their three dot products with J, and eps on the diagonal."""
+    return int(sum(15 * d + 3 * (2 * d * d + 3 * 2 * d) + 3 for d in nd))
+
+
+def solve_ops(jnz: int, P: int, nv: int, iters: int, warm: bool) -> int:
+    """fp32 operations of one contact solve on a Jacobian with `jnz` nonzero
+    entries: targets from the free velocity, (warm: the seed pre-applied,)
+    `iters` sweeps of {J gv, the row updates, J^T dlam, M^-1 product}, and
+    the point advance."""
+    minv = 2 * nv * nv
+    sweep = 2 * jnz * 2 + P * 40 + minv
+    return ((2 * jnz + P * 10) + ((2 * jnz + minv) if warm else 0)
+            + iters * sweep + (2 * jnz + 6 * P + nv))
+
+
+def cache_work_per_env(anc_p):
+    """(bytes moved, fp32 operations) per env of `build_contact_cache`:
+    Sw, Sv, M^-1 and r read once, the dense J and W written once (the mask
+    is shared by all envs and not counted); operations with the mask's
+    static zeros taken out."""
+    anc_p = np.asarray(anc_p).astype(bool)
+    P, nv = anc_p.shape
+    floats = (2 * nv * 3 + nv * nv + P * 3) + (P * 3 * nv + P * 9)
+    return 4 * floats, cache_ops(anc_p.sum(axis=1))
+
+
+def substep_work_per_env(nv: int, P: int, num_iters: int):
+    """(bytes moved, fp32 operations) per env of `contact_substep`: J, M^-1,
+    points, velocity, gap offsets, friction and restitution read once, of W
+    the four entries the flat-ground solve uses (W00, W01, W11, W22),
+    velocity, points and impulses written once.  The function is given no
+    topology, so J counts as dense."""
+    floats = (P * 3 * nv + P * 4 + nv * nv + P * 3 + nv + P + 2) \
+        + (nv + 2 * P * 3)
+    return 4 * floats, solve_ops(P * 3 * nv, P, nv, num_iters, False)

@@ -1,17 +1,36 @@
-"""Env-minor unconstrained dynamics: the plain PyTorch `dyn_core`.
+"""Env-minor full cached physics substep: the plain PyTorch `dyn_core` and
+the wrapper of the dynamics-substep kernel.
 
 Counterpart of the JAX package's ops/pallas_dynamics.py: body twists, RNEA
 bias forces (Coriolis + gravity), unconstrained acceleration
 qdd = M^-1 (tau - bias) and the centripetal reference-point correction, on
 env-minor operands with the robot's static topology (ancestor masks,
-joint->body map) unrolled in Python, sparsity included.  It is the
-arithmetic the CUDA control-step kernel (csrc/megastep.cu) is held against
-and what a standalone dynamics kernel will be held against once written.
+joint->body map) unrolled in Python, sparsity included.  `dyn_core` is the
+arithmetic the CUDA kernels (csrc/megastep.cu, csrc/dynamics_substep.cu) are
+held against.
+
+`dynamics_substep` is one whole substep — `dyn_core` twice (midpoint rule),
+then ops/contact.contact_core.  CPU tensors go to the plain version
+`dynamics_substep_reference`; CUDA tensors go to the hand-written kernel
+`csrc/dynamics_substep.cu` (replaces `_dyn_substep_kernel` of
+ops/pallas_dynamics.py), or the call raises.  There is no fallback from the
+kernel to the plain version.  `launches` counts kernel launches (and nothing
+else).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import _build
+from . import contact as pc
+
+# number of times `dynamics_substep` launched the CUDA kernel
+launches = 0
+
+# threads per block of the CUDA kernel: one env per thread; at 4096 envs a
+# 32-thread block spreads the batch over the most SMs
+KERNEL_THREADS = 32
 
 
 def _cross(a, b):
@@ -108,3 +127,154 @@ def dyn_core(Sw, Sv, Ab, Bb, mb, Minv, g, tau, gv, *,
     qdd = torch.sum(Minv * tb[None, :, :], dim=1)           # (nv, B)
     corr = _cross(gv[0:3], gv[3:6])                         # (3, B)
     return torch.cat([qdd[0:3], qdd[3:6] + corr, qdd[6:]], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# one full cached substep: plain version, CUDA wrapper, work count
+# ---------------------------------------------------------------------------
+
+
+def dynamics_substep_reference(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t,
+                               gv_t, J_t, W_t, pcp_t, rh_t, mu_t, e_t, vlim,
+                               n_t=None, *, anc, joint_body, cp_body,
+                               dt: float, num_iters: int, relaxation: float,
+                               baumgarte: float, slop: float,
+                               max_depen: float, bounce_thresh: float,
+                               contact: bool = True):
+    """The substep in plain PyTorch: unconstrained dynamics with the
+    midpoint rule on the velocity-product terms, then the contact pipeline
+    on the cached J/W with the static point->dof sparsity."""
+    nv = gv_t.shape[0]
+    nb = m_t.shape[0]
+    nj = nv - 6
+    anc, _, groups = _build.topology(anc, cp_body)
+    kw = dict(anc=anc, joint_body=np.asarray(joint_body), nb=nb, nj=nj,
+              nv=nv)
+    qdd1 = dyn_core(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t, **kw)
+    gv_mid = gv_t + (0.5 * dt) * qdd1
+    qdd = dyn_core(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_mid,
+                   **kw)
+    gv_free = gv_t + dt * qdd
+    if not contact:
+        return gv_free, pcp_t, torch.zeros_like(pcp_t)
+    return pc.contact_core(
+        J_t, W_t, Minv_t, pcp_t, gv_free, rh_t, mu_t, e_t, vlim,
+        num_iters=num_iters, relaxation=relaxation, dt=dt,
+        baumgarte=baumgarte, slop=slop, max_depen=max_depen,
+        bounce_thresh=bounce_thresh, groups=groups, n=n_t)
+
+
+_COUNTS = (16, 3, 7)
+
+
+def library_spec(anc, joint_body, cp_body):
+    """What `_build.build_libraries` needs to build
+    csrc/dynamics_substep.cu."""
+    return ("dynamics_substep",
+            _build.topology_header(anc, joint_body, cp_body), _COUNTS)
+
+
+def build_library(anc, joint_body, cp_body):
+    """Compile csrc/dynamics_substep.cu for sm_90a (once per topology and
+    source) and load it.  Raises on any failure."""
+    return _build.build_library(*library_spec(anc, joint_body, cp_body))
+
+
+def dynamics_substep(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t,
+                     J_t, W_t, pcp_t, rh_t, mu_t, e_t, vlim, n_t=None, *,
+                     anc, joint_body, cp_body,
+                     dt: float, num_iters: int, relaxation: float,
+                     baumgarte: float, slop: float, max_depen: float,
+                     bounce_thresh: float, contact: bool = True):
+    """One full cached physics substep (twists + bias + qdd + contact +
+    point advance), env-minor: Sw_t/Sv_t (nv, 3, Npad); A_t/B_t (nb, 9,
+    Npad); m_t (nb, Npad); Minv_t (nv, nv, Npad); g_t (3, Npad); tau_t, gv_t
+    (nv, Npad); J_t (P, 3, nv, Npad); W_t (P, 9, Npad); pcp_t (P, 3, Npad);
+    rh_t (P, Npad); mu_t, e_t (1, Npad); vlim (nv, 1).  `anc` (nv, nb),
+    `joint_body` (nj,), `cp_body` (P,) are the robot's static topology.
+    Returns (gv_new_t (nv, Npad), pcp_new_t (P, 3, Npad), lam_t (P, 3,
+    Npad)).
+
+    `n_t` (per-point surface normals of a heightfield) is not supported on
+    any device yet.  Tensors on the CPU: `dynamics_substep_reference`.
+    Tensors on a CUDA device: the kernel of csrc/dynamics_substep.cu,
+    launched on the current stream without synchronising, outputs allocated
+    here; a failed build or launch raises."""
+    global launches
+    if n_t is not None:
+        raise NotImplementedError(
+            "dynamics_substep: heightfield normals (n_t) belong to the "
+            "rough-terrain slice of the port, which is not written yet")
+    dev = gv_t.device
+    if dev.type == "cpu":
+        return dynamics_substep_reference(
+            Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t, J_t, W_t,
+            pcp_t, rh_t, mu_t, e_t, vlim, None, anc=anc,
+            joint_body=joint_body, cp_body=cp_body, dt=dt,
+            num_iters=num_iters, relaxation=relaxation, baumgarte=baumgarte,
+            slop=slop, max_depen=max_depen, bounce_thresh=bounce_thresh,
+            contact=contact)
+    if dev.type != "cuda":
+        raise ValueError(f"dynamics_substep: unsupported device {dev}")
+    nv, Npad = gv_t.shape
+    nb = m_t.shape[0]
+    P = pcp_t.shape[0]
+    ins = [("Sw_t", Sw_t, (nv, 3, Npad)), ("Sv_t", Sv_t, (nv, 3, Npad)),
+           ("A_t", A_t, (nb, 9, Npad)), ("B_t", B_t, (nb, 9, Npad)),
+           ("m_t", m_t, (nb, Npad)), ("Minv_t", Minv_t, (nv, nv, Npad)),
+           ("g_t", g_t, (3, Npad)), ("tau_t", tau_t, (nv, Npad)),
+           ("gv_t", gv_t, (nv, Npad)), ("J_t", J_t, (P, 3, nv, Npad)),
+           ("W_t", W_t, (P, 9, Npad)), ("pcp_t", pcp_t, (P, 3, Npad)),
+           ("rh_t", rh_t, (P, Npad)), ("mu_t", mu_t, (1, Npad)),
+           ("e_t", e_t, (1, Npad)), ("vlim", vlim, (nv, 1))]
+    ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
+    if tuple(np.shape(anc)) != (nv, nb) or len(cp_body) != P:
+        raise ValueError("dynamics_substep: topology and operand shapes "
+                         "disagree")
+    lib = build_library(anc, joint_body, cp_body)
+    with torch.cuda.device(dev):
+        outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
+                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
+                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))
+        _build.launch(lib, "dynamics_substep", ptrs, outs,
+                      (dt, relaxation, baumgarte / dt, slop, max_depen,
+                       bounce_thresh, 0.5 * dt),
+                      (Npad, num_iters, bool(contact), KERNEL_THREADS),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    launches += 1
+    return outs
+
+
+def dyn_ops(anc) -> int:
+    """fp32 operations of one `dyn_core` evaluation (a multiply-add counts
+    2), the ancestor mask's static zeros taken out: body twists, per-joint
+    velocity products, per-body F = I a + V x* (I V), projection onto the
+    twist rows, the M^-1 product and the centripetal term."""
+    anc = np.asarray(anc).astype(bool)
+    nv, nb = anc.shape
+    nj = nv - 6
+    n_anc = int(anc.sum())
+    n_janc = int(anc[6:].sum())
+    return (2 * 6 * n_anc + nj * 3 * 9 + 6 * n_janc
+            + nb * (4 * 15 + 2 * 18 + 3 * 9 + 12)
+            + 12 * n_janc + 2 * nv * nv + nv + 9)
+
+
+def work_per_env(anc, cp_body, num_iters: int, contact: bool = True):
+    """(bytes moved, fp32 operations) per env of `dynamics_substep`: each
+    input the function needs read once (twist bases, inertia blocks, masses,
+    M^-1, gravity, torques, velocity, points, gap offsets, friction,
+    restitution; of J the entries that the point->dof groups leave nonzero,
+    of W the four entries the flat-ground solve uses: W00, W01, W11, W22),
+    velocity, points and impulses written once; operations with the static
+    sparsity of the ancestor masks and the point->dof groups taken out."""
+    anc, anc_p, _ = _build.topology(anc, cp_body)
+    nv, nb = anc.shape
+    P = anc_p.shape[0]
+    jnz = int(3 * anc_p.sum())
+    floats = (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv + 3 + 2 * nv
+              + jnz + P * 4 + P * 3 + P + 2) + (nv + 2 * P * 3)
+    ops = 2 * dyn_ops(anc) + 4 * nv
+    if contact:
+        ops += pc.solve_ops(jnz, P, nv, num_iters, False)
+    return 4 * floats, ops

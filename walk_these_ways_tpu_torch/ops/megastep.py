@@ -20,7 +20,8 @@ here:
 
 The kernel is built at first use with `nvcc` for sm_90a into `build/` at the
 repo root (or `$WTW_TORCH_BUILD_DIR`), from `csrc/megastep.cu` and a topology
-header generated from the RobotModel, and is bound through `ctypes`.
+header generated from the RobotModel, and is bound through `ctypes`
+(ops/_build.py, shared by all the port's kernels).
 
 Bound of the kernel on an H100 (see csrc/megastep.cu and `work_per_env`):
 about 5.5 KB moved and 0.26 MFLOP fp32 per env and control step; at 4000 envs
@@ -30,16 +31,10 @@ the least time is tens of microseconds and is set by arithmetic.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-
 import numpy as np
 import torch
 
+from . import _build
 from . import contact as pc
 from . import dynamics as pd
 
@@ -49,11 +44,6 @@ launches = 0
 # threads per block of the CUDA kernel: one env per thread; at 4000 envs a
 # 32-thread block spreads the batch over the most SMs
 KERNEL_THREADS = 32
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc", "megastep.cu")
-_LIBS = {}          # hash of (source, topology header) -> ctypes library
-last_build = None   # dict(seconds, cached, command, library, log) of the last build
 
 
 def blockdiag_actuator_weights(params, device="cuda"):
@@ -125,10 +115,7 @@ def _quat_integrate(quat, omega, dt):
 
 def _topology(model):
     """Static tables of the robot the kernel and the plain version share."""
-    anc = np.asarray(model.anc_dof_body).astype(bool)          # (nv, nb)
-    anc_p = anc[:, np.asarray(model.cp_body)].T                # (P, nv)
-    groups = tuple(pc.point_dof_groups(anc_p))
-    return anc, anc_p, groups
+    return _build.topology(model.anc_dof_body, model.cp_body)
 
 
 def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
@@ -274,139 +261,23 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
 
 def topology_header(model, hidden: int, features: int) -> str:
     """C header with the robot's static tables for csrc/megastep.cu."""
-    anc, anc_p, groups = _topology(model)
-    nv, nb = anc.shape
-    nj = nv - 6
-    P = anc_p.shape[0]
-    pt_lo = np.full(P, 6, np.int64)
-    pt_n = np.zeros(P, np.int64)
-    pos = 6
-    for (s, p, lo, hi) in groups:
-        if lo is None:
-            continue
-        if lo != pos:
-            raise NotImplementedError("joint ranges must tile [6, nv)")
-        pt_lo[s:p] = lo
-        pt_n[s:p] = hi - lo
-        pos = hi
-    if pos != nv:
-        raise NotImplementedError("joint ranges must tile [6, nv)")
-    gmax = max(1, int(pt_n.max()))
-    pt_anc = np.zeros((P, gmax), np.float32)
-    for p in range(P):
-        for k in range(int(pt_n[p])):
-            pt_anc[p, k] = float(anc_p[p, pt_lo[p] + k])
-    # every point depends on all six base dofs
-    assert anc_p[:, :6].all()
-
-    def arr(ctype, name, vals, fmt):
-        body = ", ".join(fmt(v) for v in vals)
-        return (f"__constant__ {ctype} {name}[{len(vals)}] = {{{body}}};")
-
-    lines = [
-        "// generated by walk_these_ways_tpu_torch/ops/megastep.py",
-        "#pragma once",
-        f"#define MS_NB {nb}", f"#define MS_NJ {nj}", f"#define MS_NV {nv}",
-        f"#define MS_P {P}", f"#define MS_GMAX {gmax}",
-        f"#define MS_H {hidden}", f"#define MS_F {features}",
-        arr("unsigned char", "MS_ANC", anc.astype(int).reshape(-1),
-            lambda v: str(int(v))),
-        arr("int", "MS_JOINT_BODY", np.asarray(model.joint_body),
-            lambda v: str(int(v))),
-        arr("int", "MS_PT_LO", pt_lo, lambda v: str(int(v))),
-        arr("int", "MS_PT_N", pt_n, lambda v: str(int(v))),
-        arr("float", "MS_PT_ANC", pt_anc.reshape(-1),
-            lambda v: f"{float(v):.1f}f"),
-    ]
-    return "\n".join(lines) + "\n"
-
-
-def build_dir() -> str:
-    root = os.environ.get("WTW_TORCH_BUILD_DIR")
-    if root:
-        return root
-    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return os.path.join(os.path.dirname(pkg), "build")
-
-
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the control-step kernel is built "
-                       "from csrc/megastep.cu at first CUDA use")
-
-
-def build_library(model, hidden: int = 32, features: int = 6):
-    """Compile csrc/megastep.cu for sm_90a (once per topology and source)
-    and load it.  Returns the ctypes library.  Raises on any failure."""
-    global last_build
-    header = topology_header(model, hidden, features)
-    with open(_CSRC, "rb") as fh:
-        src = fh.read()
-    key = hashlib.sha1(src + header.encode()).hexdigest()[:16]
-    if key in _LIBS:
-        return _LIBS[key]
-    out_dir = os.path.join(build_dir(), f"megastep_{key}")
-    os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, "libmegastep.so")
-    cached = os.path.exists(lib_path)
-    t0 = time.time()
-    cmd = None
-    log = ""
-    if not cached:
-        with open(os.path.join(out_dir, "megastep_topology.h"), "w") as fh:
-            fh.write(header)
-        tmp = lib_path + f".tmp{os.getpid()}"
-        # -Xptxas -v: registers and stack per function go into the build log
-        cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-I", out_dir, "-o", tmp, _CSRC]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
-    lib.megastep_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p]
-    lib.megastep_launch.restype = ctypes.c_int
-    lib.megastep_error_string.argtypes = [ctypes.c_int]
-    lib.megastep_error_string.restype = ctypes.c_char_p
-    lib.megastep_counts.argtypes = [ctypes.c_void_p] * 3
-    lib.megastep_counts.restype = ctypes.c_int
-    counts = [ctypes.c_int() for _ in range(3)]
-    lib.megastep_counts(*[ctypes.byref(c) for c in counts])
-    if [c.value for c in counts] != [_N_IN, _N_OUT, _N_F]:
-        raise RuntimeError("csrc/megastep.cu and ops/megastep.py disagree "
-                           "on the kernel's argument lists")
-    last_build = dict(seconds=time.time() - t0, cached=cached,
-                      command=" ".join(cmd) if cmd else None,
-                      library=lib_path, log=log)
-    _LIBS[key] = lib
-    return lib
+    return _build.topology_header(model.anc_dof_body, model.joint_body,
+                                  model.cp_body, hidden, features)
 
 
 _N_IN, _N_OUT, _N_F = 34, 14, 12
 
 
-def _check(name, x, shape, dev):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x)}")
-    if x.device != dev:
-        raise ValueError(f"{name}: on {x.device}, expected {dev}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected float32")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    return x
+def library_spec(model, hidden: int = 32, features: int = 6):
+    """What `_build.build_libraries` needs to build csrc/megastep.cu."""
+    return ("megastep", topology_header(model, hidden, features),
+            (_N_IN, _N_OUT, _N_F))
+
+
+def build_library(model, hidden: int = 32, features: int = 6):
+    """Compile csrc/megastep.cu for sm_90a (once per topology and source)
+    and load it.  Returns the ctypes library.  Raises on any failure."""
+    return _build.build_library(*library_spec(model, hidden, features))
 
 
 def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
@@ -492,7 +363,7 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
         if x is None and name == "lam_in_t":
             ptrs.append(None)
             continue
-        ptrs.append(_check(name, x, shape, dev).data_ptr())
+        ptrs.append(_build.check(name, x, shape, dev).data_ptr())
 
     lib = build_library(model, H, F)
 
@@ -502,20 +373,13 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     with torch.cuda.device(dev):
         outs = tuple(torch.empty(s, dtype=torch.float32, device=dev)
                      for s in out_shapes)
-        in_arr = (ctypes.c_void_p * _N_IN)(*ptrs)
-        out_arr = (ctypes.c_void_p * _N_OUT)(*[o.data_ptr() for o in outs])
-        f_arr = (ctypes.c_float * _N_F)(
-            dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
-            limit_stiffness, limit_damping, max_base_ang_vel,
-            max_base_lin_vel, eps, 0.5 * dt)
-        i_arr = (ctypes.c_int * 6)(Npad, D, int(num_iters), int(warm_iters),
-                                   int(bool(contact)), KERNEL_THREADS)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.megastep_launch(in_arr, out_arr, f_arr, i_arr,
-                                 ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.megastep_error_string(rc).decode()
-        raise RuntimeError(f"megastep kernel launch failed: {rc} ({msg})")
+        _build.launch(
+            lib, "megastep", ptrs, outs,
+            (dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
+             limit_stiffness, limit_damping, max_base_ang_vel,
+             max_base_lin_vel, eps, 0.5 * dt),
+            (Npad, D, num_iters, warm_iters, bool(contact), KERNEL_THREADS),
+            torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return outs
 
@@ -541,15 +405,8 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
     cache = int(sum(3 * 2 * d * d + 4 * 2 * d for d in nd)) + 9 * jnz // 3
     mlp = nj * 2 * (features * hidden + hidden * hidden + hidden) \
         + nj * 2 * hidden * 4
-    n_anc = int(anc.sum())
-    dyn = (2 * 6 * n_anc                       # body twists
-           + nj * 3 * 9 + 6 * int(anc[6:].sum())
-           + nb * (4 * 15 + 2 * 18 + 3 * 9 + 12)
-           + 12 * int(anc[6:].sum()) + 2 * nv * nv + nv + 9)
-    minv = 2 * nv * nv
-    sweep = 2 * jnz * 2 + P * 40 + minv
-    solve = (2 * jnz + P * 10) + (2 * jnz + minv) + warm_iters * sweep \
-        + (2 * jnz + 6 * P + nv)
+    dyn = pd.dyn_ops(anc)
+    solve = pc.solve_ops(jnz, P, nv, warm_iters, True)
     integ = 100 + 4 * nv
     ops = cache + D * (mlp + 10 * nj + 2 * dyn + 4 * nv + solve + integ)
     return 4 * (floats_in + floats_out), ops

@@ -1,10 +1,18 @@
-"""Batched articulated rigid-body dynamics: the control-step (megastep) route.
+"""Batched articulated rigid-body dynamics: the two env-minor kernel routes.
 
-Counterpart of the JAX package's physics/engine.py, restricted to what the
-default training path runs: one control step = one launch of the
-whole-control-step kernel (ops/megastep.py) in reuse mode.  The per-substep
-dense contact path (`_contact_solve`, `_impulse_iteration`,
-`physics_substep*`) of the reference is not ported yet.
+Counterpart of the JAX package's physics/engine.py, restricted to what runs
+through the hand-written kernels:
+
+- the control-step route (default training path): one control step = one
+  launch of the whole-control-step kernel (ops/megastep.py) in reuse mode;
+- the per-substep route: per control step one `build_dynamics_cache`
+  (env-minor cache + the contact-cache kernel, ops/contact.py) and per
+  physics substep one `physics_substep_cached` (the dynamics-substep kernel,
+  ops/dynamics.py).
+
+The N-major halves of the reference (`forward_kinematics`, `mass_matrix`,
+`_contact_solve`, `_impulse_iteration`, `physics_substep`, and the
+non-kernel halves of the two functions above) are not ported yet.
 
 - Generalized coordinates: root position (world), root quaternion (xyzw),
   12 joint angles.  Generalized velocity: root linear velocity (world), root
@@ -31,7 +39,9 @@ import torch
 
 from ..models.robot import RobotModel
 from ..ops import contact as pc
+from ..ops import dynamics as pdyn
 from ..ops import megastep as pm
+from ..ops import quat as qops
 from . import envminor
 
 
@@ -157,6 +167,169 @@ def build_pallas_env_inputs(model: RobotModel, state: PhysicsState,
     return em, rh_t, mu_t, e_t, g_t, n_t
 
 
+# ---------------------------------------------------------------------------
+# cached control step (matrix reuse across decimation substeps)
+# ---------------------------------------------------------------------------
+
+
+class PallasOps(NamedTuple):
+    """Env-minor cache operands for the dynamics-substep kernel
+    (ops/dynamics.py); built once per control step by physics/envminor.py +
+    the contact-cache kernel.  (Name kept from the JAX package.)"""
+
+    J_t: torch.Tensor       # (P, 3, nv, Npad)
+    W_t: torch.Tensor       # (P, 9, Npad) effective-mass J M^-1 J^T + eps I
+    Minv_t: torch.Tensor    # (nv, nv, Npad)
+    rh_t: torch.Tensor      # (P, Npad) radius + terrain height per point
+    mu_t: torch.Tensor      # (1, Npad)
+    e_t: torch.Tensor       # (1, Npad)
+    p_cp_t: torch.Tensor    # (P, 3, Npad)
+    Sw_t: torch.Tensor      # (nv, 3, Npad)
+    Sv_t: torch.Tensor      # (nv, 3, Npad)
+    A_t: torch.Tensor       # (nb, 9, Npad)
+    B_t: torch.Tensor       # (nb, 9, Npad)
+    m_t: torch.Tensor       # (nb, Npad)
+    g_t: torch.Tensor       # (3, Npad)
+    n_t: "torch.Tensor | None" = None   # (P, 3, Npad) normals (None = flat +z)
+    block: int = 256
+
+
+class DynamicsCache(NamedTuple):
+    """Per-control-step cached dynamics quantities, anchored at the first
+    substep's geometry.  M^-1, twist bases, inertia blocks and contact
+    Jacobians vary on the ~cm / ~3deg scale across a 20 ms control step;
+    reusing them for the remaining decimation substeps trades a small
+    geometric lag for skipping the most expensive contractions.
+
+    The whole cache is built env-minor (physics/envminor.py) and only `ref`
+    + `pallas_ops` are populated; the N-major fields of the reference
+    belong to its dense path, which is not ported."""
+
+    ref: torch.Tensor          # (N, 3) anchor reference point
+    pallas_ops: "PallasOps | None" = None
+
+
+# env-axis block of the per-substep route (Npad 4096 at 4000 envs)
+SUBSTEP_BLOCK = 256
+
+
+def _velocity_bounds(model: RobotModel, params: SimParams, f32, dev):
+    """(nv, 1) per-row velocity bounds: base angular, base linear, joints."""
+    return torch.cat([
+        torch.full((3,), params.max_base_ang_vel, dtype=f32, device=dev),
+        torch.full((3,), params.max_base_lin_vel, dtype=f32, device=dev),
+        torch.tensor(np.asarray(model.dof_vel_limit), dtype=f32,
+                     device=dev)])[:, None].contiguous()
+
+
+def build_dynamics_cache(model: RobotModel, params: SimParams,
+                         state: PhysicsState, dyn: DynamicsParams,
+                         terrain: "Terrain | None" = None) -> DynamicsCache:
+    """The cache of one control step (or, in exact mode, one substep),
+    anchored at `state`: FK / inertia / CRBA / M^-1 in scalar-per-env form
+    (physics/envminor.py), J / W in the contact-cache kernel
+    (ops/contact.build_contact_cache) — no N-major dynamics tensor is
+    materialised."""
+    if not params.use_pallas_contact:
+        raise NotImplementedError(
+            "build_dynamics_cache without use_pallas_contact is the dense "
+            "N-major engine path (ROADMAP queue 1, item 7), which is not "
+            "ported yet")
+    f32 = state.base_pos.dtype
+    dev = state.base_pos.device
+    block = SUBSTEP_BLOCK
+    em, rh_t, mu_t, e_t, g_t, n_t = build_pallas_env_inputs(
+        model, state, dyn, terrain, block)
+    anc_pn = torch.tensor(
+        np.asarray(model.anc_dof_body)[:, np.asarray(model.cp_body)].T,
+        dtype=f32, device=dev).contiguous()                    # (P, nv)
+    J_t, W_t = pc.build_contact_cache(anc_pn, em.Sw_t, em.Sv_t, em.Minv_t,
+                                      em.r_t)
+    pallas_ops = PallasOps(
+        J_t=J_t, W_t=W_t, Minv_t=em.Minv_t, rh_t=rh_t, mu_t=mu_t, e_t=e_t,
+        p_cp_t=em.p_cp_t, Sw_t=em.Sw_t, Sv_t=em.Sv_t, A_t=em.A_t,
+        B_t=em.B_t, m_t=em.m_t, g_t=g_t, n_t=n_t, block=block)
+    return DynamicsCache(ref=state.base_pos, pallas_ops=pallas_ops)
+
+
+def physics_substep_cached(
+    model: RobotModel,
+    params: SimParams,
+    state: PhysicsState,
+    joint_torques: torch.Tensor,
+    dyn: DynamicsParams,
+    terrain: "Terrain | None",
+    cache: DynamicsCache,
+    p_cp: "torch.Tensor | None" = None,
+):
+    """Substep using cached matrices (fresh: torques, contact gaps, bias
+    velocity terms, integration), through the dynamics-substep kernel.
+
+    `p_cp` is the carried contact-point estimate, env-minor (P, 3, Npad)
+    (starts at cache.pallas_ops.p_cp_t, advanced in the kernel by
+    dt * J qd — no per-substep FK).  Returns (new_state, lam_t (P, 3, Npad)
+    impulses of this substep, p_cp_new (P, 3, Npad)); the caller
+    materialises forces once per control step with
+    `contact_report_from_lam_t`."""
+    if not (params.use_pallas_contact and cache.pallas_ops is not None):
+        raise NotImplementedError(
+            "physics_substep_cached on an N-major cache is the dense engine "
+            "path (ROADMAP queue 1, item 7), which is not ported yet")
+    f32 = state.base_pos.dtype
+    dev = state.base_pos.device
+    N = state.base_pos.shape[0]
+    dt = params.dt
+    # generalized velocity expressed at the anchor point
+    delta = cache.ref - state.base_pos
+    v_ref = state.base_lin_vel + torch.cross(state.base_ang_vel, delta,
+                                             dim=-1)
+    gen_vel = torch.cat([state.base_ang_vel, v_ref, state.qd], dim=-1)
+
+    lo = torch.tensor(np.asarray(model.dof_lower), dtype=f32, device=dev)
+    hi = torch.tensor(np.asarray(model.dof_upper), dtype=f32, device=dev)
+    over_hi = torch.clamp(state.q - hi, min=0.0)
+    under_lo = torch.clamp(lo - state.q, min=0.0)
+    tau_lim = (params.joint_limit_stiffness * (under_lo - over_hi)
+               - params.joint_limit_damping
+               * ((over_hi > 0) | (under_lo > 0)).to(f32) * state.qd)
+    tau = torch.cat([torch.zeros((N, 6), dtype=f32, device=dev),
+                     joint_torques + tau_lim], dim=-1)
+
+    po = cache.pallas_ops
+    if p_cp is None:
+        p_cp = po.p_cp_t
+    gv_t = pc.to_env_minor(gen_vel, po.block)
+    tau_t = pc.to_env_minor(tau, po.block)
+    vlim = _velocity_bounds(model, params, f32, dev)
+    gv_new_t, p_cp, lam_t = pdyn.dynamics_substep(
+        po.Sw_t, po.Sv_t, po.A_t, po.B_t, po.m_t, po.Minv_t, po.g_t,
+        tau_t, gv_t, po.J_t, po.W_t, p_cp, po.rh_t, po.mu_t, po.e_t,
+        vlim, po.n_t, anc=model.anc_dof_body, joint_body=model.joint_body,
+        cp_body=model.cp_body,
+        dt=dt, num_iters=params.num_contact_iters,
+        relaxation=params.relaxation,
+        baumgarte=params.contact_baumgarte, slop=params.contact_slop,
+        max_depen=params.max_depenetration_velocity,
+        bounce_thresh=params.bounce_threshold_velocity,
+        contact=bool(params.contact_enabled))
+    gen_vel_new = pc.from_env_minor(gv_new_t, N)
+
+    vlim_j = vlim[6:, 0]
+    qd_new = torch.maximum(torch.minimum(gen_vel_new[:, 6:], vlim_j), -vlim_j)
+    ang_new = torch.clamp(gen_vel_new[:, :3], -params.max_base_ang_vel,
+                          params.max_base_ang_vel)
+    v_ref_new = torch.clamp(gen_vel_new[:, 3:6], -params.max_base_lin_vel,
+                            params.max_base_lin_vel)
+    # velocity back at the (moved) base point
+    lin_new = v_ref_new - torch.cross(ang_new, delta, dim=-1)
+    new_state = PhysicsState(
+        base_pos=state.base_pos + dt * lin_new,
+        base_quat=qops.quat_integrate(state.base_quat, ang_new, dt),
+        base_lin_vel=lin_new, base_ang_vel=ang_new,
+        q=state.q + dt * qd_new, qd=qd_new)
+    return new_state, lam_t, p_cp
+
+
 # layout block: the env axis of every env-minor tensor is padded to a
 # multiple of this (512-byte rows).  The CUDA kernel's thread block divides it.
 MEGASTEP_BLOCK = 128
@@ -204,11 +377,7 @@ def megakernel_args(
         ctrl_inputs = tuple(weights) + tuple(
             pc.to_env_minor(h, block) for h in hists)
 
-    vlim = torch.cat([
-        torch.full((3,), params.max_base_ang_vel, dtype=f32, device=dev),
-        torch.full((3,), params.max_base_lin_vel, dtype=f32, device=dev),
-        torch.tensor(np.asarray(model.dof_vel_limit), dtype=f32,
-                     device=dev)])[:, None].contiguous()
+    vlim = _velocity_bounds(model, params, f32, dev)
     tlim = torch.as_tensor(torque_limits, dtype=f32,
                            device=dev)[:, None].contiguous()
     qlo = torch.tensor(np.asarray(model.dof_lower), dtype=f32,

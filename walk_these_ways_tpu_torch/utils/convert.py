@@ -1,11 +1,12 @@
-"""Carry weights and simulator state across from numpy arrays.
+"""Carry weights, learner state and simulator state across from numpy arrays.
 
 Everything here takes numpy only, so the arrays can come from the JAX
-package (its parameter trees and EnvState leaves, after `np.asarray`), from
-the committed `.npz` files, or from anywhere else.  Key names are those of
-the JAX package's trees: `adaptation/w0`, `actor/b2`, `std`, ... for the
-actor-critic, and the EnvState / PhysicsState / CurriculumState field names
-for the simulator state.
+package (its parameter trees, optimizer states and EnvState leaves, after
+`np.asarray`), from the committed `.npz` files, or from anywhere else.  Key
+names are those of the JAX package's trees: `adaptation/w0`, `actor/b2`,
+`std`, ... for the actor-critic (and for the Adam moments, which mirror the
+parameters), and the EnvState / PhysicsState / CurriculumState / PallasOps
+field names for the simulator state.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from ..envs import curriculum as curr
 from ..envs.go1_env import EnvState
 from ..models.actor_critic import AC_Args, ActorCritic
 from ..models.actuator_net import ActuatorNetParams
-from ..physics.engine import PhysicsState
+from ..physics.engine import PallasOps, PhysicsState
 
 
 def _tensor(x, device, dtype=None):
@@ -123,3 +124,100 @@ def env_state_from_numpy(arrays: Mapping, generator: torch.Generator,
         else:
             out[name] = _tensor(arrays[name], device)
     return EnvState(**out)
+
+
+def cache_from_numpy(arrays: Mapping[str, np.ndarray], block: int = 256,
+                     device="cuda") -> PallasOps:
+    """The env-minor dynamics cache (physics/engine.PallasOps) from numpy:
+    `arrays` maps the PallasOps tensor fields to arrays; `n_t` may be absent
+    or None (flat ground)."""
+    out = {}
+    for name in PallasOps._fields:
+        if name == "block":
+            out[name] = int(block)
+        elif name == "n_t":
+            n_t = arrays.get("n_t")
+            out[name] = None if n_t is None else _tensor(n_t, device)
+        else:
+            out[name] = _tensor(arrays[name], device).contiguous()
+    return PallasOps(**out)
+
+
+def _param_names(policy: ActorCritic):
+    """[(key in the JAX package's tree, parameter)] of an ActorCritic."""
+    out = []
+    for name in ("adaptation", "actor", "critic"):
+        mlp = getattr(policy, name)
+        for i, (w, b) in enumerate(zip(mlp.weights, mlp.biases)):
+            out += [(f"{name}/w{i}", w), (f"{name}/b{i}", b)]
+    return out + [("std", policy.std)]
+
+
+def _set_adam_state(opt, named_params, moments: Mapping, device):
+    """Load `count`, `mu/<key>`, `nu/<key>` into a torch.optim.Adam."""
+    count = float(np.asarray(moments["count"]))
+    for key, p in named_params:
+        opt.state[p] = dict(
+            step=torch.tensor(count, dtype=torch.float32),
+            exp_avg=_tensor(moments["mu"][key], device),
+            exp_avg_sq=_tensor(moments["nu"][key], device))
+        for k in ("exp_avg", "exp_avg_sq"):
+            if opt.state[p][k].shape != p.shape:
+                raise ValueError(f"{key}: moment shape "
+                                 f"{tuple(opt.state[p][k].shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+
+
+def train_state_from_numpy(arrays: Mapping, generator: torch.Generator,
+                           args=None, device="cuda"):
+    """The learner's state (learn/ppo.TrainState) from numpy:
+
+        arrays = {"params":    {"adaptation/w0": ..., ..., "std": ...},
+                  "opt":       {"count": n, "mu": {<param keys>}, "nu": {...}},
+                  "adapt_opt": {"count": n, "mu": {"adaptation/w0": ...},
+                                "nu": {...}},
+                  "lr": float, "iteration": int}
+
+    `opt` is the main Adam over all parameters, `adapt_opt` the second Adam
+    over the adaptation module; `mu` / `nu` / `count` are the first and
+    second moments and the step count (optax's names).  The random stream
+    does not carry across: `generator` becomes the state's `rng`."""
+    from ..learn import ppo
+    args = args or ppo.PPO_Args()
+    policy = actor_critic_from_numpy(arrays["params"], device=device)
+    main_opt, adapt_opt = ppo.make_optimizers(policy, args)
+    named = _param_names(policy)
+    _set_adam_state(main_opt, named, arrays["opt"], device)
+    _set_adam_state(adapt_opt,
+                    [(k, p) for k, p in named if k.startswith("adaptation/")],
+                    arrays["adapt_opt"], device)
+    lr = float(np.float32(arrays["lr"]))
+    for group in main_opt.param_groups:
+        group["lr"] = lr
+    return ppo.TrainState(policy=policy, optimizer=main_opt,
+                          adapt_optimizer=adapt_opt, lr=lr, rng=generator,
+                          iteration=int(arrays.get("iteration", 0)))
+
+
+def train_state_to_numpy(ts) -> dict:
+    """Inverse of `train_state_from_numpy` (the generator is left out).  A
+    parameter the optimizer has not stepped yet has zero moments."""
+    named = _param_names(ts.policy)
+
+    def moments(opt, names):
+        out = dict(count=0, mu={}, nu={})
+        for key, p in names:
+            st = opt.state.get(p, {})
+            out["count"] = int(st["step"]) if "step" in st else out["count"]
+            for dst, src in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                out[dst][key] = (st[src].detach().cpu().numpy() if src in st
+                                 else np.zeros(tuple(p.shape), np.float32))
+        return out
+
+    return dict(
+        params={k: p.detach().cpu().numpy() for k, p in named},
+        opt=moments(ts.optimizer, named),
+        adapt_opt=moments(ts.adapt_optimizer,
+                          [(k, p) for k, p in named
+                           if k.startswith("adaptation/")]),
+        lr=float(ts.lr), iteration=int(ts.iteration))
