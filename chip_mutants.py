@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Mutation check of `chip_smoke.py` on one NVIDIA GPU.
 
-    python3 chip_mutants.py
+    python3 chip_mutants.py [name ...]
 
-For each mutant below: copies `chip_smoke.py`, the port's package and
+For each mutant below (or each one named): copies `chip_smoke.py`, the port's package and
 `resources/` into `build/mutants/<name>/`, makes ONE edit in one kernel
 source there, runs `python3 chip_smoke.py` in the copy and records its exit
 code and the first check that failed.  The smoke test must exit non-zero on
@@ -41,6 +41,24 @@ MUTANTS = (
     ("contact_cache_does_not_compile", "contact_cache.cu",
      "const size_t npad = (size_t)a.npad;", "const size_t npad = (size_t)a.npad",
      "build"),
+    ("p_control_damping_sign", "megastep.cu",
+     "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) - LD(I_KD, j) * qd[j];",
+     "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) + LD(I_KD, j) * qd[j];",
+     "control_step_p"),
+    ("cache_rebuild_drops_payload_scale", "wtw_cache.cuh",
+     "const float scale0 = mass[0] / MS_MASS[0];",
+     "const float scale0 = 1.0f;", "control_step_exact"),
+    # K5 reads a stale M^-1 after its first substep: the matrix of substep 0,
+    # plausible values one to three substeps old, as a read of the rewritten
+    # cache through a path that is not coherent with the kernel's own stores
+    # (__ldg) may return them
+    ("exact_minv_stale_after_first_substep", "megastep.cu",
+     "      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, "
+     "ex_B,\n                        ex_m, ex_minv, pcp);",
+     "      float stale[NV * NV];\n"
+     "      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, "
+     "ex_B,\n                        ex_m, si == 0 ? ex_minv : stale, pcp);",
+     "control_step_exact"),
 )
 
 
@@ -92,12 +110,15 @@ def run_mutant(name, source, old, new, expect):
     return ok
 
 
-def main():
-    results = [run_mutant(*m) for m in MUTANTS]
+def main(names=()):
+    unknown = set(names) - {m[0] for m in MUTANTS}
+    if unknown:
+        raise SystemExit(f"unknown mutants: {sorted(unknown)}")
+    results = [run_mutant(*m) for m in MUTANTS if not names or m[0] in names]
     print(json.dumps(dict(ok=all(results), mutants=len(results),
                           killed=sum(results))))
     sys.exit(0 if all(results) else 1)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

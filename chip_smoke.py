@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's four kernels from csrc/*.cu with nvcc (one nvcc each, all
-started together), holds each against its plain PyTorch version on the card
-at the shapes the paths below give it (4000 envs), then drives the port's
-paths through the entry points a user calls and checks what comes out:
+Builds the port's four kernel sources from csrc/*.cu with nvcc (one nvcc
+each, all started together; csrc/megastep.cu holds three variants of the
+control-step kernel: K4, K4c with P control, K5 in exact mode), holds each
+kernel against its plain PyTorch version on the card at the shapes the paths
+below give it (4000 envs), then drives the port's paths through the entry
+points a user calls and checks what comes out:
 
 - the policy rollout of `mob_train_cfg(4000)` on the default route (one
   control-step kernel launch per step),
@@ -15,7 +17,16 @@ paths through the entry points a user calls and checks what comes out:
   physics substep), and one control step of both routes held against each
   other,
 - the contact-substep kernel driven directly (no env branch reaches it),
-- PPO training iterations (`learn/ppo.make_train_iteration`) on both routes.
+- PPO training iterations (`learn/ppo.make_train_iteration`) on both routes,
+- exact mode on the control-step route (`sim.reuse_matrices=False`: one K5
+  launch per step, no eager cache build), and one control step of it held
+  against the per-substep exact route,
+- P control on the control-step route (`small_train_cfg(4000)`, K4c),
+- the training entry point: `learn/runner.Runner` (log, checkpoint, resume,
+  export), `python -m walk_these_ways_tpu_torch.scripts.train --exact` as a
+  subprocess, and the bench's `main`,
+- one PPO iteration under `utils/profiling.trace` (the longest device ops
+  and the device-busy share).
 
 Prints one JSON line per phase; needs one CUDA device and no network; exits
 non-zero if any phase fails or no CUDA device is present.
@@ -26,6 +37,7 @@ The last line of the output is
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -38,31 +50,34 @@ if not torch.cuda.is_available():
                      "torch.cuda.is_available() is False\n")
     sys.exit(2)
 
+from walk_these_ways_tpu_torch import bench  # noqa: E402
 from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
     LeggedRobotEnv, make_generator)
-from walk_these_ways_tpu_torch.go1_config import mob_train_cfg  # noqa: E402
+from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
+    mob_train_cfg, small_train_cfg)
 from walk_these_ways_tpu_torch.learn import ppo  # noqa: E402
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
+from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs  # noqa: E402
 from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
 from walk_these_ways_tpu_torch.ops import _build, contact, dynamics, megastep  # noqa: E402
-from walk_these_ways_tpu_torch.physics import engine  # noqa: E402
-from walk_these_ways_tpu_torch.utils import convert  # noqa: E402
+from walk_these_ways_tpu_torch.physics import engine, envminor  # noqa: E402
+from walk_these_ways_tpu_torch.utils import convert, profiling  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
              "lam", "tau", "el", "ell", "vl", "vll")
 # Kernel vs plain version on the card: |a - b| <= ATOL + RTOL * |b|.
-# Both are float32.  nvcc contracts a*b+c into one fused multiply-add and the
-# kernels sum in their own order, while the plain versions round every
-# elementwise op; over 4 substeps x (2 dynamics evaluations + 3 solver sweeps)
+# Both are float32 and round every product on its own (the kernels are built
+# without fused multiply-adds), but the kernels sum in their own order and
+# take the card's sinf / cosf; over 4 substeps x (2 dynamics evaluations + 3 solver sweeps)
 # — or 16 sweeps from a cold start — those roundings are amplified by M^-1
-# (entries up to 1e2) into joint velocities that reach the 28 rad/s clip.  The
-# largest error measured at 4000 envs is 3e-5 (on a joint velocity): the bound
-# leaves a factor of a few.
+# (entries up to 1e2) into joint velocities that reach the 28 rad/s clip.
+# PERF.md keeps the errors measured at 4000 envs: a few 1e-5 in reuse mode,
+# a few 1e-4 in exact mode, whose closed-form M^-1 is rebuilt every substep.
 ATOL, RTOL = 2e-4, 2e-4
-TOLERANCE = ("|kernel - plain| <= atol + rtol |plain|; float32 both, fused "
-             "multiply-adds and another summation order in the kernel, "
-             "amplified by M^-1 into joint velocities of up to 28 rad/s")
+TOLERANCE = ("|kernel - plain| <= atol + rtol |plain|; float32 both, "
+             "another summation order in the kernel, amplified by M^-1 into "
+             "joint velocities of up to 28 rad/s")
 N_ENVS = 4000       # the full width of mob_train_cfg
 ROLLOUT_STEPS = 24  # control steps of each rollout (one PPO iteration's)
 SEED = 0
@@ -72,10 +87,16 @@ PEAK_FP32_S = 67e12
 # directory of the JAX package, which this script names and never imports
 JAX_PACKAGE = "walk_these_ways_" + "tpu"
 CSRC = "walk_these_ways_tpu_torch/csrc/"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(_build.build_dir(), "smoke")
+
+
+T0 = time.time()
 
 
 def say(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line; `t` is the script's elapsed time in seconds."""
+    print(json.dumps(dict(kw, t=time.time() - T0)), flush=True)
 
 
 def run(cmd):
@@ -109,16 +130,29 @@ def time_host(fn, reps=2):
 
 def reset_counts():
     megastep.launches = 0
+    megastep.p_launches = 0
+    megastep.exact_launches = 0
     contact.cache_launches = 0
     contact.substep_launches = 0
     dynamics.launches = 0
+    envminor.cache_builds = 0
 
 
 def counts():
     return dict(control_step=megastep.launches,
+                control_step_p=megastep.p_launches,
+                control_step_exact=megastep.exact_launches,
                 contact_cache=contact.cache_launches,
                 contact_substep=contact.substep_launches,
-                dynamics_substep=dynamics.launches)
+                dynamics_substep=dynamics.launches,
+                eager_cache_builds=envminor.cache_builds)
+
+
+def expect(**given):
+    """Expected counts: the ones named, every other 0."""
+    out = dict.fromkeys(counts(), 0)
+    out.update(given)
+    return out
 
 
 def bound(nbytes, nops, n):
@@ -137,23 +171,36 @@ def kernel_call_of(env, state):
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
         state.motor_strengths, env.torque_limits, ctrl,
-        env.cfg.control.decimation, lam_in)
+        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices)
 
 
 def compare(kernel, state_name, names, out_k, out_r, n_valid):
     """Kernel outputs vs plain-version outputs, on the card.  The valid
     lanes must agree within the tolerance; every lane, padded ones included,
-    must be finite."""
-    torch.cuda.synchronize()
+    must be finite.  `out_k` / `out_r` may be callables: a CUDA error while
+    they run is this kernel's failure."""
+    try:
+        if callable(out_k):
+            out_k = out_k()
+        torch.cuda.synchronize()
+        if callable(out_r):
+            out_r = out_r()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        say(phase="kernel_vs_plain", kernel=kernel, state=state_name,
+            ok=False, max_abs_err=None, error=str(e)[:300])
+        raise SystemExit(f"{kernel} '{state_name}': CUDA error: {e}")
     errs, worst_abs, ok = {}, 0.0, True
     for nm, a, b in zip(names, out_k, out_r):
-        if not bool(torch.isfinite(a).all()):
-            raise SystemExit(f"{kernel} '{state_name}': non-finite values in "
-                             f"{nm} (padded lanes included)")
+        if not (bool(torch.isfinite(a).all())
+                and bool(torch.isfinite(b[..., :n_valid]).all())):
+            say(phase="kernel_vs_plain", kernel=kernel, state=state_name,
+                ok=False, max_abs_err=None,
+                error=f"non-finite values in {nm} (kernel: padded lanes "
+                      "included)")
+            raise SystemExit(f"{kernel} '{state_name}': non-finite values "
+                             f"in {nm}")
         a, b = a[..., :n_valid], b[..., :n_valid]
-        if not bool(torch.isfinite(b).all()):
-            raise SystemExit(f"{kernel} '{state_name}': non-finite values in "
-                             f"the plain version's {nm}")
         d = (a - b).abs()
         max_abs = float(d.max())
         bad = int((d > ATOL + RTOL * b.abs()).sum())
@@ -257,7 +304,7 @@ def timing(kernel, fn_kernel, fn_plain, work, n, **extra):
 
 
 def check_rollout(name, env, state, obs, ro, steps, seconds, expect_counts,
-                  smi):
+                  smi, config="mob_train_cfg", need_resets=True):
     N = env.num_envs
     got = counts()
     finite = all(bool(torch.isfinite(v).all()) for v in
@@ -274,9 +321,10 @@ def check_rollout(name, env, state, obs, ro, steps, seconds, expect_counts,
                  and tuple(obs["obs_history"].shape) == (N, 2100)
                  and tuple(obs["privileged_obs"].shape) == (N, 2)
                  and tuple(ro.actions.shape) == (steps, N, 12))
-    ok = (finite and shapes_ok and got == expect_counts and n_resets > 0
-          and reinit > 0 and 0.10 < mean_h < 0.45)
-    say(phase=name, config="mob_train_cfg", n_envs=N, steps=steps,
+    ok = (finite and shapes_ok and got == expect_counts
+          and (not need_resets or (n_resets > 0 and reinit > 0))
+          and 0.10 < mean_h < 0.45)
+    say(phase=name, config=config, n_envs=N, steps=steps,
         seconds=seconds, env_steps_per_s=N * steps / seconds, gpu=smi,
         kernel_launches=got, expected_launches=expect_counts, finite=finite,
         shapes_ok=shapes_ok, envs_reset=n_resets, envs_reinitialised=reinit,
@@ -364,6 +412,98 @@ def train_phase(route, env, gen, iterations, expect_per_iter):
         raise SystemExit(f"train_iteration_split ({route}) failed")
 
 
+def runner_phase(env_p):
+    """`Runner` on small_train_cfg: 2 iterations logged each, the
+    checkpoint it saves at the end, a new Runner resumed from it for one
+    more, and the exported policy."""
+    d = os.path.join(OUT_DIR, "runner")
+    shutil.rmtree(d, ignore_errors=True)
+    reset_counts()
+    t0 = time.time()
+    r = Runner(env_p, log_dir=d, seed=SEED, args=RunnerArgs(log_freq=1))
+    r.learn(2)
+    ck = os.path.join(d, "checkpoints", "train_state_last.pkl")
+    r2 = Runner(env_p, log_dir=d, seed=SEED, args=RunnerArgs(
+        log_freq=1, resume=True, resume_path=ck))
+    resumed_at = r2.train_state.iteration
+    same = all(torch.equal(p, q) for p, q in zip(
+        r.train_state.policy.parameters(), r2.train_state.policy.parameters()))
+    r2.learn(1)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    rows = [json.loads(ln) for ln in open(os.path.join(d, "metrics.jsonl"))]
+    pol = np.load(os.path.join(d, "checkpoints", "policy_latest.npz"))
+    files = [f for f in ("metrics.jsonl", ".charts.yml", "provenance.json",
+                         "checkpoints/train_state_last.pkl",
+                         "checkpoints/policy_latest.npz")
+             if os.path.exists(os.path.join(d, f))]
+    got = counts()
+    ok = (resumed_at == 2 and r2.train_state.iteration == 3 and same
+          and [row["iterations"] for row in rows] == [1, 2, 3]
+          and all(np.isfinite(v) for row in rows for v in row.values())
+          and len(files) == 5 and str(pol["meta/variant"]) == "cse"
+          and got["control_step_p"] > 0 and got["control_step"] == 0)
+    say(phase="runner", config="small_train_cfg", n_envs=env_p.num_envs,
+        what="Runner.learn(2) with log_freq=1, a new Runner resumed from "
+             "checkpoints/train_state_last.pkl, learn(1), export",
+        seconds=seconds, resumed_at_iteration=resumed_at,
+        resumed_weights_equal=same, iterations=r2.train_state.iteration,
+        log_rows=len(rows), artifacts=files, kernel_launches=got,
+        last_row={k: rows[-1].get(k) for k in (
+            "mean_reward_per_step", "mean_value_loss", "lr", "time_iter",
+            "train/episode/rew_tracking_lin_vel/mean")}, ok=ok)
+    if not ok:
+        raise SystemExit("runner phase failed")
+
+
+def train_script_phase():
+    """The port's train script with --exact, as a user runs it."""
+    d = os.path.join(OUT_DIR, "train_exact")
+    shutil.rmtree(d, ignore_errors=True)
+    cmd = [sys.executable, "-m", "walk_these_ways_tpu_torch.scripts.train",
+           "--num-envs", str(N_ENVS), "--iterations", "2", "--exact",
+           "--log-dir", d]
+    t0 = time.time()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env=dict(
+                           os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir()))
+    files = [f for f in ("provenance.json", "checkpoints/train_state_last.pkl",
+                         "checkpoints/policy_latest.npz")
+             if os.path.exists(os.path.join(d, f))]
+    ok = p.returncode == 0 and len(files) == 3
+    say(phase="train_script_exact", command=" ".join(cmd[1:]),
+        seconds=time.time() - t0, returncode=p.returncode, artifacts=files,
+        stderr_tail=p.stderr.strip().splitlines()[-3:], ok=ok)
+    if not ok:
+        raise SystemExit("train script (--exact) failed")
+
+
+def trace_phase(env, gen):
+    """One PPO iteration (default route) under utils/profiling.trace."""
+    ts = ppo.init_train_state(gen, env)
+    fn = ppo.make_train_iteration(env, num_steps=ROLLOUT_STEPS)
+    state, obs = env.reset(gen)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profiling.trace() as prof:
+        state, obs, ts, _ = fn(state, obs, ts)
+        torch.cuda.synchronize()
+    traced_s = time.time() - t0
+    ops, busy, window_ms = profiling.device_summary(prof, 5)
+    ok = len(ops) > 0 and 0.0 < busy <= 1.0
+    say(phase="trace", config="mob_train_cfg", n_envs=env.num_envs,
+        what="one PPO iteration (24-step rollout + update) under "
+             "torch.profiler: the five device ops with the most device "
+             "time, and the share of the traced window in which the device "
+             "ran a kernel", window_ms=window_ms, device_busy_share=busy,
+        top_device_ops=[dict(name=n[:120], ms=ms, count=c)
+                        for n, ms, c in ops],
+        seconds_traced=traced_s, seconds_with_summary=time.time() - t0,
+        ok=ok)
+    if not ok:
+        raise SystemExit("trace phase failed")
+
+
 def main():
     t_start = time.time()
 
@@ -385,9 +525,17 @@ def main():
         cfg.sim, megastep=False))
     cfg_cold = dataclasses.replace(cfg, sim=dataclasses.replace(
         cfg.sim, contact_warm_start=False))
+    cfg_exact = dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, reuse_matrices=False))
+    cfg_sub_exact = dataclasses.replace(cfg_exact, sim=dataclasses.replace(
+        cfg_exact.sim, megastep=False))
+    cfg_p = small_train_cfg(N)
     env = LeggedRobotEnv(cfg, device=DEV)
     env_sub = LeggedRobotEnv(cfg_sub, device=DEV)
     env_cold = LeggedRobotEnv(cfg_cold, device=DEV)
+    env_exact = LeggedRobotEnv(cfg_exact, device=DEV)
+    env_sub_exact = LeggedRobotEnv(cfg_sub_exact, device=DEV)
+    env_p = LeggedRobotEnv(cfg_p, device=DEV)
     gen = make_generator(SEED, DEV)
     m = env.model
     nv, P = m.nv, m.cp_body.shape[0]
@@ -395,17 +543,18 @@ def main():
     # ---- build: one nvcc per source, all started together ----------------
     t0 = time.time()
     _build.build_libraries([
-        megastep.library_spec(m, 32, 6), contact.cache_spec(nv, P),
-        contact.substep_spec(nv, P),
+        megastep.library_spec(m, 32, 6),
+        contact.cache_spec(nv, P), contact.substep_spec(nv, P),
         dynamics.library_spec(m.anc_dof_body, m.joint_body, m.cp_body)])
     for name in ("megastep", "contact_cache", "contact_substep",
                  "dynamics_substep"):
         b = _build.builds[name]
-        say(phase="build", source=CSRC + name + ".cu", seconds=b["seconds"],
-            cached=b["cached"], command=b["command"],
-            ptxas=[ln for ln in b["log"].splitlines() if "registers" in ln
-                   or "stack frame" in ln][:4])
-    say(phase="build_all", sources=4, seconds=time.time() - t0)
+        say(phase="build", library=name, source=CSRC + name + ".cu",
+            seconds=b["seconds"], cached=b["cached"], command=b["command"],
+            ptxas=[ln.strip() for ln in b["log"].splitlines()
+                   if "registers" in ln or "stack frame" in ln
+                   or "Compiling entry" in ln][:16])
+    say(phase="build_all", sources=4, libraries=4, seconds=time.time() - t0)
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
@@ -420,6 +569,7 @@ def main():
     # ---- kernels against their plain versions at N envs, two states -----
     worst = {}
     state, obs = env.reset(gen)
+    state0 = state
     args, kwargs = kernel_call_of(env, state)
     worst["control_step"] = compare(
         "control_step", "after_reset", OUT_NAMES,
@@ -439,6 +589,28 @@ def main():
         contact_impulse_max=float(out_r[8][..., :N].abs().max()))
     k1, k2, k3, k3_kw, x = compare_substep_kernels(
         env_sub, state, "24_random_steps_in", worst)
+
+    # ---- K4c (P control, small_train_cfg) and K5 (exact mode) -------------
+    state_p, _ = env_p.reset(gen)
+    for st_name in ("after_reset", "24_random_steps_in"):
+        if st_name != "after_reset":
+            for _ in range(24):
+                a = torch.randn((N, 12), generator=gen, device=DEV)
+                state_p, *_ = env_p.step(state_p, a)
+        args_p, kw_p = kernel_call_of(env_p, state_p)
+        worst["control_step_p"] = max(worst.get("control_step_p", 0.0),
+                                      compare(
+            "control_step_p", st_name, OUT_NAMES[:10],
+            lambda: megastep.control_step(*args_p, **kw_p),
+            lambda: megastep.control_step_reference(*args_p, **kw_p), N))
+    for st_name, st in (("after_reset", state0),
+                        ("24_random_steps_in", state)):
+        args_x, kw_x = kernel_call_of(env_exact, st)
+        worst["control_step_exact"] = max(
+            worst.get("control_step_exact", 0.0), compare(
+                "control_step_exact", st_name, OUT_NAMES,
+                lambda: megastep.control_step(*args_x, **kw_x),
+                lambda: megastep.control_step_reference(*args_x, **kw_x), N))
 
     # ---- kernel timing, bounds, plain versions' times ---------------------
     timed = {}
@@ -473,8 +645,24 @@ def main():
         lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
         dynamics.work_per_env(m.anc_dof_body, m.cp_body, iters), N,
         threads_per_block=dynamics.KERNEL_THREADS)
+    D = cfg.control.decimation
+    timed["control_step_p"] = timing(
+        "control_step_p", lambda: megastep.control_step(*args_p, **kw_p),
+        lambda: megastep.control_step_reference(*args_p, **kw_p),
+        megastep.work_per_env(m, D, kw_p["warm_iters"], control_type="P"),
+        N, threads_per_block=megastep.KERNEL_THREADS,
+        max_abs_err_vs_plain=worst["control_step_p"])
+    timed["control_step_exact"] = timing(
+        "control_step_exact", lambda: megastep.control_step(*args_x, **kw_x),
+        lambda: megastep.control_step_reference(*args_x, **kw_x),
+        megastep.work_per_env(m, D, 0, exact=True, num_iters=iters), N,
+        threads_per_block=megastep.KERNEL_THREADS,
+        max_abs_err_vs_plain=worst["control_step_exact"])
 
     # ---- small-input agreement: CUDA env (kernels) vs CPU env (plain) ----
+    # the CPU env runs thousands of tiny ops: one intra-op thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     n_small = 64
     small_err = {}
     for route, sim in (("control_step", cfg.sim), ("substep", cfg_sub.sim)):
@@ -506,6 +694,7 @@ def main():
             if not torch.equal(d_g.cpu(), d_c):
                 raise SystemExit("small-input check: done masks differ")
         small_err[route] = err
+    torch.set_num_threads(threads)
     small_ok = max(small_err.values()) <= 1e-3
     say(phase="small_input_agreement", n_envs=n_small, steps=3,
         what="obs and reward, env on the card (kernels) vs env on the CPU "
@@ -524,11 +713,9 @@ def main():
     torch.cuda.synchronize()
     main_counts = check_rollout(
         "main_path", env, state, obs, ro, steps, time.time() - t0,
-        dict(control_step=steps, contact_cache=0, contact_substep=0,
-             dynamics_substep=0), smi)
+        expect(control_step=steps, eager_cache_builds=steps), smi)
 
     # ---- the same rollout on the per-substep route -------------------------
-    D = cfg.control.decimation
     state_s, obs_s = env_sub.reset(gen)
     torch.cuda.synchronize()
     reset_counts()
@@ -539,8 +726,8 @@ def main():
     sub_counts = check_rollout(
         "substep_route", env_sub, state_s, obs_s, ro_s, steps,
         time.time() - t0,
-        dict(control_step=0, contact_cache=steps, contact_substep=0,
-             dynamics_substep=steps * D), smi)
+        expect(contact_cache=steps, dynamics_substep=steps * D,
+               eager_cache_builds=steps), smi)
 
     # ---- one control step by both routes from one state --------------------
     a = torch.randn((N, 12), generator=gen, device=DEV)
@@ -602,19 +789,85 @@ def main():
         raise SystemExit("contact_substep_direct phase failed")
 
     # ---- PPO training iterations on both routes ----------------------------
-    train_phase("control_step", env, gen, 2,
-                dict(control_step=steps, contact_cache=0, contact_substep=0,
-                     dynamics_substep=0))
+    train_phase("control_step", env, gen, 1,
+                expect(control_step=steps, eager_cache_builds=steps))
     train_phase("substep", env_sub, gen, 1,
-                dict(control_step=0, contact_cache=steps, contact_substep=0,
-                     dynamics_substep=steps * D))
+                expect(contact_cache=steps, dynamics_substep=steps * D,
+                       eager_cache_builds=steps))
+
+    # ---- exact mode on the control-step route: K5, no eager cache build ---
+    state_e, obs_e = env_exact.reset(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state_e, obs_e, ro_e = rollout(env_exact, policy, steps, gen,
+                                   state=state_e, obs=obs_e)
+    torch.cuda.synchronize()
+    exact_counts = check_rollout(
+        "exact_route", env_exact, state_e, obs_e, ro_e, steps,
+        time.time() - t0, expect(control_step_exact=steps), smi,
+        config="mob_train_cfg, sim.reuse_matrices=False")
+
+    # ---- one control step: K5 against the per-substep exact route ----------
+    a = torch.randn((N, 12), generator=gen, device=DEV)
+    s_k5, *_ = env_exact.step(
+        state._replace(rng=make_generator(SEED + 4, DEV)), a)
+    s_sx, *_ = env_sub_exact.step(
+        state._replace(rng=make_generator(SEED + 4, DEV)), a)
+    torch.cuda.synchronize()
+    keep = (s_k5.episode_length > 0) & (s_sx.episode_length > 0)
+    ex_err, ex_bad = {}, 0
+    for leaf in s_k5.phys._fields:
+        u, v = getattr(s_k5.phys, leaf)[keep], getattr(s_sx.phys, leaf)[keep]
+        d = (u - v).abs()
+        ex_err[leaf] = float(d.max())
+        ex_bad += int((d > ATOL + RTOL * v.abs()).sum())
+    ex_ok = ex_bad == 0 and int(keep.sum()) > N // 2
+    say(phase="exact_route_agreement", n_envs=N,
+        envs_compared=int(keep.sum()),
+        what="PhysicsState after one control step from one state and the "
+             "same actions, exact mode: the control-step kernel (K5, cache "
+             "rebuilt in-kernel before every substep) vs the per-substep "
+             "route (eager cache + K1 and one K3 per substep)",
+        atol=ATOL, rtol=RTOL, tolerance=TOLERANCE, max_abs_err=ex_err,
+        beyond_tol=ex_bad, ok=ex_ok)
+    if not ex_ok:
+        raise SystemExit("exact_route_agreement: the two routes disagree")
+
+    # ---- P control on the control-step route: K4c ---------------------------
+    state_p, obs_p = env_p.reset(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state_p, obs_p, ro_p = rollout(env_p, policy, steps, gen, state=state_p,
+                                   obs=obs_p)
+    torch.cuda.synchronize()
+    p_counts = check_rollout(
+        "p_control_route", env_p, state_p, obs_p, ro_p, steps,
+        time.time() - t0,
+        expect(control_step_p=steps, eager_cache_builds=steps), smi,
+        config="small_train_cfg", need_resets=False)
+
+    # ---- the training entry point ---------------------------------------
+    runner_phase(env_p)
+    train_script_phase()
+    row = bench.main(num_envs=N, warmup=1, iters=2)
+    bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0)
+    say(phase="bench", **row, ok=bench_ok)
+    if not bench_ok:
+        raise SystemExit("bench phase failed")
+
+    # ---- one PPO iteration under the profiler -----------------------------
+    trace_phase(env, gen)
 
     say(phase="total", seconds=time.time() - t_start)
     print(smi, flush=True)
     launches = dict(control_step=main_counts["control_step"],
                     contact_cache=sub_counts["contact_cache"],
                     contact_substep=direct_counts["contact_substep"],
-                    dynamics_substep=sub_counts["dynamics_substep"])
+                    dynamics_substep=sub_counts["dynamics_substep"],
+                    control_step_p=p_counts["control_step_p"],
+                    control_step_exact=exact_counts["control_step_exact"])
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel was never launched on its path: {launches}")
     rows = (
@@ -629,17 +882,23 @@ def main():
          "/ops/pallas_contact.py:372"),
         ("dynamics_substep", "dynamics_substep (K3: unconstrained dynamics, "
          "midpoint rule, then the contact solve)", "dynamics_substep.cu",
-         "/ops/pallas_dynamics.py:139"))
-    say(kernels=[dict(
+         "/ops/pallas_dynamics.py:139"),
+        ("control_step_p", "control_step, P control (K4c: whole control "
+         "step, flat ground, reuse mode, tau = kp (tgt - q) - kd qd)",
+         "megastep.cu", "/ops/pallas_megastep.py:154"),
+        ("control_step_exact", "control_step, exact mode (K5: whole control "
+         "step, FK/CRBA/M^-1/J/W rebuilt in-kernel before every substep, "
+         "cold solves)", "megastep.cu", "/ops/pallas_megastep.py:154"))
+    print(json.dumps(dict(kernels=[dict(
         name=title, route="cuda", source=CSRC + src,
         replaces=JAX_PACKAGE + site, launches=launches[key],
         max_abs_err=worst[key], ms=timed[key]["ms"],
         plain_ms=timed[key]["plain_ms"], bound_ms=timed[key]["bound_ms"],
         bound_by=timed[key]["bound_by"], library_ms=None)
-        for key, title, src, site in rows])
-    say(ok=True, device=dict(platform="gpu",
-                             kind=torch.cuda.get_device_name(0),
-                             count=torch.cuda.device_count()))
+        for key, title, src, site in rows])), flush=True)
+    print(json.dumps(dict(ok=True, device=dict(
+        platform="gpu", kind=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count()))), flush=True)
 
 
 if __name__ == "__main__":

@@ -243,13 +243,13 @@ def test_masked_reset_and_resample_stay_finite(runs):
 
 def test_unported_branches_raise():
     cfg = t_cfg.mob_train_cfg(4)
-    # the dense physics branches, and exact mode inside the control-step
-    # kernel (the per-substep route, sim.megastep=False, is ported)
-    for sim in (dataclasses.replace(cfg.sim, use_pallas_contact=False),
-                dataclasses.replace(cfg.sim, reuse_matrices=False)):
-        with pytest.raises(NotImplementedError):
-            t_env.LeggedRobotEnv(dataclasses.replace(cfg, sim=sim),
-                                 device="cpu")
+    # the dense physics branches (the per-substep route, sim.megastep=False,
+    # and exact mode inside the control-step kernel are ported)
+    with pytest.raises(NotImplementedError):
+        t_env.LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, use_pallas_contact=False)), device="cpu")
+    t_env.LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, reuse_matrices=False)), device="cpu")
     with pytest.raises(NotImplementedError):
         t_env.LeggedRobotEnv(cfg, eval_cfg=cfg, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv, make_generator
-from walk_these_ways_tpu_torch.go1_config import mob_train_cfg
+from walk_these_ways_tpu_torch.go1_config import mob_train_cfg, small_train_cfg
 from walk_these_ways_tpu_torch.ops import contact, dynamics, megastep
 from walk_these_ways_tpu_torch.physics import engine
 
@@ -28,12 +30,12 @@ def _call(env, state):
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
         state.motor_strengths, env.torque_limits, ctrl,
-        env.cfg.control.decimation, lam_in)
+        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices)
 
 
 def test_kernel_matches_plain_version_on_the_card(cuda):
     """|kernel - plain| <= 2e-4 + 2e-4 |plain| on every output (float32;
-    fused multiply-adds and another summation order in the kernel)."""
+    another summation order in the kernel)."""
     n = 256
     env = LeggedRobotEnv(mob_train_cfg(n), device=cuda)
     gen = make_generator(0, cuda)
@@ -64,10 +66,49 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
     normals = torch.zeros((28, 3, args[6].shape[-1]), device=cuda)
     with pytest.raises(NotImplementedError):
         megastep.control_step(*args[:5], normals, *args[6:], **kwargs)
-    with pytest.raises(NotImplementedError):
-        megastep.control_step(*args, **dict(kwargs, control_type="P"))
+    with pytest.raises(ValueError):
+        megastep.control_step(*args, **dict(kwargs, control_type="PD"))
     with pytest.raises(ValueError):
         megastep.control_step(*args[:6], args[6][:, :64], *args[7:], **kwargs)
+    # exact mode starts every solve cold: a cross-step seed is refused
+    exact_kw = dict(kwargs, exact_inputs=(
+        torch.zeros((1, args[6].shape[-1]), device=cuda),
+        torch.zeros((3, args[6].shape[-1]), device=cuda)))
+    with pytest.raises(ValueError):
+        megastep.control_step(None, *args[1:19], args[6][:, :1].new_zeros(
+            (28, 3, args[6].shape[-1])), **exact_kw)
+
+
+@pytest.mark.parametrize("variant", ["P", "exact", "P_exact"])
+def test_p_and_exact_kernels_match_plain_versions_on_the_card(cuda,
+                                                              variant):
+    """K4c and K5 (either torque model) against their plain versions, 10
+    random steps in: |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane
+    finite, padded ones included."""
+    n = 256
+    cfg = small_train_cfg(n) if variant.startswith("P") else mob_train_cfg(n)
+    if variant.endswith("exact"):
+        cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, reuse_matrices=False))
+    env = LeggedRobotEnv(cfg, device=cuda)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    for _ in range(10):
+        state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
+                                                device=cuda))
+    args, kwargs = _call(env, state)
+    count = "exact_launches" if variant.endswith("exact") else "p_launches"
+    before = getattr(megastep, count)
+    out_k = megastep.control_step(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert getattr(megastep, count) == before + 1
+    assert len(out_k) == (10 if variant.startswith("P") else 14)
+    out_r = megastep.control_step_reference(*args, **kwargs)
+    for a, b in zip(out_k, out_r):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a[..., :n].cpu().numpy(),
+                                   b[..., :n].cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
 
 
 def _substep_inputs(cuda, n=256):
@@ -109,8 +150,8 @@ def _close(outs_k, outs_r):
 
 
 def test_contact_cache_kernel_matches_plain_version_on_the_card(cuda):
-    """|kernel - plain| <= 2e-4 + 2e-4 |plain| (float32; fused multiply-adds
-    and another summation order in the kernel)."""
+    """|kernel - plain| <= 2e-4 + 2e-4 |plain| (float32; another summation
+    order in the kernel)."""
     m, em, anc_p, *_ = _substep_inputs(cuda)
     before = contact.cache_launches
     out_k = contact.build_contact_cache(anc_p, em.Sw_t, em.Sv_t, em.Minv_t,

@@ -47,25 +47,28 @@ class _Box:
         self.value = value
 
 
-def _jax_inputs(seed, height):
-    """Env-minor kernel inputs from the JAX package (block = N: no padding)."""
+def _jax_inputs(*seeds_heights):
+    """Env-minor kernel inputs from the JAX package (block = the batch: no
+    padding) for N envs per (seed, height), the groups side by side."""
     model = j_go1()
-    ph = random_phys_np(N, seed, height)
-    dy = random_dyn_np(N, seed)
+    ph = [random_phys_np(N, sd, h) for sd, h in seeds_heights]
+    dy = [random_dyn_np(N, sd) for sd, _ in seeds_heights]
+    ph, dy = ({k: np.concatenate([d[k] for d in ds]) for k in ds[0]}
+              for ds in (ph, dy))
     state = j_engine.PhysicsState(**{k: jnp.asarray(v) for k, v in ph.items()})
     dyn = j_engine.DynamicsParams(**{k: jnp.asarray(v) for k, v in dy.items()})
     em, rh_t, mu_t, e_t, g_t, n_t = j_engine.build_pallas_env_inputs(
-        model, state, dyn, None, block=N)
+        model, state, dyn, None, block=N * len(seeds_heights))
     assert n_t is None
-    return model, ph, em, rh_t, mu_t, e_t, g_t
+    return model, ph, em, rh_t, mu_t, e_t, g_t, dy
+
+
+STATES = (("reset", 0, 0.34), ("stance", 1, 0.27))
 
 
 @pytest.fixture(scope="module")
 def world():
-    out = {}
-    for name, seed, height in (("reset", 0, 0.34), ("stance", 1, 0.27)):
-        out[name] = _jax_inputs(seed, height)
-    return out
+    return {name: _jax_inputs((seed, height)) for name, seed, height in STATES}
 
 
 def _anc(model):
@@ -89,7 +92,7 @@ def test_cache_core_matches_jax(world, which):
 
 @pytest.mark.parametrize("which", ["reset", "stance"])
 def test_dyn_core_matches_jax(world, which):
-    model, ph, em, rh_t, mu_t, e_t, g_t = world[which]
+    model, ph, em, rh_t, mu_t, e_t, g_t, _ = world[which]
     anc, _ = _anc(model)
     rs = np.random.RandomState(7)
     tau = rs.uniform(-5, 5, (18, N)).astype(np.float32)
@@ -108,7 +111,7 @@ def test_dyn_core_matches_jax(world, which):
 @pytest.mark.parametrize("which,warm", [("reset", False), ("stance", False),
                                         ("stance", True)])
 def test_contact_core_matches_jax(world, which, warm):
-    model, ph, em, rh_t, mu_t, e_t, g_t = world[which]
+    model, ph, em, rh_t, mu_t, e_t, g_t, _ = world[which]
     anc, anc_p = _anc(model)
     groups = tuple(j_pc.point_dof_groups(anc_p))
     assert groups == tuple(t_pc.point_dof_groups(anc_p))
@@ -138,8 +141,23 @@ def test_contact_core_matches_jax(world, which, warm):
     assert_close(lt, lj, 1e-4, 1e-5)
 
 
-def _control_step_both(world, which):
-    model, ph, em, rh_t, mu_t, e_t, g_t = world[which]
+def _eager_fori_loop(lower, upper, body, carry):
+    for i in range(lower, upper):
+        carry = body(jnp.int32(i), carry)
+    return carry
+
+
+def _control_step_both(inputs, control_type="actuator_net", exact=False,
+                       seeded=()):
+    """One control step of the JAX kernel body (eagerly) and of the port's
+    wrapper on CPU tensors (= the plain version), on the same inputs
+    (`_jax_inputs`); reuse mode seeds the impulses of the envs in `seeded`
+    from a previous step.  Exact mode shapes the JAX inputs as
+    engine.control_step_megakernel does: the batch split (8, n / 8), the
+    mask (P, nv, 1, 1), bound columns (rows, 1, 1), no cross-step seed, no
+    warm start."""
+    model, ph, em, rh_t, mu_t, e_t, g_t, dy = inputs
+    n = ph["q"].shape[0]
     tmodel = t_go1()
     anc, anc_p = _anc(model)
     groups = tuple(j_pc.point_dof_groups(anc_p))
@@ -148,12 +166,13 @@ def _control_step_both(world, which):
     default = np.array([0.1, 0.8, -1.5, -0.1, 0.8, -1.5,
                         0.1, 1.0, -1.5, -0.1, 1.0, -1.5], np.float32)
     tgt = (default[None, :, None]
-           + 0.1 * rs.randn(D, 12, N)).astype(np.float32)
-    strengths = rs.uniform(0.9, 1.1, (12, N)).astype(np.float32)
-    hist = [0.05 * rs.randn(12, N).astype(np.float32) for _ in range(4)]
-    lam_in = np.zeros((28, 3, N), np.float32)
-    if which == "stance":
-        lam_in[:, 2] = np.abs(rs.uniform(0, 0.1, (28, N)))
+           + 0.1 * rs.randn(D, 12, n)).astype(np.float32)
+    strengths = rs.uniform(0.9, 1.1, (12, n)).astype(np.float32)
+    hist = [0.05 * rs.randn(12, n).astype(np.float32) for _ in range(4)]
+    kp = (20.0 * rs.uniform(0.9, 1.1, (12, n))).astype(np.float32)
+    kd = (0.5 * rs.uniform(0.9, 1.1, (12, n))).astype(np.float32)
+    lam_in = np.zeros((28, 3, n), np.float32)
+    lam_in[:, 2, list(seeded)] = np.abs(rs.uniform(0, 0.1, (28, len(seeded))))
     vlim = np.concatenate([np.full(3, 25.0), np.full(3, 15.0),
                            np.asarray(model.dof_vel_limit)]
                           ).astype(np.float32)[:, None]
@@ -162,49 +181,79 @@ def _control_step_both(world, which):
     qhi = np.asarray(model.dof_upper, np.float32)[:, None]
     state_t = [ph[k].T.copy() for k in ("q", "qd", "base_pos", "base_quat",
                                         "base_lin_vel", "base_ang_vel")]
+    exact_in = (dy["payload"][None].copy(), dy["com_displacement"].T.copy())
+    pctrl = control_type == "P"
 
     # JAX: the kernel body, eagerly
+    def split(x):
+        x = jnp.asarray(x)
+        return x.reshape(x.shape[:-1] + (8, x.shape[-1] // 8)) if exact else x
+
     wj = j_pm.blockdiag_actuator_weights(j_act.load())
-    j_inputs = ([jnp.asarray(anc_p, jnp.float32), em.Sw_t, em.Sv_t, em.A_t,
-                 em.B_t, em.m_t, em.Minv_t, em.p_cp_t, rh_t, mu_t, e_t, g_t,
-                 jnp.asarray(lam_in)]
-                + [jnp.asarray(x) for x in state_t]
-                + [jnp.asarray(tgt), jnp.asarray(strengths)] + list(wj)
-                + [jnp.asarray(h) for h in hist]
-                + [jnp.asarray(x) for x in (vlim, tlim, qlo, qhi)])
-    boxes = [_Box() for _ in OUT_NAMES]
-    common = dict(num_iters=16, warm_iters=3, contact=True,
+    batch = ([rh_t, mu_t, e_t, g_t] + ([] if exact else [lam_in])
+             + state_t + [tgt, strengths]
+             + ([kp, kd] if pctrl else []))
+    bounds = [jnp.asarray(x)[..., None] if exact else jnp.asarray(x)
+              for x in (vlim, tlim, qlo, qhi)]
+    if exact:
+        head = [jnp.asarray(anc_p, jnp.float32)[:, :, None, None]] + [
+            split(x) for x in exact_in]
+    else:
+        head = [jnp.asarray(anc_p, jnp.float32), em.Sw_t, em.Sv_t, em.A_t,
+                em.B_t, em.m_t, em.Minv_t, em.p_cp_t]
+    j_inputs = head + [split(x) for x in batch]
+    if not pctrl:
+        j_inputs += list(wj) + [split(h) for h in hist]
+    j_inputs += bounds
+    names = OUT_NAMES[:10] if pctrl else OUT_NAMES
+    boxes = [_Box() for _ in names]
+    common = dict(num_iters=16, warm_iters=0 if exact else 3, contact=True,
                   limit_stiffness=60.0, limit_damping=2.0,
                   max_base_ang_vel=25.0, max_base_lin_vel=15.0, **STATICS)
-    j_pm._megastep_kernel(
-        *j_inputs, *boxes, anc=anc, joint_body=np.asarray(model.joint_body),
-        groups=groups, nb=model.nb, nj=model.nj, nv=model.nv, P=28, D=D,
-        warm0=True, flat=True, control_type="actuator_net", eps=1e-6,
-        **common)
+    with pytest.MonkeyPatch.context() as mp:
+        # exact mode loops over the substeps with lax.fori_loop, which
+        # compiles its body (a minute of XLA on the CPU); the same body run
+        # eagerly, substep index as a traced-like int32, is the same
+        # arithmetic
+        mp.setattr(j_pm.jax.lax, "fori_loop", _eager_fori_loop)
+        j_pm._megastep_kernel(
+            *j_inputs, *boxes, anc=anc,
+            joint_body=np.asarray(model.joint_body), groups=groups,
+            nb=model.nb, nj=model.nj, nv=model.nv, P=28, D=D,
+            warm0=not exact, flat=True, control_type=control_type, eps=1e-6,
+            exact=exact, model=model if exact else None, **common)
     j_out = [np.asarray(b.value) for b in boxes]
+    if exact:
+        j_out = [x.reshape(x.shape[:-2] + (n,)) for x in j_out]
 
     # port: the wrapper on CPU tensors (= the plain version)
-    t_em = EnvMinorCache(Sw_t=t(em.Sw_t), Sv_t=t(em.Sv_t), Minv_t=t(em.Minv_t),
-                         A_t=t(em.A_t), B_t=t(em.B_t), m_t=t(em.m_t),
-                         r_t=t(em.r_t), p_cp_t=t(em.p_cp_t))
+    t_em = None if exact else EnvMinorCache(
+        Sw_t=t(em.Sw_t), Sv_t=t(em.Sv_t), Minv_t=t(em.Minv_t),
+        A_t=t(em.A_t), B_t=t(em.B_t), m_t=t(em.m_t), r_t=t(em.r_t),
+        p_cp_t=t(em.p_cp_t))
     wt = t_pm.blockdiag_actuator_weights(t_act.load(device="cpu"),
                                          device="cpu")
     for a, b in zip(wt, wj):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    before = t_pm.launches
+    ctrl = ((t(kp), t(kd)) if pctrl
+            else tuple(wt) + tuple(t(h) for h in hist))
+    before = (t_pm.launches, t_pm.p_launches, t_pm.exact_launches)
     t_out = t_pm.control_step(
         t_em, t(rh_t), t(mu_t), t(e_t), t(g_t), None,
-        *[t(x) for x in state_t], t(tgt), t(strengths),
-        tuple(wt) + tuple(t(h) for h in hist),
-        t(vlim), t(tlim), t(qlo), t(qhi), t(lam_in),
-        model=tmodel, control_type="actuator_net", decimation=D, **common)
-    assert t_pm.launches == before      # CPU tensors launch no kernel
+        *[t(x) for x in state_t], t(tgt), t(strengths), ctrl,
+        t(vlim), t(tlim), t(qlo), t(qhi), None if exact else t(lam_in),
+        model=tmodel, control_type=control_type, decimation=D,
+        exact_inputs=tuple(t(x) for x in exact_in) if exact else None,
+        **common)
+    # CPU tensors launch no kernel
+    assert (t_pm.launches, t_pm.p_launches, t_pm.exact_launches) == before
     return j_out, t_out
 
 
 @pytest.mark.parametrize("which", ["reset", "stance"])
 def test_control_step_matches_jax_kernel_body(world, which):
-    j_out, t_out = _control_step_both(world, which)
+    j_out, t_out = _control_step_both(
+        world[which], seeded=range(N) if which == "stance" else ())
     assert len(t_out) == len(OUT_NAMES)
     if which == "stance":
         assert float(np.abs(j_out[8]).max()) > 1e-3       # feet load the ground
@@ -213,14 +262,87 @@ def test_control_step_matches_jax_kernel_body(world, which):
         assert_close(a, b, RTOL, ATOL, err_msg=name)
 
 
+VARIANTS = {"P_reuse": ("P", False), "P_exact": ("P", True),
+            "actuator_net_exact": ("actuator_net", True)}
+# Exact mode rebuilds M and its closed-form inverse (M^-1 entries up to 1e2)
+# before each of four cold 16-sweep solves; the joint velocities (up to
+# 28 rad/s), the histories that hold them and the torques made from them
+# take the float32 differences of the two sides' summation orders beyond
+# rtol 1e-5: measured at most 2.6e-6 (vll) with the JAX body run eagerly,
+# 6.9e-6 (tau) with its substep loop compiled.
+ATOL_EXACT = 2e-5
+# P control multiplies a joint angle's rounding by kp = 20: the last
+# substep's torque, measured 1.8e-6 beyond rtol 1e-5 (reuse mode, stance).
+ATOL_TAU_P = 1e-5
+
+
+@pytest.fixture(scope="module")
+def variants():
+    """Each variant once on both states side by side (reset | stance): the
+    JAX body's cost is per call, not per env."""
+    inputs = _jax_inputs(*[(seed, h) for _, seed, h in STATES])
+    return {name: _control_step_both(inputs, ct, ex,
+                                     seeded=range(N, 2 * N))
+            for name, (ct, ex) in VARIANTS.items()}
+
+
+@pytest.mark.parametrize("which", ["reset", "stance"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_control_step_variants_match_jax_kernel_body(variants, which,
+                                                     variant):
+    """K4c (P control, reuse) and K5 (exact mode, both torque models): the
+    plain versions against the JAX kernel body."""
+    control_type, exact = VARIANTS[variant]
+    j_out, t_out = variants[variant]
+    envs = slice(0, N) if which == "reset" else slice(N, 2 * N)
+    assert len(t_out) == (10 if control_type == "P" else 14)
+    if which == "stance":
+        # feet load the ground
+        assert float(np.abs(j_out[8][..., envs]).max()) > 1e-3
+    for name, a, b in zip(OUT_NAMES, t_out, j_out):
+        assert tuple(a.shape) == b.shape, name
+        atol = ATOL_EXACT if exact else (
+            ATOL_TAU_P if name == "tau" and control_type == "P" else ATOL)
+        assert_close(a[..., envs], b[..., envs], RTOL, atol, err_msg=name)
+
+
 def test_control_step_on_cuda_has_no_plain_path():
-    """The wrapper's CUDA branch never reaches the plain version: it raises
-    for what the kernel does not cover, and its source does not name
-    control_step_reference after the CPU return."""
+    """The wrapper's CUDA branch never reaches the plain version, for any
+    variant (K4, K4c P control, K5 exact mode): it launches the kernel or
+    raises for what the kernel does not cover; its source does not name
+    control_step_reference, the exact-mode cache rebuild or a library
+    product after the CPU return, and a tensor on neither the CPU nor a
+    CUDA device raises."""
     import inspect
     src = inspect.getsource(t_pm.control_step)
     head, tail = src.split('if dev.type != "cuda"', 1)
     assert "control_step_reference" in head
-    assert "control_step_reference" not in tail
-    for banned in ("torch.matmul", "F.linear", "torch.compile", " @ "):
-        assert banned not in tail
+    for banned in ("control_step_reference", "_cache_arrays", "envminor",
+                   "cache_columns", "torch.matmul", "F.linear",
+                   "torch.compile", " @ "):
+        assert banned not in tail, banned
+    # the three variants each pass their own flags to the one launch, packed
+    # by kernel_operands, which names no plain path either
+    assert "kernel_operands(" in tail
+    packing = inspect.getsource(t_pm.kernel_operands)
+    assert "pctrl, exact)" in packing
+    for banned in ("control_step_reference", "_cache_arrays", "envminor",
+                   "cache_columns", "torch.matmul", "F.linear",
+                   "torch.compile", " @ "):
+        assert banned not in packing, banned
+    for counter in ("exact_launches += 1", "p_launches += 1",
+                    "launches += 1"):
+        assert counter in tail
+    m = t_go1()
+    meta = torch.zeros(12, 8, device="meta")
+    kw = dict(model=m, dt=0.005, num_iters=16, relaxation=0.4,
+              baumgarte=0.2, slop=0.002, max_depen=1.0, bounce_thresh=0.5,
+              contact=True, limit_stiffness=60.0, limit_damping=2.0,
+              max_base_ang_vel=25.0, max_base_lin_vel=15.0, decimation=4)
+    for ctrl, exact in (("P", False), ("P", True), ("actuator_net", True)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            t_pm.control_step(
+                None, *[None] * 5, meta, meta, meta, meta, meta, meta, meta,
+                meta, (meta, meta), None, None, None, None,
+                control_type=ctrl,
+                exact_inputs=(meta, meta) if exact else None, **kw)

@@ -155,6 +155,32 @@ def test_topology_header_lists_the_robot():
     assert 4000 < nbytes < 8000 and 1e5 < nops < 1e6
 
 
+def test_cache_rebuild_ops_leaves_out_constants_and_static_zeros():
+    """The exact-mode rebuild's count from the static structure lies below
+    the elementwise arithmetic that the plain version dispatches for one env
+    (that also builds the model's constants and multiplies by static
+    zeros), and within a third of it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from walk_these_ways_tpu_torch.physics import envminor as t_envminor
+    arith = {"add", "sub", "mul", "div", "neg", "sin", "cos", "rsub"}
+    dispatched = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.__name__.split(".")[0] in arith:
+                dispatched.append(out.numel())
+            return out
+
+    m = t_robot.go1()
+    one = torch.zeros(1)
+    with Count():
+        t_envminor.cache_columns(m, [one] * m.nj, [one] * 3 + [one + 1],
+                                 [one] * 3, one, [one] * 3)
+    n = t_pm.cache_rebuild_ops(m)
+    assert 2 / 3 * sum(dispatched) < n < sum(dispatched)
+
+
 def test_blockdiag_weights_and_actuator_net_match_jax():
     pj = j_act.load()
     pt = t_act.load(device="cpu")

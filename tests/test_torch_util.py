@@ -76,12 +76,17 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """No module of the port, nor chip_smoke.py, imports jax or
-    walk_these_ways_tpu (AST scan; nothing is launched)."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No module of the port (its scripts and bench included), nor
+    chip_smoke.py or chip_mutants.py, imports jax or walk_these_ways_tpu
+    (AST scan; nothing is launched)."""
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "chip_mutants.py")]
     for root, _, fs in os.walk(PORT):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 10
+    for entry in ("scripts/train.py", "bench.py", "learn/runner.py",
+                  "utils/checkpoint.py", "utils/profiling.py"):
+        assert os.path.join(PORT, entry) in files, entry
     bad = []
     for path in files:
         for name in _imports(path):

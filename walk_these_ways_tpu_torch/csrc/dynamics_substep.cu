@@ -69,12 +69,12 @@ dynamics_substep_kernel(const DynSubstepArgs a) {
   for (int i = 0; i < 3; ++i) g[i] = LD(I_G, i);
 
   // unconstrained dynamics, midpoint rule on the velocity-product terms
-  dyn_core(sw, sv, a.in[I_A], a.in[I_B], a.in[I_M], a.in[I_MINV], g, tau, gv,
-           qdd, npad, env);
+  const EnvRows rA{a.in[I_A], npad, env}, rB{a.in[I_B], npad, env},
+      rM{a.in[I_M], npad, env}, rMinv{a.in[I_MINV], npad, env};
+  dyn_core(sw, sv, rA, rB, rM, rMinv, g, tau, gv, qdd);
 #pragma unroll
   for (int v = 0; v < NV; ++v) gvm[v] = gv[v] + a.half_dt * qdd[v];
-  dyn_core(sw, sv, a.in[I_A], a.in[I_B], a.in[I_M], a.in[I_MINV], g, tau, gvm,
-           qdd, npad, env);
+  dyn_core(sw, sv, rA, rB, rM, rMinv, g, tau, gvm, qdd);
 #pragma unroll
   for (int v = 0; v < NV; ++v) gv[v] = gv[v] + a.c.dt * qdd[v];   // gv_free
 

@@ -1,21 +1,30 @@
-// Whole-control-step kernel for Hopper (sm_90a): one launch runs the contact
-// cache build and all `decimation` physics substeps of one control step.
+// Whole-control-step kernel for Hopper (sm_90a): one launch runs all
+// `decimation` physics substeps of one control step.
 //
 // Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
-// TPU kernel reached through control_step_pallas), in its main-path
-// specialisation: reuse mode, flat ground (n = +z), actuator-network torque
-// model, contact impulses warm-started from `lam_in`.
+// TPU kernel reached through control_step_pallas), flat ground (n = +z), in
+// three compile-time variants (template flags PCTRL, EXACT):
+//   K4   reuse mode, actuator-network torque model, contact impulses
+//        warm-started (from `lam_in` and across substeps);
+//   K4c  reuse mode, P control: tau = kp (tgt - q) - kd qd in place of the
+//        network; no actuator histories in or out;
+//   K5   exact mode (either torque model): the whole dynamics cache is
+//        rebuilt from the current state before every substep, in the kernel
+//        (csrc/wtw_cache.cuh); every substep's contact solve starts cold.
 //
 // What it computes, per env (envs are independent):
-//   once:    r = p_cp - pos;  leg-joint Jacobian columns
+//   reuse, once: r = p_cp - pos;  leg-joint Jacobian columns
 //            J[p,:,v] = anc[p,v] * (Sv[v] + Sw[v] x r[p]);  the entries
 //            W00, W01, W11, W22 of W_p = J_p M^-1 J_p^T + eps I
-//   D times: actuator MLP (6 -> H -> H -> 1, softsign) per joint -> x motor
-//            strength -> torque clip -> joint-limit torque -> unconstrained
-//            dynamics twice (midpoint rule) -> row-decoupled projected-Jacobi
-//            contact solve on the total impulse (friction cone saturating
-//            exactly) with lazy gv += M^-1 J^T dlam -> contact point advance
-//            -> velocity clips -> integrate pos / quaternion exp map / q
+//   D times: torque model (actuator MLP 6 -> H -> H -> 1, softsign, per joint;
+//            or P control) -> x motor strength -> torque clip -> joint-limit
+//            torque -> [exact: FK, twists, inertia, CRBA, M^-1 and contact
+//            points from the current q, quat, pos; then J and W as above,
+//            about the current base position] -> unconstrained dynamics twice
+//            (midpoint rule) -> row-decoupled projected-Jacobi contact solve on
+//            the total impulse (friction cone saturating exactly) with lazy
+//            gv += M^-1 J^T dlam -> contact point advance -> velocity clips ->
+//            integrate pos / quaternion exp map / q
 //
 // Design for this card.  One thread owns one env and runs the whole scalar
 // program; parallelism is across envs only.  Every operand is env-minor
@@ -24,29 +33,37 @@
 // point Jacobian (P*3*nv floats per env) never exists: the base-dof columns
 // are the unit root twists, so J gv = v_lin + w x r and J^T f = (r x f, f) are
 // taken from r directly, and only the leg-joint columns (P * GMAX * 3 floats)
-// are kept, in thread-local memory.  M^-1, the inertia blocks and the
-// actuator weights stay in global memory and are re-read through the
-// read-only path: a warp's working set of them fits L1, and the weights are
-// read at one address by the whole warp (a broadcast).  The state touches
-// global memory once on entry and once on exit.
+// are kept, in thread-local memory.  In reuse mode M^-1, the inertia blocks
+// and the actuator weights stay in global memory and are re-read through the
+// read-only path (EnvRows): the cache is not written during the launch, a
+// warp's working set of it fits L1, and the weights are read at one address
+// by the whole warp (a broadcast).  In exact mode the kernel writes its cache
+// itself every substep, so it lives in thread-local arrays read with ordinary
+// loads (ThreadRows): the read-only path is not coherent with the kernel's own
+// stores.  The dynamics and the solve are the same code for both, templated
+// on the accessor (wtw_device.cuh).  The state touches global memory once on
+// entry and once on exit.
 //
-// Bound on this card: per env 1,025 floats in and 349 out (5.5 KB) and
-// about 0.3 MFLOP of fp32 on the CUDA cores, so at 4000 envs the least time
-// is set by arithmetic (operations over the fp32 peak), not by memory.  One
-// thread per env gives about one warp per SM at 4000 envs, so the kernel as
-// written is bound by instruction latency, far above that least time; the
-// measured numbers are kept in PERF.md.
+// Bound on this card (ops/megastep.work_per_env): per env a few KB in and
+// out and 0.3 (K4, K4c) to 0.5 (K5) MFLOP of fp32 on the CUDA cores, so at
+// 4000 envs the least time is set by arithmetic, not by memory.  One thread
+// per env gives about one warp per SM at 4000 envs, so the kernel as written
+// is bound by instruction latency, far above that least time; exact mode adds
+// about 4 KB of thread-local arrays per env, in local memory.  The measured
+// numbers are kept in PERF.md.
 //
-// Rows 0..5 of Sw/Sv must be the unit root twists (rows 0..2: unit angular,
-// rows 3..5: unit linear), as physics/envminor.build_cache_envminor makes
-// them.  The dynamics read them as data; the contact Jacobian relies on it.
+// Reuse mode: rows 0..5 of Sw/Sv must be the unit root twists (rows 0..2:
+// unit angular, rows 3..5: unit linear), as physics/envminor makes them.  The
+// dynamics read them as data; the contact Jacobian relies on it.
 //
 // The topology header is generated by ops/_build.py from the RobotModel into
 // the build directory; the device helpers shared with the other kernels
-// (cross3, m3v, m3tv, minv_mul, dyn_core) live in wtw_device.cuh.
+// (cross3, m3v, m3tv, row accessors, minv_mul, dyn_core) live in
+// wtw_device.cuh, the exact-mode cache rebuild in wtw_cache.cuh.
 #include <cuda_runtime.h>
 #include "wtw_topology.h"
 #include "wtw_device.cuh"
+#include "wtw_cache.cuh"
 
 #define GM MS_GMAX
 #define NH MS_H
@@ -56,7 +73,7 @@ enum InIdx {
   I_SW = 0, I_SV, I_A, I_B, I_M, I_MINV, I_PCP, I_RH, I_MU, I_E, I_G,
   I_LAM, I_Q, I_QD, I_POS, I_QUAT, I_LIN, I_ANG, I_TGT, I_STR,
   I_W0, I_B0, I_W1, I_B1, I_W2, I_B2, I_EL, I_ELL, I_VL, I_VLL,
-  I_VLIM, I_TLIM, I_QLO, I_QHI, N_IN
+  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP, N_IN
 };
 enum OutIdx {
   O_Q = 0, O_QD, O_POS, O_QUAT, O_LIN, O_ANG, O_PCP, O_PCPPREV, O_LAM,
@@ -73,6 +90,11 @@ struct MegastepArgs {
   float f[N_F];
   int npad, D, num_iters, warm_iters, contact;
 };
+
+// Where the dynamics and the solve read M^-1, the inertia blocks and the
+// masses: the launch's input cache (reuse) or the kernel's own (exact).
+template <bool EXACT> struct RowsOf { using type = EnvRows; };
+template <> struct RowsOf<true> { using type = ThreadRows; };
 
 
 // Velocity of contact point p: base part from r (unit root twists), leg part
@@ -105,57 +127,15 @@ __device__ __forceinline__ void jt_acc_p(int p, const float* f,
                  + Jl[p][k][2] * f[2];
 }
 
-__global__ void __launch_bounds__(128)
-megastep_kernel(const MegastepArgs a) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= a.npad) return;          // ragged edge of the last block
-  const size_t npad = (size_t)a.npad;
-#define LD(idx, row) __ldg(a.in[idx] + (size_t)(row) * npad + env)
-#define ST(idx, row, val) a.out[idx][(size_t)(row) * npad + env] = (val)
-#define LDC(idx, k) __ldg(a.in[idx] + (k))     // same address for the warp
-
-  const float dt = a.f[F_DT], relax = a.f[F_RELAX];
-  const float* Minv = a.in[I_MINV];
-
-  // ---- entry state ----
-  float sw[NV][3], sv[NV][3];
-#pragma unroll 1
-  for (int d = 0; d < NV; ++d)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      sw[d][i] = LD(I_SW, d * 3 + i);
-      sv[d][i] = LD(I_SV, d * 3 + i);
-    }
-  float q[NJ], qd[NJ], el[NJ], ell[NJ], vl[NJ], vll[NJ], tau_m[NJ];
-#pragma unroll 1
-  for (int j = 0; j < NJ; ++j) {
-    q[j] = LD(I_Q, j); qd[j] = LD(I_QD, j);
-    el[j] = LD(I_EL, j); ell[j] = LD(I_ELL, j);
-    vl[j] = LD(I_VL, j); vll[j] = LD(I_VLL, j);
-    tau_m[j] = 0.0f;
-  }
-  float pos[3], lin[3], ang[3], quat[4], g[3], ref[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    pos[i] = LD(I_POS, i); lin[i] = LD(I_LIN, i); ang[i] = LD(I_ANG, i);
-    g[i] = LD(I_G, i); ref[i] = pos[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) quat[i] = LD(I_QUAT, i);
-  const float mu = LD(I_MU, 0), rest = LD(I_E, 0);
-
-  // ---- contact cache, once per control step ----
-  float pcp[NP][3], r[NP][3], lam[NP][3], Jl[NP][GM][3];
-  float W00[NP], W01[NP], W11[NP], inv_wnn[NP];
-  const bool have_seed = a.in[I_LAM] != nullptr;
+// Per contact point: the leg-joint Jacobian columns Jl and the entries of
+// W_p = J_p M^-1 J_p^T + eps I that the flat-ground solve reads.
+template <class Rows>
+__device__ __forceinline__ void point_cache(
+    const Rows& Minv, const float (*sw)[3], const float (*sv)[3],
+    const float (*r)[3], float (*Jl)[GM][3], float* W00, float* W01,
+    float* W11, float* inv_wnn, float eps, float relax) {
 #pragma unroll 1
   for (int p = 0; p < NP; ++p) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      pcp[p][i] = LD(I_PCP, p * 3 + i);
-      r[p][i] = pcp[p][i] - pos[i];
-      lam[p][i] = have_seed ? LD(I_LAM, p * 3 + i) : 0.0f;
-    }
     const int lo = MS_PT_LO[p], n = MS_PT_N[p];
     // J rows of this point over its dofs: 6 base + n leg joints
     float Jp[6 + GM][3];
@@ -186,53 +166,140 @@ megastep_kernel(const MegastepArgs a) {
       float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
       for (int kw = 0; kw < nd; ++kw) {
         const int dw = kw < 6 ? kw : lo + kw - 6;
-        const float mi = __ldg(Minv + (size_t)(dw * NV + dv) * npad + env);
+        const float mi = Minv[dw * NV + dv];
         t0 += Jp[kw][0] * mi; t1 += Jp[kw][1] * mi; t2 += Jp[kw][2] * mi;
       }
       w00 += Jp[kv][0] * t0; w01 += Jp[kv][1] * t0;
       w11 += Jp[kv][1] * t1; w22 += Jp[kv][2] * t2;
     }
-    W00[p] = w00 + a.f[F_EPS]; W01[p] = w01; W11[p] = w11 + a.f[F_EPS];
-    inv_wnn[p] = relax / (w22 + a.f[F_EPS]);
+    W00[p] = w00 + eps; W01[p] = w01; W11[p] = w11 + eps;
+    inv_wnn[p] = relax / (w22 + eps);
   }
+}
+
+template <bool PCTRL, bool EXACT>
+__global__ void __launch_bounds__(128)
+megastep_kernel(const MegastepArgs a) {
+  const int env = blockIdx.x * blockDim.x + threadIdx.x;
+  if (env >= a.npad) return;          // ragged edge of the last block
+  const size_t npad = (size_t)a.npad;
+#define LD(idx, row) __ldg(a.in[idx] + (size_t)(row) * npad + env)
+#define ST(idx, row, val) a.out[idx][(size_t)(row) * npad + env] = (val)
+#define LDC(idx, k) __ldg(a.in[idx] + (k))     // same address for the warp
+
+  const float dt = a.f[F_DT], relax = a.f[F_RELAX], eps = a.f[F_EPS];
+
+  // ---- entry state ----
+  float q[NJ], qd[NJ], tau_m[NJ];
+  // actuator-network histories (unused with P control)
+  float el[NJ], ell[NJ], vl[NJ], vll[NJ];
+#pragma unroll 1
+  for (int j = 0; j < NJ; ++j) {
+    q[j] = LD(I_Q, j); qd[j] = LD(I_QD, j);
+    tau_m[j] = 0.0f;
+    if constexpr (!PCTRL) {
+      el[j] = LD(I_EL, j); ell[j] = LD(I_ELL, j);
+      vl[j] = LD(I_VL, j); vll[j] = LD(I_VLL, j);
+    }
+  }
+  float pos[3], lin[3], ang[3], quat[4], g[3], ref[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pos[i] = LD(I_POS, i); lin[i] = LD(I_LIN, i); ang[i] = LD(I_ANG, i);
+    g[i] = LD(I_G, i); ref[i] = pos[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) quat[i] = LD(I_QUAT, i);
+  const float mu = LD(I_MU, 0), rest = LD(I_E, 0);
+
+  // ---- the dynamics cache: the launch's (reuse) or the kernel's (exact) ----
+  float sw[NV][3], sv[NV][3];
+  float pcp[NP][3], r[NP][3], lam[NP][3], Jl[NP][GM][3];
+  float W00[NP], W01[NP], W11[NP], inv_wnn[NP];
+  float ex_A[EXACT ? NB * 9 : 1], ex_B[EXACT ? NB * 9 : 1];
+  float ex_m[EXACT ? NB : 1], ex_minv[EXACT ? NV * NV : 1];
+  float payload = 0.0f, comdisp[3] = {0.0f, 0.0f, 0.0f};
+  using Rows = typename RowsOf<EXACT>::type;
+  const Rows rA{EXACT ? ex_A : a.in[I_A], npad, env};
+  const Rows rB{EXACT ? ex_B : a.in[I_B], npad, env};
+  const Rows rM{EXACT ? ex_m : a.in[I_M], npad, env};
+  const Rows rMinv{EXACT ? ex_minv : a.in[I_MINV], npad, env};
+  const bool have_seed = !EXACT && a.in[I_LAM] != nullptr;
+  if constexpr (EXACT) {
+    payload = LD(I_PAYLOAD, 0);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) comdisp[i] = LD(I_COMDISP, i);
+    // replaced by fresh FK before the first substep
+#pragma unroll 1
+    for (int p = 0; p < NP; ++p)
+      pcp[p][0] = pcp[p][1] = pcp[p][2] = 0.0f;
+  } else {
+#pragma unroll 1
+    for (int d = 0; d < NV; ++d)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        sw[d][i] = LD(I_SW, d * 3 + i);
+        sv[d][i] = LD(I_SV, d * 3 + i);
+      }
+    // contact cache once per control step, about the entry base position
+#pragma unroll 1
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        pcp[p][i] = LD(I_PCP, p * 3 + i);
+        r[p][i] = pcp[p][i] - pos[i];
+      }
+    point_cache(rMinv, sw, sv, r, Jl, W00, W01, W11, inv_wnn, eps, relax);
+  }
+#pragma unroll 1
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      lam[p][i] = have_seed ? LD(I_LAM, p * 3 + i) : 0.0f;
 
   // ---- D substeps ----
 #pragma unroll 1
   for (int si = 0; si < a.D; ++si) {
-    // torque model: per-joint MLP on [err, el, ell, qd, vl, vll]; the
-    // weights are the nonzero blocks of the block-diagonal matrices
+    // torque model: P control, or the per-joint MLP on
+    // [err, el, ell, qd, vl, vll] whose weights are the nonzero blocks of
+    // the block-diagonal matrices
     float tau_full[NV];
 #pragma unroll
     for (int i = 0; i < 6; ++i) tau_full[i] = 0.0f;
 #pragma unroll 1
     for (int j = 0; j < NJ; ++j) {
-      const float err = q[j] - LD(I_TGT, si * NJ + j);
-      const float x[NF] = {err, el[j], ell[j], qd[j], vl[j], vll[j]};
-      float h0[NH], h1[NH];
+      float t;
+      if constexpr (PCTRL) {
+        t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) - LD(I_KD, j) * qd[j];
+      } else {
+        const float err = q[j] - LD(I_TGT, si * NJ + j);
+        const float x[NF] = {err, el[j], ell[j], qd[j], vl[j], vll[j]};
+        float h0[NH], h1[NH];
 #pragma unroll 4
-      for (int o = 0; o < NH; ++o) {
-        const int row = NH * j + o;
-        float acc = 0.0f;
+        for (int o = 0; o < NH; ++o) {
+          const int row = NH * j + o;
+          float acc = 0.0f;
 #pragma unroll
-        for (int f = 0; f < NF; ++f)
-          acc += LDC(I_W0, row * (NJ * NF) + NJ * f + j) * x[f];
-        h0[o] = softsign(acc + LDC(I_B0, row));
-      }
+          for (int f = 0; f < NF; ++f)
+            acc += LDC(I_W0, row * (NJ * NF) + NJ * f + j) * x[f];
+          h0[o] = softsign(acc + LDC(I_B0, row));
+        }
 #pragma unroll 2
-      for (int o = 0; o < NH; ++o) {
-        const int row = NH * j + o;
-        const float* wrow = a.in[I_W1] + (size_t)row * (NJ * NH) + NH * j;
-        float acc = 0.0f;
+        for (int o = 0; o < NH; ++o) {
+          const int row = NH * j + o;
+          const float* wrow = a.in[I_W1] + (size_t)row * (NJ * NH) + NH * j;
+          float acc = 0.0f;
 #pragma unroll
-        for (int i = 0; i < NH; ++i) acc += __ldg(wrow + i) * h0[i];
-        h1[o] = softsign(acc + LDC(I_B1, row));
+          for (int i = 0; i < NH; ++i) acc += __ldg(wrow + i) * h0[i];
+          h1[o] = softsign(acc + LDC(I_B1, row));
+        }
+        t = 0.0f;
+#pragma unroll
+        for (int o = 0; o < NH; ++o)
+          t += LDC(I_W2, j * (NJ * NH) + NH * j + o) * h1[o];
+        t += LDC(I_B2, j);
+        ell[j] = el[j]; el[j] = err; vll[j] = vl[j]; vl[j] = qd[j];
       }
-      float t = 0.0f;
-#pragma unroll
-      for (int o = 0; o < NH; ++o)
-        t += LDC(I_W2, j * (NJ * NH) + NH * j + o) * h1[o];
-      t += LDC(I_B2, j);
-      ell[j] = el[j]; el[j] = err; vll[j] = vl[j]; vl[j] = qd[j];
       t = t * LD(I_STR, j);
       t = clampf(t, LDC(I_TLIM, j));
       tau_m[j] = t;
@@ -245,6 +312,20 @@ megastep_kernel(const MegastepArgs a) {
       tau_full[6 + j] = t + tau_lim;
     }
 
+    if constexpr (EXACT) {
+      // the whole cache from the current state, re-anchored at the current
+      // base position (delta = 0); fresh FK contact points
+      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, ex_B,
+                        ex_m, ex_minv, pcp);
+#pragma unroll 1
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < 3; ++i) r[p][i] = pcp[p][i] - pos[i];
+      point_cache(rMinv, sw, sv, r, Jl, W00, W01, W11, inv_wnn, eps, relax);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) ref[i] = pos[i];
+    }
+
     // unconstrained dynamics at the anchor point, midpoint rule
     float delta[3], cd[3], gv[NV], qdd[NV], gvm[NV];
 #pragma unroll
@@ -254,12 +335,10 @@ megastep_kernel(const MegastepArgs a) {
     for (int i = 0; i < 3; ++i) { gv[i] = ang[i]; gv[3 + i] = lin[i] + cd[i]; }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) gv[6 + j] = qd[j];
-    dyn_core(sw, sv, a.in[I_A], a.in[I_B], a.in[I_M], Minv, g, tau_full, gv,
-             qdd, npad, env);
+    dyn_core(sw, sv, rA, rB, rM, rMinv, g, tau_full, gv, qdd);
 #pragma unroll
     for (int v = 0; v < NV; ++v) gvm[v] = gv[v] + a.f[F_HALFDT] * qdd[v];
-    dyn_core(sw, sv, a.in[I_A], a.in[I_B], a.in[I_M], Minv, g, tau_full, gvm,
-             qdd, npad, env);
+    dyn_core(sw, sv, rA, rB, rM, rMinv, g, tau_full, gvm, qdd);
 #pragma unroll
     for (int v = 0; v < NV; ++v) gv[v] = gv[v] + dt * qdd[v];   // gv_free
 
@@ -271,7 +350,7 @@ megastep_kernel(const MegastepArgs a) {
     }
 
     if (a.contact) {
-      const bool warm = a.warm_iters > 0 && (si > 0 || have_seed);
+      const bool warm = !EXACT && a.warm_iters > 0 && (si > 0 || have_seed);
       const int iters = warm ? a.warm_iters : a.num_iters;
       // gaps and velocity targets from the free velocity
       float target[NP], active[NP];
@@ -295,7 +374,7 @@ megastep_kernel(const MegastepArgs a) {
         for (int v = 0; v < NV; ++v) jta[v] = 0.0f;
 #pragma unroll 1
         for (int p = 0; p < NP; ++p) jt_acc_p(p, lam[p], r, Jl, jta);
-        minv_mul(Minv, jta, dgv, npad, env);
+        minv_mul(rMinv, jta, dgv);
 #pragma unroll
         for (int v = 0; v < NV; ++v) gv[v] += dgv[v];
       } else {
@@ -334,7 +413,7 @@ megastep_kernel(const MegastepArgs a) {
           lam[p][0] = lx; lam[p][1] = ly; lam[p][2] = lz;
           jt_acc_p(p, ap, r, Jl, jta);
         }
-        minv_mul(Minv, jta, dgv, npad, env);
+        minv_mul(rMinv, jta, dgv);
 #pragma unroll
         for (int v = 0; v < NV; ++v) gv[v] += dgv[v];
       }
@@ -399,8 +478,10 @@ megastep_kernel(const MegastepArgs a) {
 #pragma unroll 1
   for (int j = 0; j < NJ; ++j) {
     ST(O_Q, j, q[j]); ST(O_QD, j, qd[j]); ST(O_TAU, j, tau_m[j]);
-    ST(O_EL, j, el[j]); ST(O_ELL, j, ell[j]);
-    ST(O_VL, j, vl[j]); ST(O_VLL, j, vll[j]);
+    if constexpr (!PCTRL) {
+      ST(O_EL, j, el[j]); ST(O_ELL, j, ell[j]);
+      ST(O_VL, j, vl[j]); ST(O_VLL, j, vll[j]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -421,10 +502,13 @@ megastep_kernel(const MegastepArgs a) {
 }
 
 // Plain C interface for ctypes.  `in` / `out` are host arrays of device
-// pointers in InIdx / OutIdx order (in[I_LAM] may be null: no cross-step
-// seed), `f` the FIdx scalars, `ip` = {npad, D, num_iters, warm_iters,
-// contact, threads per block}.  Launches on `stream`, does not synchronise,
-// returns the launch's cudaError_t (0 = launched).
+// pointers in InIdx / OutIdx order, `f` the FIdx scalars, `ip` = {npad, D,
+// num_iters, warm_iters, contact, threads per block, P control, exact}.  A
+// variant leaves the slots it does not read null: in[I_LAM] without a
+// cross-step seed; the actuator weights and histories (in and out) with P
+// control; kp, kd without it; the reuse cache (Sw .. p_cp) and the seed in
+// exact mode; payload and COM shift outside it.  Launches on `stream`, does
+// not synchronise, returns the launch's cudaError_t (0 = launched).
 extern "C" int megastep_launch(const void* const* in, void* const* out,
                                const float* f, const int* ip, void* stream) {
   MegastepArgs a;
@@ -433,11 +517,19 @@ extern "C" int megastep_launch(const void* const* in, void* const* out,
   for (int i = 0; i < N_F; ++i) a.f[i] = f[i];
   a.npad = ip[0]; a.D = ip[1]; a.num_iters = ip[2]; a.warm_iters = ip[3];
   a.contact = ip[4];
-  const int threads = ip[5];
+  const int threads = ip[5], pctrl = ip[6], exact = ip[7];
   if (threads < 1 || threads > 128 || a.npad < 1 || a.D < 1)
     return (int)cudaErrorInvalidValue;
   const int blocks = (a.npad + threads - 1) / threads;
-  megastep_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pctrl && exact)
+    megastep_kernel<true, true><<<blocks, threads, 0, st>>>(a);
+  else if (exact)
+    megastep_kernel<false, true><<<blocks, threads, 0, st>>>(a);
+  else if (pctrl)
+    megastep_kernel<true, false><<<blocks, threads, 0, st>>>(a);
+  else
+    megastep_kernel<false, false><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

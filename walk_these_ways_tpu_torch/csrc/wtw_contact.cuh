@@ -129,7 +129,7 @@ __device__ __noinline__ void contact_core_dev(
         jta[k < 6 ? k : lo + k - 6] +=
             Jp[0][k] * ap[0] + Jp[1][k] * ap[1] + Jp[2][k] * ap[2];
     }
-    minv_mul(Minv, jta, dgv, npad, env);
+    minv_mul(EnvRows{Minv, npad, env}, jta, dgv);
 #pragma unroll
     for (int v = 0; v < NV; ++v) gv[v] += dgv[v];
   }

@@ -6,8 +6,8 @@
 // also carries the robot's topology (MS_NB, MS_NJ and the __constant__ tables
 // MS_ANC, MS_JOINT_BODY) the dynamics below are compiled too.
 //
-// Every operand is env-minor: element `row` of env `env` lives at
-// ptr[row * npad + env], so a warp reads 32 neighbouring floats.
+// Every operand in global memory is env-minor: element `row` of env `env`
+// lives at ptr[row * npad + env], so a warp reads 32 neighbouring floats.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -48,16 +48,42 @@ __device__ __forceinline__ void m3tv(const float* M, const float* v,
   o[2] = M[2] * v[0] + M[5] * v[1] + M[8] * v[2];
 }
 
-// out[w] = sum_v Minv[w][v] * x[v], Minv env-minor in global memory
-__device__ __forceinline__ void minv_mul(const float* __restrict__ Minv,
-                                         const float* x, float* out,
-                                         size_t npad, int env) {
+// Row accessors.  The dynamics and the contact solve read M^-1, the inertia
+// blocks and the body masses through one of these, so that kernels whose
+// cache is read-only for the whole launch and the kernel that rewrites its
+// cache before every substep share one copy of that code.
+//
+// EnvRows: an env-minor operand in global memory that no thread writes during
+// the launch, read through the read-only data path (__ldg).
+struct EnvRows {
+  const float* __restrict__ p;
+  size_t npad;
+  int env;
+  __device__ __forceinline__ float operator[](int row) const {
+    return __ldg(p + (size_t)row * npad + env);
+  }
+};
+
+// ThreadRows: a per-thread array that the kernel itself rewrites (the
+// exact-mode cache), read with ordinary loads: the read-only path is not
+// coherent with the kernel's own stores.  `npad` and `env` are ignored; they
+// keep the two accessors constructible alike.
+struct ThreadRows {
+  const float* p;
+  size_t npad;
+  int env;
+  __device__ __forceinline__ float operator[](int row) const { return p[row]; }
+};
+
+// out[w] = sum_v Minv[w][v] * x[v]; row w * NV + v of `Minv` is Minv[w][v]
+template <class Rows>
+__device__ __forceinline__ void minv_mul(const Rows& Minv, const float* x,
+                                         float* out) {
 #pragma unroll 1
   for (int w = 0; w < NV; ++w) {
-    const float* row = Minv + (size_t)(w * NV) * npad + env;
     float acc = 0.0f;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) acc += __ldg(row + (size_t)v * npad) * x[v];
+    for (int v = 0; v < NV; ++v) acc += Minv[w * NV + v] * x[v];
     out[w] = acc;
   }
 }
@@ -65,12 +91,14 @@ __device__ __forceinline__ void minv_mul(const float* __restrict__ Minv,
 #ifdef MS_NB
 // Unconstrained dynamics: body twists over the static ancestor mask,
 // velocity-product terms, F = I a + V x* (I V) in 3x3 blocks, projection onto
-// the twist rows, qdd = M^-1 (tau - bias) + centripetal term.
+// the twist rows, qdd = M^-1 (tau - bias) + centripetal term.  Rows b * 9 + k
+// of `A` / `B` are the row-major 3x3 blocks of body b, row b of `mass` its
+// mass.
+template <class Rows, class MinvRows>
 __device__ __noinline__ void dyn_core(
-    const float (*sw)[3], const float (*sv)[3], const float* __restrict__ A,
-    const float* __restrict__ B, const float* __restrict__ mass,
-    const float* __restrict__ Minv, const float* g, const float* tau,
-    const float* gv, float* qdd, size_t npad, int env) {
+    const float (*sw)[3], const float (*sv)[3], const Rows A, const Rows B,
+    const Rows mass, const MinvRows Minv, const float* g, const float* tau,
+    const float* gv, float* qdd) {
   float Vw[NB][3], Vv[NB][3];
 #pragma unroll 1
   for (int b = 0; b < NB; ++b) {
@@ -120,10 +148,10 @@ __device__ __noinline__ void dyn_core(
     float A9[9], B9[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      A9[k] = __ldg(A + (size_t)(b * 9 + k) * npad + env);
-      B9[k] = __ldg(B + (size_t)(b * 9 + k) * npad + env);
+      A9[k] = A[b * 9 + k];
+      B9[k] = B[b * 9 + k];
     }
-    const float mb = __ldg(mass + (size_t)b * npad + env);
+    const float mb = mass[b];
     float t1[3], t2[3], IVw[3], IVv[3], IAw[3], IAv[3];
     m3v(A9, Vw[b], t1); m3v(B9, Vv[b], t2);
 #pragma unroll
@@ -168,7 +196,7 @@ __device__ __noinline__ void dyn_core(
     }
     tb[6 + j] = tau[6 + j] - acc;
   }
-  minv_mul(Minv, tb, qdd, npad, env);
+  minv_mul(Minv, tb, qdd);
   float corr[3];
   cross3(gv, gv + 3, corr);
 #pragma unroll

@@ -23,15 +23,16 @@ callbacks -> termination -> rewards -> masked auto-reset -> observations ->
 shift last_* buffers.
 
 Physics runs on the two env-minor kernel routes (`sim.use_pallas_contact`
-on, flat ground): with `sim.megastep` and `sim.reuse_matrices` one launch of
-the whole-control-step kernel per control step (ops/megastep.py); with
-`sim.megastep` off one contact-cache launch per control step and one
-dynamics-substep launch per physics substep (ops/contact.py,
-ops/dynamics.py), the torque model evaluated between them
-(`_compute_torques`), in reuse or exact mode.  The dense physics branches
-of the reference (`use_pallas_contact` off), exact mode inside the
-control-step kernel, the train/eval env split and heightfield terrain raise
-NotImplementedError until their slices of the port are written.
+on, flat ground): with `sim.megastep` one launch of the whole-control-step
+kernel per control step (ops/megastep.py), in reuse mode or, with
+`sim.reuse_matrices` off, in exact mode (the cache rebuilt inside the kernel
+before every substep); with `sim.megastep` off one contact-cache launch per
+control step (reuse) or per substep (exact) and one dynamics-substep launch
+per physics substep (ops/contact.py, ops/dynamics.py), the torque model
+evaluated between them (`_compute_torques`).  The dense physics branches of
+the reference (`use_pallas_contact` off), the train/eval env split and
+heightfield terrain raise NotImplementedError until their slices of the port
+are written.
 """
 from __future__ import annotations
 
@@ -155,11 +156,6 @@ class LeggedRobotEnv:
                 "only the env-minor kernel routes are ported "
                 "(sim.use_pallas_contact on); the dense physics branches "
                 "belong to a later slice")
-        if cfg.sim.megastep and not cfg.sim.reuse_matrices:
-            raise NotImplementedError(
-                "exact mode inside the control-step kernel belongs to a "
-                "later slice; sim.megastep=False runs exact mode through "
-                "the per-substep kernels")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # float32 throughout: products must not drop to TF32
@@ -193,7 +189,8 @@ class LeggedRobotEnv:
             if np.abs(arrays.height).max() != 0.0:
                 raise NotImplementedError(
                     "heightfield terrain belongs to the rough-terrain "
-                    "slice of the port, which is not written yet")
+                    "slice of the port (ROADMAP item 15), which is not "
+                    "written yet")
             # all-flat tiles (the MoB train config): flat ground
             self.terrain = engine.flat_terrain(dev)
             origins = terrain_mod.assign_env_origins(
@@ -711,8 +708,10 @@ class LeggedRobotEnv:
             tgt_eff = tgt_raw + state.motor_offsets[:, None, :]
             ctrl = ("P", self.p_gains[None, :] * state.Kp_factors,
                     self.d_gains[None, :] * state.Kd_factors)
+        # exact mode starts every contact solve cold: no cross-step seed
         cross_warm = (self.sim_params.contact_warm_start
-                      and self.sim_params.contact_cross_step_warm_start)
+                      and self.sim_params.contact_cross_step_warm_start
+                      and self.reuse_matrices)
         lam_in = state.contact_lam_t if cross_warm else None
         return gravity, dyn, tgt_raw, lag_final, tgt_eff, ctrl, lam_in
 
@@ -734,8 +733,10 @@ class LeggedRobotEnv:
         D = cfg.control.decimation
         if cfg.sim.megastep:
             # one launch of the whole-control-step kernel: torque model +
-            # all decimation substeps + integration, J/W built in-kernel,
-            # cache anchored at the entry state (reuse mode)
+            # all decimation substeps + integration, J/W built in-kernel;
+            # the cache anchored at the entry state (reuse mode) or rebuilt
+            # in the kernel before every substep (exact mode, which leaves
+            # `contact_lam_t` untouched)
             gravity, dyn, tgt_raw, lag_final, tgt_eff, ctrl, lam_in = \
                 self.control_step_inputs(state)
             cross_warm = lam_in is not None
@@ -743,7 +744,8 @@ class LeggedRobotEnv:
                 engine.control_step_megakernel(
                     m, self.sim_params, state.phys, dyn, self.terrain,
                     tgt_eff, state.motor_strengths, self.torque_limits,
-                    ctrl, D, lam_in_t=lam_in)
+                    ctrl, D, lam_in_t=lam_in,
+                    exact=not self.reuse_matrices)
             state = state._replace(phys=phys2, torques=torques, **hist)
             if cross_warm:
                 state = state._replace(contact_lam_t=lam_t)

@@ -1,0 +1,460 @@
+"""Training loop.
+
+Counterpart of the JAX package's learn/runner.py (reference:
+go1_gym_learn/ppo_cse/__init__.py:62-308).  The per-iteration work —
+24-step rollout + GAE + PPO + adaptation update — is
+`learn/ppo.make_train_iteration`; this host loop dispatches iterations,
+drains the logging accumulators at `log_freq` only (one device-to-host copy
+per log row, none per iteration), checkpoints, and exports the deployable
+policy (adaptation module + actor body as a flat .npz of weights, the same
+keys, shapes and `meta/variant` as the JAX package's export, so `deploy/`
+and `scripts/play.py` read it).
+
+Artifacts in `log_dir`, under the JAX package's names: `metrics.jsonl`,
+`.charts.yml`, `provenance.json`, `checkpoints/train_state_*.pkl`,
+`checkpoints/policy_latest.npz`, `curriculum/distribution_*.npz`.
+
+Not ported yet, each raising NotImplementedError with its ROADMAP item:
+`algo="rma"` (19), a device `mesh` and `shared_ckpt_dir` (22), videos
+(`render_interval`, 20) and `eval_expert` (18).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..envs import curriculum as curr
+from ..envs.go1_env import make_generator
+from ..utils import checkpoint as ckpt
+from ..utils import convert
+from ..utils.metrics_logger import MetricsLogger
+from . import ppo as ppo_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class RunnerArgs:
+    """reference ppo_cse/__init__.py:43-59"""
+    num_steps_per_env: int = 24
+    max_iterations: int = 1500
+    save_interval: int = 400
+    log_freq: int = 10
+    resume: bool = False
+    # *.pkl = local pickle (a shared-storage directory is item 22)
+    resume_path: Optional[str] = None
+    # shared-storage checkpoint directory (ROADMAP item 22)
+    shared_ckpt_dir: Optional[str] = None
+    # curriculum weight-grid + per-bin reward-mean dump cadence (reference
+    # curriculum_dump_freq=500, ppo_cse/__init__.py:107,193-202)
+    curriculum_dump_freq: int = 500
+    # eval envs act with the teacher (ROADMAP item 18)
+    eval_expert: bool = False
+    # render a short student-policy rollout every N iterations (0 = off;
+    # ROADMAP item 20)
+    render_interval: int = 0
+
+
+# IterMetrics fields drained at log_freq, in this order
+_DRAINED = ("value_loss", "surrogate_loss", "adaptation_loss",
+            "adaptation_test_loss", "mean_kl", "mean_reward", "ep_sums_done",
+            "ep_count_done", "ep_len_done", "eval_ep_sums_done",
+            "eval_ep_count_done", "eval_ep_len_done", "curriculum_area",
+            "envelope_exits")
+
+
+def _drain(pending):
+    """IterMetrics on the device -> dicts of numpy, in one copy."""
+    sizes = [getattr(pending[0], f).numel() for f in _DRAINED]
+    flat = torch.cat([torch.cat([getattr(m, f).reshape(-1).to(torch.float64)
+                                 for f in _DRAINED]) for m in pending])
+    flat = flat.cpu().numpy().reshape(len(pending), -1)
+    out = []
+    for row, m in zip(flat, pending):
+        d, k = {"lr": m.lr}, 0
+        for f, n in zip(_DRAINED, sizes):
+            d[f] = row[k:k + n] if n > 1 else row[k]
+            k += n
+        out.append(d)
+    return out
+
+
+class Runner:
+    def __init__(self, env, log_dir: str = "./runs/latest", seed: int = 1,
+                 args: RunnerArgs = RunnerArgs(),
+                 ppo_args: ppo_mod.PPO_Args = ppo_mod.PPO_Args(),
+                 algo: str = "cse", mesh=None):
+        """algo: 'cse' (concurrent state estimation, the default trainer,
+        reference ppo_cse/); 'rma' is ROADMAP item 19.  `mesh` (sharding
+        the envs over several devices) is item 22."""
+        if algo == "rma":
+            raise NotImplementedError(
+                "algo='rma' (teacher-student, reference ppo/) belongs to a "
+                "later slice of the port (ROADMAP item 19)")
+        if algo != "cse":
+            raise ValueError(f"unknown algo {algo!r} (want 'cse' or 'rma')")
+        if mesh is not None or args.shared_ckpt_dir:
+            raise NotImplementedError(
+                "a device mesh and shared-storage checkpoints belong to the "
+                "multi-device slice of the port (ROADMAP item 22)")
+        if args.eval_expert:
+            raise NotImplementedError(
+                "eval_expert and the train/eval env split belong to the "
+                "evaluation slice of the port (ROADMAP item 18)")
+        if args.render_interval:
+            raise NotImplementedError(
+                "videos (log_video) belong to a later slice of the port "
+                "(ROADMAP item 20)")
+        self.env = env
+        self.args = args
+        self.ppo_args = ppo_args
+        self.algo = algo
+        self.log_dir = log_dir
+        self.logger = MetricsLogger(log_dir)
+        self._write_chart_spec()
+        self._write_provenance(seed)
+
+        ts_seed, self._reset_seed = (
+            int(x) for x in np.random.SeedSequence(seed).generate_state(2))
+        self.train_state = ppo_mod.init_train_state(
+            make_generator(ts_seed, env.device), env, ppo_args)
+        self.train_iter = ppo_mod.make_train_iteration(
+            env, ppo_args, num_steps=args.num_steps_per_env,
+            eval_expert=args.eval_expert)
+        self.env_state = None
+        self.obs_dict = None
+        self.tot_timesteps = 0
+
+        if args.resume and args.resume_path:
+            self.load(args.resume_path)
+
+    def learn(self, num_learning_iterations: Optional[int] = None,
+              init_at_random_ep_len: bool = True):
+        n_iters = num_learning_iterations or self.args.max_iterations
+        if self.env_state is None:
+            self.env_state, self.obs_dict = self.env.reset(
+                make_generator(self._reset_seed, self.env.device),
+                random_episode_lengths=init_at_random_ep_len)
+
+        term_names = list(self.env.reward_names) + ["total"]
+        ep_sums_acc = np.zeros(len(term_names))
+        ep_count_acc = 0.0
+        ep_len_acc = 0.0
+        ev_sums_acc = np.zeros(len(term_names))
+        ev_count_acc = 0.0
+        ev_len_acc = 0.0
+        env_exit_acc = 0.0       # cumulative crash-guard terminations
+        t_start = time.time()
+
+        start_iter = int(self.train_state.iteration)
+        pending = []     # metrics on the device; drained at log_freq only
+        t_window = time.time()
+        for it in range(start_iter, start_iter + n_iters):
+            self.env_state, self.obs_dict, self.train_state, metrics = \
+                self.train_iter(self.env_state, self.obs_dict,
+                                self.train_state)
+            pending.append(metrics)
+            self.tot_timesteps += self.args.num_steps_per_env \
+                * self.env.num_envs
+
+            if (it + 1) % self.args.log_freq == 0:
+                iter_time = (time.time() - t_window) / max(len(pending), 1)
+                t_window = time.time()
+                for m in _drain(pending):
+                    ep_sums_acc += m["ep_sums_done"]
+                    ep_count_acc += float(m["ep_count_done"])
+                    ep_len_acc += float(m["ep_len_done"])
+                    ev_sums_acc += m["eval_ep_sums_done"]
+                    ev_count_acc += float(m["eval_ep_count_done"])
+                    ev_len_acc += float(m["eval_ep_len_done"])
+                    env_exit_acc += float(m["envelope_exits"])
+                    self.logger.store(
+                        mean_value_loss=m["value_loss"],
+                        mean_surrogate_loss=m["surrogate_loss"],
+                        adaptation_loss=m["adaptation_loss"],
+                        mean_adaptation_module_test_loss=m[
+                            "adaptation_test_loss"],
+                        mean_kl=m["mean_kl"], lr=m["lr"],
+                        mean_reward_per_step=m["mean_reward"],
+                        time_iter=iter_time,
+                    )
+                    area = np.atleast_1d(m["curriculum_area"])
+                    for c, name in enumerate(curr.CATEGORY_NAMES):
+                        self.logger.store(**{f"command_area_{name}":
+                                             float(area[c])})
+                pending = []
+                extra = {"iterations": it + 1, "timesteps": self.tot_timesteps,
+                         # cumulative count of integrator-envelope crash
+                         # terminations (healthy runs stay at 0)
+                         "train/episode/envelope_exits_total": env_exit_acc}
+                # command/action range diagnostics at the same sync point
+                # (reference legged_robot.py:203-227)
+                n_tr = self.env.num_train_envs
+                cmds = self.env_state.commands[:n_tr].cpu().numpy()
+                acts = self.env_state.actions[:n_tr].cpu().numpy()
+                for key, col in (("duration", 8), ("bound", 7),
+                                 ("offset", 6), ("phase", 5), ("freq", 4),
+                                 ("x_vel", 0), ("y_vel", 1), ("yaw_vel", 2),
+                                 ("swing_height", 9)):
+                    extra[f"train/episode/min_command_{key}"] = \
+                        float(cmds[:, col].min())
+                    extra[f"train/episode/max_command_{key}"] = \
+                        float(cmds[:, col].max())
+                extra["train/episode/min_action"] = float(acts.min())
+                extra["train/episode/max_action"] = float(acts.max())
+                if ep_count_acc > 0:
+                    for i, name in enumerate(term_names):
+                        extra[f"train/episode/rew_{name}/mean"] = (
+                            ep_sums_acc[i] / ep_count_acc)
+                    extra["train/episode/mean_episode_length"] = (
+                        ep_len_acc / ep_count_acc)
+                if ev_count_acc > 0:
+                    for i, name in enumerate(term_names):
+                        extra[f"eval/episode/rew_{name}/mean"] = (
+                            ev_sums_acc[i] / ev_count_acc)
+                    extra["eval/episode/mean_episode_length"] = (
+                        ev_len_acc / ev_count_acc)
+                ep_sums_acc[:] = 0.0
+                ep_count_acc = 0.0
+                ep_len_acc = 0.0
+                ev_sums_acc[:] = 0.0
+                ev_count_acc = 0.0
+                ev_len_acc = 0.0
+                row = self.logger.summary(**extra)
+                steps_s = self.tot_timesteps / max(time.time() - t_start, 1e-9)
+                print(f"it {it+1:5d} | rew/step "
+                      f"{row.get('mean_reward_per_step', 0):.4f} | "
+                      f"vloss {row.get('mean_value_loss', 0):.3f} | "
+                      f"aloss {row.get('adaptation_loss', 0):.5f} | "
+                      f"env-steps/s {steps_s:,.0f}", flush=True)
+
+            if (it + 1) % self.args.curriculum_dump_freq == 0:
+                self.dump_curriculum(it + 1)
+
+            if (it + 1) % self.args.save_interval == 0:
+                self.save(os.path.join(self.log_dir, "checkpoints",
+                                       f"train_state_{it+1:06d}.pkl"))
+                self.export_policy(os.path.join(self.log_dir, "checkpoints"))
+
+        self.save(os.path.join(self.log_dir, "checkpoints",
+                               "train_state_last.pkl"))
+        self.export_policy(os.path.join(self.log_dir, "checkpoints"))
+        return self.train_state
+
+    def _write_provenance(self, seed: int):
+        """Stamp the run dir with everything needed to reproduce it: git
+        SHA (+dirty flag), a stable hash of the resolved env config, the
+        resolved SimParams, runner/ppo args, argv, the torch and CUDA
+        versions and the GPU's name, and the machine-load context (loadavg
+        + other live python processes) so throughput anomalies are
+        explicable from the artifact alone.
+
+        Dirty-tree runs are loudly warned about; WTW_REQUIRE_CLEAN=1 turns
+        the warning into a hard error."""
+        import hashlib
+        import json
+        import subprocess
+        import sys
+        from datetime import datetime
+
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        sha, dirty = None, None
+        try:
+            sha = subprocess.run(
+                ["git", "rev-parse", "HEAD"], cwd=repo, capture_output=True,
+                text=True, timeout=10).stdout.strip() or None
+            dirty = bool(subprocess.run(
+                ["git", "status", "--porcelain", "--untracked-files=no"],
+                cwd=repo, capture_output=True, text=True,
+                timeout=10).stdout.strip())
+        except Exception:
+            pass
+        if dirty or (dirty is None and os.environ.get("WTW_REQUIRE_CLEAN")):
+            msg = ("PROVENANCE: the git tree is DIRTY - this run cannot be "
+                   "reproduced from any committed SHA.  Commit first (or "
+                   "accept a provenance.json with git_dirty=true)."
+                   if dirty else
+                   "PROVENANCE: git state could not be determined (no git "
+                   "binary / not a repository?) - provenance is unknowable.")
+            if os.environ.get("WTW_REQUIRE_CLEAN"):
+                raise RuntimeError(msg + "  (WTW_REQUIRE_CLEAN is set)")
+            print(f"\n{'!' * 72}\n{msg}\n{'!' * 72}\n",
+                  file=sys.stderr, flush=True)
+        loadavg = None
+        try:
+            loadavg = list(os.getloadavg())
+        except OSError:
+            pass
+        other_procs = []
+        try:
+            out = subprocess.run(
+                ["ps", "-eo", "pid,pcpu,comm,args", "--no-headers"],
+                capture_output=True, text=True, timeout=10).stdout
+            me = os.getpid()
+            for line in out.splitlines():
+                parts = line.split(None, 3)
+                if len(parts) < 4 or int(parts[0]) == me:
+                    continue
+                if "python" in parts[2] or "pytest" in parts[2]:
+                    other_procs.append(
+                        {"pid": int(parts[0]), "pcpu": float(parts[1]),
+                         "cmd": parts[3][:160]})
+        except Exception:
+            pass
+        dev = self.env.device
+        cfg_json = json.dumps(dataclasses.asdict(self.env.cfg),
+                              sort_keys=True, default=str)
+        info = {
+            "time": datetime.now().isoformat(timespec="seconds"),
+            "argv": sys.argv,
+            "git_sha": sha,
+            "git_dirty": dirty,
+            "seed": seed,
+            "algo": self.algo,
+            "num_envs": self.env.num_envs,
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else str(dev)),
+            "loadavg": loadavg,
+            "ncpu": os.cpu_count(),
+            "other_python_procs": other_procs,
+            "config_hash": hashlib.sha256(
+                cfg_json.encode()).hexdigest()[:12],
+            "sim_params": dataclasses.asdict(self.env.sim_params),
+            "runner_args": dataclasses.asdict(self.args),
+            "ppo_args": dataclasses.asdict(self.ppo_args),
+        }
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "provenance.json"), "w") as f:
+            json.dump(info, f, indent=1, default=str)
+
+    def _write_chart_spec(self):
+        """Dashboard chart spec in the run dir (the reference writes
+        .charts.yml for ml_dash, scripts/train.py:227-253; any plotting
+        frontend can consume it against metrics.jsonl)."""
+        keys = ["train/episode/rew_total/mean",
+                "train/episode/rew_tracking_lin_vel/mean",
+                "train/episode/rew_tracking_contacts_shaped_force/mean",
+                "train/episode/rew_action_smoothness_1/mean",
+                "train/episode/rew_action_smoothness_2/mean",
+                "train/episode/rew_tracking_contacts_shaped_vel/mean",
+                "train/episode/rew_orientation_control/mean",
+                "train/episode/rew_dof_pos/mean",
+                "command_area_trot",
+                "train/episode/mean_episode_length",
+                "adaptation_loss"]
+        lines = ["charts:"]
+        for k in keys:
+            lines += [f"- yKey: {k}", "  xKey: iterations"]
+        lines += ["- type: video", '  glob: "videos/*.gif"', ""]
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, ".charts.yml"), "w") as f:
+            f.write("\n".join(lines))
+
+    def dump_curriculum(self, it: int):
+        """Dump the curriculum weight grids and per-bin episode task-reward
+        means (window since the previous dump) — the analog of the
+        reference's curriculum/distribution.pkl + curriculum/info.pkl
+        appends (ppo_cse/__init__.py:193-202, legged_robot.py:229-232).
+        The accumulators live on the device as monotonic sums inside
+        CurriculumState; this drains deltas so the hot loop never resets
+        them."""
+        cur = {k: v.cpu().numpy()
+               for k, v in self.env_state.curriculum._asdict().items()}
+        if not hasattr(self, "_prev_bin_sums"):
+            self._prev_bin_sums = np.zeros_like(cur["bin_task_sums"])
+            self._prev_bin_counts = np.zeros_like(cur["bin_ep_counts"])
+        d_sums = cur["bin_task_sums"] - self._prev_bin_sums
+        d_counts = cur["bin_ep_counts"] - self._prev_bin_counts
+        self._prev_bin_sums = cur["bin_task_sums"]
+        self._prev_bin_counts = cur["bin_ep_counts"]
+        means = d_sums / np.maximum(d_counts, 1.0)[..., None]
+        out_dir = os.path.join(self.log_dir, "curriculum")
+        os.makedirs(out_dir, exist_ok=True)
+        np.savez(
+            os.path.join(out_dir, f"distribution_{it:06d}.npz"),
+            iteration=np.asarray(it),
+            weights=cur["weights"],
+            grid=self.env.curr_grid.grid,
+            bin_task_reward_means=means,
+            bin_episode_counts=d_counts,
+            task_keys=np.asarray(curr.TASK_KEYS),
+            categories=np.asarray(curr.CATEGORY_NAMES),
+        )
+
+    def log_video(self, it: int):
+        raise NotImplementedError(
+            "videos belong to a later slice of the port (ROADMAP item 20)")
+
+    # -- persistence ------------------------------------------------------
+    # *.pkl = a local pickle of numpy arrays (utils/checkpoint); the
+    # shared-storage directory format is ROADMAP item 22.
+    def _state_tree(self):
+        ts = self.train_state
+        return {
+            "train_state": dict(convert.train_state_to_numpy(ts),
+                                rng=ts.rng.get_state().numpy()),
+            "env_state": convert.env_state_to_numpy(self.env_state),
+            "obs_dict": {k: v.cpu().numpy()
+                         for k, v in self.obs_dict.items()},
+        }
+
+    @staticmethod
+    def _check_local(path: str):
+        if not path.endswith(".pkl"):
+            raise NotImplementedError(
+                "shared-storage checkpoint directories belong to the "
+                "multi-device slice of the port (ROADMAP item 22); give a "
+                "*.pkl path")
+
+    def save(self, path: str):
+        self._check_local(path)
+        ckpt.save(path, self._state_tree())
+
+    def load(self, path: str):
+        self._check_local(path)
+        dev = self.env.device
+        if self.env_state is None:
+            self.env_state, self.obs_dict = self.env.reset(
+                make_generator(self._reset_seed, dev))
+        loaded = ckpt.restore_like(self._state_tree(), ckpt.load(path))
+        tsd = loaded["train_state"]
+        self.train_state = convert.train_state_from_numpy(
+            tsd, convert.generator_from_state(tsd["rng"], dev),
+            args=self.ppo_args, device=dev)
+        esd = loaded["env_state"]
+        self.env_state = convert.env_state_from_numpy(
+            esd, convert.generator_from_state(esd["rng"], dev), device=dev)
+        self.obs_dict = {k: torch.from_numpy(v).to(dev)
+                         for k, v in loaded["obs_dict"].items()}
+
+    def export_policy(self, dirpath: str):
+        """Deployment artifact: flat npz of adaptation + actor weights
+        (the analog of {adaptation_module,body}_latest.jit,
+        ppo_cse/__init__.py:240-251), key for key the JAX package's.
+
+        meta/variant records the actor input wiring — 'cse': actor(history
+        + latent)."""
+        os.makedirs(dirpath, exist_ok=True)
+        pol = self.train_state.policy
+
+        def arr(x):
+            return x.detach().cpu().numpy()
+
+        flat = {"meta/variant": np.asarray(self.algo)}
+        for i, (w, b) in enumerate(zip(pol.adaptation.weights,
+                                       pol.adaptation.biases)):
+            flat[f"adaptation/w{i}"] = arr(w)
+            flat[f"adaptation/b{i}"] = arr(b)
+        for i, (w, b) in enumerate(zip(pol.actor.weights, pol.actor.biases)):
+            flat[f"actor/w{i}"] = arr(w)
+            flat[f"actor/b{i}"] = arr(b)
+        flat["meta/n_adaptation"] = np.asarray(len(pol.adaptation.weights))
+        flat["meta/n_actor"] = np.asarray(len(pol.actor.weights))
+        flat["std"] = arr(pol.std)
+        np.savez(os.path.join(dirpath, "policy_latest.npz"), **flat)

@@ -144,6 +144,65 @@ def topology_header(anc, joint_body, cp_body, hidden: int = 0,
     return _HEADERS[memo]
 
 
+def _f32(v) -> str:
+    """A float32 C literal that reads back as np.float32(v)."""
+    txt = f"{float(np.float32(v)):.9g}"
+    return txt + ("f" if "." in txt or "e" in txt else ".0f")
+
+
+def model_tables(model) -> str:
+    """Header lines with the robot's constants for the in-kernel cache
+    rebuild (csrc/wtw_cache.cuh, physics/envminor.cache_columns): the parent
+    of each body, the joints in FK order, joint axes (with the static K and
+    K^2 of each axis' rotation), anchors, body masses, COMs and inertias, the
+    contact points' bodies and offsets, and the joint pairs whose mass-matrix
+    entry is nonzero.  Defines MS_HAVE_MODEL."""
+    nb, nj = model.nb, model.nj
+    parent = np.asarray(model.parent)
+
+    def depth(b):
+        d = 0
+        while parent[b] >= 0:
+            b, d = int(parent[b]), d + 1
+        return d
+
+    order = np.argsort([depth(int(model.joint_body[j])) for j in range(nj)],
+                       kind="stable")
+    K = np.zeros((nj, 3, 3))
+    for j, a in enumerate(np.asarray(model.joint_axis, np.float64)):
+        K[j] = [[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]
+    KK = np.einsum("jik,jkl->jil", K, K)
+    jb = np.asarray(model.joint_body)
+    jj_sub = np.asarray(model.subtree)[jb[:, None], jb[None, :]]
+
+    def arr(ctype, name, vals, fmt):
+        vals = np.asarray(vals).reshape(-1)
+        body = ", ".join(fmt(v) for v in vals)
+        return f"__constant__ {ctype} {name}[{len(vals)}] = {{{body}}};"
+
+    def ints(name, vals):
+        return arr("int", name, vals, lambda v: str(int(v)))
+
+    def floats(name, vals):
+        return arr("float", name, vals, _f32)
+
+    lines = [
+        "#define MS_HAVE_MODEL 1",
+        ints("MS_PARENT", parent), ints("MS_FK_ORDER", order),
+        floats("MS_JOINT_AXIS", model.joint_axis),
+        floats("MS_JOINT_K", K), floats("MS_JOINT_KK", KK),
+        floats("MS_JOINT_ANCHOR", model.joint_anchor),
+        floats("MS_MASS", model.mass), floats("MS_COM", model.com),
+        floats("MS_INERTIA", model.inertia),
+        ints("MS_CP_BODY", model.cp_body),
+        floats("MS_CP_OFFSET", model.cp_offset),
+        arr("unsigned char", "MS_JJ_SUB", jj_sub.astype(int),
+            lambda v: str(int(v))),
+    ]
+    assert nb == len(parent)
+    return "\n".join(lines) + "\n"
+
+
 # -- compile + load -----------------------------------------------------------
 
 
@@ -178,10 +237,16 @@ def build_libraries(specs):
             with open(os.path.join(out_dir, HEADER_NAME), "w") as fh:
                 fh.write(header)
             job["tmp"] = lib_path + f".tmp{os.getpid()}"
-            # -Xptxas -v: registers and stack per function go into the log
+            # -Xptxas -v: registers and stack per function go into the log.
+            # -fmad=false: no fused multiply-adds, so every product rounds
+            # on its own as in the plain versions the kernels are held to
+            # elementwise; exact mode's cold solves on a closed-form M^-1
+            # rebuilt every substep amplify fused rounding beyond that
+            # tolerance (PERF.md)
             job["cmd"] = [
                 find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-std=c++17", "-O3", "-fmad=false", "-shared",
+                "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v", "-I", out_dir, "-I", CSRC_DIR,
                 "-o", job["tmp"], os.path.join(CSRC_DIR, name + ".cu")]
             job["proc"] = subprocess.Popen(
@@ -235,9 +300,11 @@ def bind(lib, name: str, n_in: int, n_out: int, n_f: int):
 
 
 def launch(lib, name: str, in_ptrs, outs, floats, ints, stream: int):
-    """Launch `<name>` on `stream`; raises if the launch is refused."""
+    """Launch `<name>` on `stream` (a None output is a null slot); raises if
+    the launch is refused."""
     in_arr = (ctypes.c_void_p * len(in_ptrs))(*in_ptrs)
-    out_arr = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    out_arr = (ctypes.c_void_p * len(outs))(
+        *[None if o is None else o.data_ptr() for o in outs])
     f_arr = (ctypes.c_float * len(floats))(*floats)
     i_arr = (ctypes.c_int * len(ints))(*[int(i) for i in ints])
     rc = getattr(lib, name + "_launch")(in_arr, out_arr, f_arr, i_arr,

@@ -6,12 +6,15 @@ here:
 - `control_step_reference`: the plain PyTorch version, same signature and
   outputs as the JAX `control_step_pallas`, composed from the plain cores
   `ops/contact.cache_core`, `ops/dynamics.dyn_core`,
-  `ops/contact.contact_core`.  It runs anywhere and is what the kernel is
-  held against.
+  `ops/contact.contact_core` and, in exact mode, the cache rebuild
+  `physics/envminor.cache_columns` before every substep.  It runs anywhere
+  and is what the kernel is held against.
 - `control_step`: the wrapper.  CPU tensors go to the plain version; CUDA
   tensors go to the hand-written kernel `csrc/megastep.cu` (replaces
   `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.  There
-  is no fallback from the kernel to the plain version.
+  is no fallback from the kernel to the plain version.  The kernel has
+  three variants on flat ground: K4 (reuse mode, actuator network), K4c
+  (reuse mode, P control) and K5 (exact mode, either torque model).
 - `blockdiag_actuator_weights`: host helper that lays the 12 per-joint
   actuator MLPs (6 -> 32 -> 32 -> 1, softsign) out as block-diagonal
   matrices, with features stacked as X[12 f + j] = feature f of joint j.
@@ -24,22 +27,27 @@ header generated from the RobotModel, and is bound through `ctypes`
 (ops/_build.py, shared by all the port's kernels).
 
 Bound of the kernel on an H100 (see csrc/megastep.cu and `work_per_env`):
-about 5.5 KB moved and 0.26 MFLOP fp32 per env and control step; at 4000 envs
+a few KB moved and 0.2-0.5 MFLOP fp32 per env and control step; at 4000 envs
 the least time is tens of microseconds and is set by arithmetic.
 
-`launches` counts kernel launches (and nothing else).
+`launches` (K4), `p_launches` (K4c) and `exact_launches` (K5) count kernel
+launches (and nothing else).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..physics import envminor
 from . import _build
 from . import contact as pc
 from . import dynamics as pd
 
-# number of times `control_step` launched the CUDA kernel
+# number of times `control_step` launched each variant of the CUDA kernel:
+# K4 (reuse, actuator network), K4c (reuse, P control), K5 (exact mode)
 launches = 0
+p_launches = 0
+exact_launches = 0
 
 # threads per block of the CUDA kernel: one env per thread; at 4000 envs a
 # 32-thread block spreads the batch over the most SMs
@@ -118,6 +126,30 @@ def _topology(model):
     return _build.topology(model.anc_dof_body, model.cp_body)
 
 
+def _cache_arrays(model, q, quat, pos, payload, comdisp):
+    """Exact mode's cache from the CURRENT state: envminor.cache_columns
+    (FK + twist bases + inertia blocks + block CRBA + closed-form M^-1) on
+    env-minor rows, stacked into the layouts the cores consume, about the
+    current base position (delta = 0)."""
+    nb, nj = model.nb, model.nj
+    Sw, Sv, Minv, A_blk, B_blk, mb, r_cp, p_cp = envminor.cache_columns(
+        model, [q[j] for j in range(nj)], [quat[i] for i in range(4)],
+        [pos[i] for i in range(3)], payload[0],
+        [comdisp[i] for i in range(3)])
+    stk = torch.stack
+    Sw_a = stk([stk(v) for v in Sw])                  # (nv, 3, Npad)
+    Sv_a = stk([stk(v) for v in Sv])
+    Minv_a = stk([stk(row) for row in Minv])          # (nv, nv, Npad)
+    A9 = stk([stk([A_blk[b][i][j] for i in range(3) for j in range(3)])
+              for b in range(nb)])                    # (nb, 9, Npad)
+    B9 = stk([stk([B_blk[b][i][j] for i in range(3) for j in range(3)])
+              for b in range(nb)])
+    m_a = stk(mb)                                     # (nb, Npad)
+    r_a = stk([stk(v) for v in r_cp])                 # (P, 3, Npad)
+    pcp_a = stk([stk(v) for v in p_cp])
+    return Sw_a, Sv_a, A9, B9, m_a, Minv_a, r_a, pcp_a
+
+
 def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
                            q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
                            tgt_t, strengths_t, ctrl_inputs,
@@ -129,10 +161,10 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
                            bounce_thresh: float, contact: bool,
                            limit_stiffness: float, limit_damping: float,
                            max_base_ang_vel: float, max_base_lin_vel: float,
-                           decimation: int, eps: float = 1e-6):
+                           decimation: int, eps: float = 1e-6,
+                           exact_inputs=None):
     """One whole control step (`decimation` physics substeps), env-minor,
-    in plain PyTorch (reuse mode: cache from `em`, anchored at the entry
-    state).
+    in plain PyTorch.
 
     `em` is the physics/envminor.EnvMinorCache for the entry state;
     `tgt_t` (D, 12, Npad) carries per-substep effective joint-position
@@ -141,6 +173,12 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
     actuator network.  `vlim`/`tlim`/`qlo`/`qhi` are (rows, 1) per-dof
     bound columns.  `n_t` is None on flat ground, else (P, 3, Npad) surface
     normals.  `lam_in_t` (P, 3, Npad) is the cross-step warm seed.
+
+    `exact_inputs`: None for reuse mode (cache from `em`, anchored at the
+    entry state), or (payload_t (1, Npad), comdisp_t (3, Npad)) for exact
+    mode: the whole cache is rebuilt from the current state before every
+    substep and every contact solve starts cold (flat ground only; `em` and
+    `lam_in_t` must be None).
 
     Returns (q, qd, pos, quat, lin, ang, pcp, pcp_prev, lam, tau_last
     [, el, ell, vl, vll]) — all env-minor."""
@@ -151,14 +189,16 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
     f32 = q_t.dtype
     dev = q_t.device
     bt = tuple(q_t.shape[1:])
+    exact = exact_inputs is not None
+    if exact and (n_t is not None or lam_in_t is not None):
+        raise ValueError("exact mode is flat-ground only and starts every "
+                         "contact solve cold (no n_t, no lam_in_t)")
 
     anc, anc_p, groups = _topology(model)
     joint_body = np.asarray(model.joint_body)
     anc_pn = torch.tensor(anc_p, dtype=f32, device=dev)
     warm0 = lam_in_t is not None
 
-    Sw, Sv, Ab, Bb, mb, Minv, pcp = (em.Sw_t, em.Sv_t, em.A_t, em.B_t,
-                                     em.m_t, em.Minv_t, em.p_cp_t)
     q, qd, pos, quat, lin, ang = q_t, qd_t, pos_t, quat_t, lin_t, ang_t
     if control_type == "P":
         kp, kd = ctrl_inputs
@@ -167,10 +207,16 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
         W0b, b0b, W1b, b1b, W2b, b2b, el, ell, vl, vll = ctrl_inputs
         hist = (el, ell, vl, vll)
 
-    # contact cache once per control step; r = contact points about the
-    # anchor (= entry base position)
-    r = pcp - pos.unsqueeze(0)
-    J, W = pc.cache_core(anc_pn, Sw, Sv, Minv, r, eps=eps)
+    if exact:
+        payload_t, comdisp_t = exact_inputs
+        pcp = torch.zeros((P, 3) + bt, dtype=f32, device=dev)  # fresh FK below
+    else:
+        Sw, Sv, Ab, Bb, mb, Minv, pcp = (em.Sw_t, em.Sv_t, em.A_t, em.B_t,
+                                         em.m_t, em.Minv_t, em.p_cp_t)
+        # contact cache once per control step; r = contact points about the
+        # anchor (= entry base position)
+        r = pcp - pos.unsqueeze(0)
+        J, W = pc.cache_core(anc_pn, Sw, Sv, Minv, r, eps=eps)
 
     ref_pt = pos
     pcp_prev = pcp
@@ -184,8 +230,9 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
         tgt_s = tgt_t[si]
         # warm start: substeps after the first seed the iteration with the
         # previous substep's impulses and run the shorter warm iteration
-        # count; with a cross-step seed the first substep warm-starts too
-        warm = warm_iters > 0 and (si > 0 or warm0)
+        # count; with a cross-step seed the first substep warm-starts too.
+        # Exact mode always starts cold.
+        warm = not exact and warm_iters > 0 and (si > 0 or warm0)
 
         # -- torque model --
         if control_type == "P":
@@ -208,6 +255,14 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
         tau_lim = limit_stiffness * (under - over) \
             - limit_damping * at_lim * qd
         tau_full = torch.cat([zeros6, tau_m + tau_lim], dim=0)
+
+        if exact:
+            # the whole cache from the current state, re-anchored at the
+            # current base position (delta = 0); fresh FK contact points
+            Sw, Sv, Ab, Bb, mb, Minv, r, pcp = _cache_arrays(
+                model, q, quat, pos, payload_t, comdisp_t)
+            J, W = pc.cache_core(anc_pn, Sw, Sv, Minv, r, eps=eps)
+            ref_pt = pos
 
         # -- unconstrained dynamics at the anchor point, midpoint rule --
         delta = ref_pt - pos
@@ -260,16 +315,19 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
 
 
 def topology_header(model, hidden: int, features: int) -> str:
-    """C header with the robot's static tables for csrc/megastep.cu."""
-    return _build.topology_header(model.anc_dof_body, model.joint_body,
-                                  model.cp_body, hidden, features)
+    """C header with the robot's static tables for csrc/megastep.cu: the
+    topology, and the model constants of the exact-mode cache rebuild."""
+    return (_build.topology_header(model.anc_dof_body, model.joint_body,
+                                   model.cp_body, hidden, features)
+            + _build.model_tables(model))
 
 
-_N_IN, _N_OUT, _N_F = 34, 14, 12
+_N_IN, _N_OUT, _N_F = 38, 14, 12
 
 
 def library_spec(model, hidden: int = 32, features: int = 6):
-    """What `_build.build_libraries` needs to build csrc/megastep.cu."""
+    """What `_build.build_libraries` needs to build csrc/megastep.cu (all
+    four variants: K4, K4c and K5 with either torque model)."""
     return ("megastep", topology_header(model, hidden, features),
             (_N_IN, _N_OUT, _N_F))
 
@@ -291,16 +349,16 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
                  bounce_thresh: float, contact: bool,
                  limit_stiffness: float, limit_damping: float,
                  max_base_ang_vel: float, max_base_lin_vel: float,
-                 decimation: int, eps: float = 1e-6):
+                 decimation: int, eps: float = 1e-6, exact_inputs=None):
     """One whole control step, env-minor; arguments and results as
     `control_step_reference`.
 
     Tensors on the CPU: the plain version.  Tensors on a CUDA device: the
     kernel of csrc/megastep.cu, launched on the current stream without
-    synchronising, outputs allocated here.  The kernel covers the main
-    path's specialisation (flat ground, actuator network); anything else
-    on a CUDA device raises, as does a failed build or launch."""
-    global launches
+    synchronising, outputs allocated here.  The kernel covers flat ground
+    with either torque model, in reuse and in exact mode; anything else on
+    a CUDA device raises, as does a failed build or launch."""
+    global launches, p_launches, exact_launches
     kw = dict(model=model, control_type=control_type, dt=dt,
               num_iters=num_iters, warm_iters=warm_iters,
               relaxation=relaxation, baumgarte=baumgarte, slop=slop,
@@ -309,7 +367,7 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
               limit_damping=limit_damping,
               max_base_ang_vel=max_base_ang_vel,
               max_base_lin_vel=max_base_lin_vel, decimation=decimation,
-              eps=eps)
+              eps=eps, exact_inputs=exact_inputs)
     dev = q_t.device
     if dev.type == "cpu":
         return control_step_reference(
@@ -321,92 +379,202 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     if n_t is not None:
         raise NotImplementedError(
             "control_step on CUDA: heightfield normals (n_t) need the "
-            "general-normal kernel variant, which is not written yet")
-    if control_type != "actuator_net":
-        raise NotImplementedError(
-            "control_step on CUDA: only control_type='actuator_net' has a "
-            "kernel; the P-control variant is not written yet")
+            "general-normal kernel variant (K4b, ROADMAP item 15), which is "
+            "not written yet")
+    if control_type not in ("P", "actuator_net"):
+        raise ValueError(f"control_step: unknown control_type "
+                         f"{control_type!r}")
+    if exact_inputs is not None and lam_in_t is not None:
+        raise ValueError("exact mode starts every contact solve cold: "
+                         "lam_in_t must be None")
+    ptrs, outs, floats, ints, (H, F) = kernel_operands(
+        em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
+        tgt_t, strengths_t, ctrl_inputs, vlim, tlim, qlo, qhi, lam_in_t, **kw)
+    lib = build_library(model, H, F)
+    with torch.cuda.device(dev):
+        _build.launch(lib, "megastep", ptrs, outs, floats, ints,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    if exact_inputs is not None:
+        exact_launches += 1
+    elif control_type == "P":
+        p_launches += 1
+    else:
+        launches += 1
+    return tuple(o for o in outs if o is not None)
+
+
+def kernel_operands(em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t,
+                    lin_t, ang_t, tgt_t, strengths_t, ctrl_inputs,
+                    vlim, tlim, qlo, qhi, lam_in_t=None, *,
+                    model, control_type: str, dt: float, num_iters: int,
+                    warm_iters: int = 0, relaxation: float, baumgarte: float,
+                    slop: float, max_depen: float, bounce_thresh: float,
+                    contact: bool, limit_stiffness: float,
+                    limit_damping: float, max_base_ang_vel: float,
+                    max_base_lin_vel: float, decimation: int,
+                    eps: float = 1e-6, exact_inputs=None):
+    """The arguments of csrc/megastep.cu's `megastep_launch` for one control
+    step (flat ground): input pointers in its InIdx order (null where the
+    variant reads nothing), the output tensors, allocated on the inputs'
+    device, in OutIdx order (None where the variant writes nothing), the
+    FIdx floats, the int scalars and the actuator network's (hidden,
+    features).  Checks every operand's device, dtype, shape and
+    contiguity."""
+    dev = q_t.device
+    pctrl = control_type == "P"
+    exact = exact_inputs is not None
 
     nv, nb = model.nv, model.nb
     nj = nv - 6
     P = model.cp_body.shape[0]
     D = int(decimation)
     Npad = q_t.shape[-1]
-    W0b, b0b, W1b, b1b, W2b, b2b, el_t, ell_t, vl_t, vll_t = ctrl_inputs
-    H = W1b.shape[0] // nj
-    F = W0b.shape[1] // nj
-    if F != 6:
-        raise NotImplementedError("actuator network with 6 inputs per joint")
-    ins = [
+    H, F = 32, 6
+    if pctrl:
+        kp_t, kd_t = ctrl_inputs
+        net = ()
+    else:
+        W0b, b0b, W1b, b1b, W2b, b2b, el_t, ell_t, vl_t, vll_t = ctrl_inputs
+        H = W1b.shape[0] // nj
+        F = W0b.shape[1] // nj
+        if F != 6:
+            raise NotImplementedError(
+                "actuator network with 6 inputs per joint")
+        net = (("W0b", W0b, (nj * H, nj * F)), ("b0b", b0b, (nj * H, 1)),
+               ("W1b", W1b, (nj * H, nj * H)), ("b1b", b1b, (nj * H, 1)),
+               ("W2b", W2b, (nj, nj * H)), ("b2b", b2b, (nj, 1)),
+               ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
+               ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)))
+    cache = () if exact else (
         ("Sw_t", em.Sw_t, (nv, 3, Npad)), ("Sv_t", em.Sv_t, (nv, 3, Npad)),
         ("A_t", em.A_t, (nb, 9, Npad)), ("B_t", em.B_t, (nb, 9, Npad)),
         ("m_t", em.m_t, (nb, Npad)), ("Minv_t", em.Minv_t, (nv, nv, Npad)),
-        ("p_cp_t", em.p_cp_t, (P, 3, Npad)), ("rh_t", rh_t, (P, Npad)),
-        ("mu_t", mu_t, (1, Npad)), ("e_t", e_t, (1, Npad)),
-        ("g_t", g_t, (3, Npad)), ("lam_in_t", lam_in_t, (P, 3, Npad)),
+        ("p_cp_t", em.p_cp_t, (P, 3, Npad)))
+    given = dict((name, (x, shape)) for name, x, shape in cache + net + (
+        ("rh_t", rh_t, (P, Npad)), ("mu_t", mu_t, (1, Npad)),
+        ("e_t", e_t, (1, Npad)), ("g_t", g_t, (3, Npad)),
         ("q_t", q_t, (nj, Npad)), ("qd_t", qd_t, (nj, Npad)),
         ("pos_t", pos_t, (3, Npad)), ("quat_t", quat_t, (4, Npad)),
         ("lin_t", lin_t, (3, Npad)), ("ang_t", ang_t, (3, Npad)),
         ("tgt_t", tgt_t, (D, nj, Npad)),
         ("strengths_t", strengths_t, (nj, Npad)),
-        ("W0b", W0b, (nj * H, nj * F)), ("b0b", b0b, (nj * H, 1)),
-        ("W1b", W1b, (nj * H, nj * H)), ("b1b", b1b, (nj * H, 1)),
-        ("W2b", W2b, (nj, nj * H)), ("b2b", b2b, (nj, 1)),
-        ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
-        ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)),
         ("vlim", vlim, (nv, 1)), ("tlim", tlim, (nj, 1)),
-        ("qlo", qlo, (nj, 1)), ("qhi", qhi, (nj, 1)),
-    ]
-    assert len(ins) == _N_IN
-    ptrs = []
-    for name, x, shape in ins:
-        if x is None and name == "lam_in_t":
-            ptrs.append(None)
-            continue
-        ptrs.append(_build.check(name, x, shape, dev).data_ptr())
+        ("qlo", qlo, (nj, 1)), ("qhi", qhi, (nj, 1))))
+    if lam_in_t is not None:
+        given["lam_in_t"] = (lam_in_t, (P, 3, Npad))
+    if pctrl:
+        given["kp_t"] = (kp_t, (nj, Npad))
+        given["kd_t"] = (kd_t, (nj, Npad))
+    if exact:
+        given["payload_t"] = (exact_inputs[0], (1, Npad))
+        given["comdisp_t"] = (exact_inputs[1], (3, Npad))
+    # the kernel's input slots, in csrc/megastep.cu's InIdx order; a slot
+    # the variant does not read stays null
+    slots = ("Sw_t", "Sv_t", "A_t", "B_t", "m_t", "Minv_t", "p_cp_t", "rh_t",
+             "mu_t", "e_t", "g_t", "lam_in_t", "q_t", "qd_t", "pos_t",
+             "quat_t", "lin_t", "ang_t", "tgt_t", "strengths_t", "W0b", "b0b",
+             "W1b", "b1b", "W2b", "b2b", "el_t", "ell_t", "vl_t", "vll_t",
+             "vlim", "tlim", "qlo", "qhi", "kp_t", "kd_t", "payload_t",
+             "comdisp_t")
+    assert len(slots) == _N_IN and set(given) <= set(slots)
+    ptrs = [None if name not in given else
+            _build.check(name, given[name][0], given[name][1], dev).data_ptr()
+            for name in slots]
 
-    lib = build_library(model, H, F)
-
+    n_out = 10 if pctrl else 14
     out_shapes = [(nj, Npad), (nj, Npad), (3, Npad), (4, Npad), (3, Npad),
                   (3, Npad), (P, 3, Npad), (P, 3, Npad), (P, 3, Npad),
                   (nj, Npad)] + [(nj, Npad)] * 4
-    with torch.cuda.device(dev):
-        outs = tuple(torch.empty(s, dtype=torch.float32, device=dev)
-                     for s in out_shapes)
-        _build.launch(
-            lib, "megastep", ptrs, outs,
-            (dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
-             limit_stiffness, limit_damping, max_base_ang_vel,
-             max_base_lin_vel, eps, 0.5 * dt),
-            (Npad, D, num_iters, warm_iters, bool(contact), KERNEL_THREADS),
-            torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
-    return outs
+    outs = [torch.empty(s, dtype=torch.float32, device=dev)
+            for s in out_shapes[:n_out]] + [None] * (_N_OUT - n_out)
+    floats = (dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
+              limit_stiffness, limit_damping, max_base_ang_vel,
+              max_base_lin_vel, eps, 0.5 * dt)
+    ints = (Npad, D, num_iters, warm_iters, bool(contact), KERNEL_THREADS,
+            pctrl, exact)
+    return ptrs, outs, floats, ints, (H, F)
+
+
+def cache_rebuild_ops(model) -> int:
+    """fp32 operations per env of the exact-mode cache rebuild
+    (csrc/wtw_cache.cuh over `envminor.cache_columns`: FK, twists, inertia,
+    CRBA, closed-form M^-1, contact points), counted from the robot's static
+    structure as `work_per_env` counts the rest: the model's constants cost
+    nothing, and products by the static zeros of the joint rotations, axes,
+    anchors, offsets and skew matrices are left out."""
+    nb, nj, nv = model.nb, model.nj, model.nv
+    nz = np.count_nonzero
+
+    def mv(k):           # 3x3 data matrix times a static vector, k nonzeros
+        return 3 * max(2 * k - 1, 0)
+
+    ops = 9 + 21                          # base R from the quaternion
+    for a, an in zip(np.asarray(model.joint_axis, np.float64),
+                     np.asarray(model.joint_anchor)):
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        terms = (np.eye(3) != 0).astype(int) + (K != 0) + (K @ K != 0)
+        # sin, cos, 1 - cos; rot = I + K sin + K^2 (1 - cos)
+        ops += 3 + nz(K) + nz(K @ K) + int(np.maximum(terms - 1, 0).sum())
+        ops += mv(nz(an)) + 3 + mv(nz(a))             # anchor, axis in world
+        ops += sum(mv(nz(col)) for col in (terms > 0).T)   # R_parent rot
+    ops += 12 * nj                        # twists: (anchor - ref) x axis
+    ops += sum(mv(nz(c)) + 3 for c in np.asarray(model.com))
+    ops += 1 + mv(3) + 3 + 1 + nz(model.inertia[0])   # payload, COM shift,
+    #                                                  base inertia scale
+    for inertia in np.asarray(model.inertia).reshape(nb, 3, 3):
+        # I_l R^T, R (I_l R^T), r, m [r]x, m [r]x [r]x (15), A
+        ops += sum(mv(nz(row)) for row in inertia) + 45 + 3 + 6 + 15 + 9
+    jb = np.asarray(model.joint_body)
+    n_sub = np.asarray(model.anc_dof_body)[6:].sum(axis=1)
+    ops += 19 * (nb - 1)                  # CRBA: base totals of A, B, m
+    ops += int(19 * (n_sub - 1).sum()) + 54 * nj    # composites, columns
+    ops += 11 * nz(np.asarray(model.subtree)[jb[:, None], jb[None, :]]) + nv
+    inv3, legs = 49, nj // 3              # adjugate inverse of A + eps I
+    ops += legs * inv3 + 30 * nj + 72 * nj        # D^-1, B D^-1, Schur S
+    ops += 2 * inv3 + 4 * 45 + 9 + 54 + 9         # S^-1 by its 3x3 Schur
+    ops += 66 * nj + 6 * nj + 11 * nj * nj + 9 * legs   # T, -T, leg block
+    ops += sum(mv(nz(o)) + 3 for o in np.asarray(model.cp_offset))
+    return int(ops)
 
 
 def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
-                 features: int = 6):
-    """(bytes moved, fp32 operations) per env for one control step on the
-    main path (flat, actuator network, every substep warm-started): each
-    input read once and each output written once, and the arithmetic the
-    algorithm needs with its static sparsity (a multiply-add counts 2).
-    The actuator weights and the bound columns are shared by all envs and
-    are not counted per env."""
+                 features: int = 6, control_type: str = "actuator_net",
+                 exact: bool = False, num_iters: int = 16):
+    """(bytes moved, fp32 operations) per env for one control step of the
+    kernel variant: each input read once and each output written once, and
+    the arithmetic the algorithm needs with its static sparsity (a
+    multiply-add counts 2).  Reuse mode (K4, K4c): the cache is an input,
+    built once per control step into J and W, every substep warm-started
+    with `warm_iters` sweeps.  Exact mode (K5): payload and COM shift in
+    place of the cache, which is rebuilt (`cache_rebuild_ops`) and formed
+    into J and W before every substep, and every solve runs `num_iters`
+    sweeps from a cold start.  The actuator weights and the bound columns
+    are shared by all envs and are not counted per env."""
     nv, nb = model.nv, model.nb
     nj = nv - 6
     P = model.cp_body.shape[0]
     D = decimation
     anc, anc_p, groups = _topology(model)
-    floats_in = (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv + P * 3 + P + 1 + 1
-                 + 3 + P * 3 + 2 * nj + 3 + 4 + 3 + 3 + D * nj + nj + 4 * nj)
-    floats_out = 2 * nj + 3 + 4 + 3 + 3 + 3 * P * 3 + nj + 4 * nj
+    pctrl = control_type == "P"
+    hist = 0 if pctrl else 4 * nj
+    cache_in = (1 + 3) if exact else (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv
+                                      + P * 3 + P * 3)   # + the lam seed
+    floats_in = (cache_in + P + 1 + 1 + 3 + 2 * nj + 3 + 4 + 3 + 3 + D * nj
+                 + nj + (2 * nj if pctrl else hist))
+    floats_out = 2 * nj + 3 + 4 + 3 + 3 + 3 * P * 3 + nj + hist
     nd = anc_p.sum(axis=1)                    # dofs per point
     jnz = int(3 * nd.sum())                   # nonzero J entries
     cache = int(sum(3 * 2 * d * d + 4 * 2 * d for d in nd)) + 9 * jnz // 3
-    mlp = nj * 2 * (features * hidden + hidden * hidden + hidden) \
-        + nj * 2 * hidden * 4
+    torque = 4 * nj if pctrl else (
+        nj * 2 * (features * hidden + hidden * hidden + hidden)
+        + nj * 2 * hidden * 4)
     dyn = pd.dyn_ops(anc)
-    solve = pc.solve_ops(jnz, P, nv, warm_iters, True)
+    solve = pc.solve_ops(jnz, P, nv, num_iters if exact else warm_iters,
+                         not exact)
     integ = 100 + 4 * nv
-    ops = cache + D * (mlp + 10 * nj + 2 * dyn + 4 * nv + solve + integ)
+    per_substep = torque + 10 * nj + 2 * dyn + 4 * nv + solve + integ
+    if exact:
+        ops = D * (cache_rebuild_ops(model) + cache + per_substep)
+    else:
+        ops = cache + D * per_substep
     return 4 * (floats_in + floats_out), ops

@@ -4,7 +4,9 @@ Counterpart of the JAX package's physics/engine.py, restricted to what runs
 through the hand-written kernels:
 
 - the control-step route (default training path): one control step = one
-  launch of the whole-control-step kernel (ops/megastep.py) in reuse mode;
+  launch of the whole-control-step kernel (ops/megastep.py), in reuse mode
+  (cache built here once per control step) or in exact mode (cache rebuilt
+  inside the kernel before every substep);
 - the per-substep route: per control step one `build_dynamics_cache`
   (env-minor cache + the contact-cache kernel, ops/contact.py) and per
   physics substep one `physics_substep_cached` (the dynamics-substep kernel,
@@ -148,23 +150,34 @@ def build_pallas_env_inputs(model: RobotModel, state: PhysicsState,
 
     Returns (em: EnvMinorCache, rh_t (P, Npad), mu_t (1, Npad),
     e_t (1, Npad), g_t (3, Npad), n_t (P, 3, Npad) | None)."""
-    f32 = state.base_pos.dtype
-    dev = state.base_pos.device
+    _flat_only(terrain)
     em = envminor.build_cache_envminor(model, state, dyn, block)
-    P = model.cp_body.shape[0]
-    radius = torch.tensor(np.asarray(model.cp_radius), dtype=f32, device=dev)
-    Npad = em.Sw_t.shape[-1]
+    return (em,) + _contact_inputs(model, dyn, em.Sw_t.shape[-1], block) \
+        + (None,)
+
+
+def _flat_only(terrain):
     if terrain is not None and tuple(terrain.height.shape) != (2, 2):
         raise NotImplementedError(
             "heightfield terrain (per-point normals n_t) belongs to the "
-            "rough-terrain slice of the port, which is not written yet")
+            "rough-terrain slice of the port (ROADMAP item 15), which is not "
+            "written yet")
+
+
+def _contact_inputs(model: RobotModel, dyn: DynamicsParams, Npad: int,
+                    block: int):
+    """Flat-ground contact operands, env-minor: (rh_t (P, Npad) point
+    radii, mu_t (1, Npad), e_t (1, Npad), g_t (3, Npad))."""
+    f32 = dyn.gravity.dtype
+    P = model.cp_body.shape[0]
+    radius = torch.tensor(np.asarray(model.cp_radius), dtype=f32,
+                          device=dyn.gravity.device)
     rh_t = radius[:, None].expand(P, Npad).contiguous()
-    n_t = None
     # ground friction 1.0 averaged in with the robot's shape friction
     mu_t = pc.to_env_minor(0.5 * (dyn.friction[:, None] + 1.0), block)
     e_t = pc.to_env_minor(dyn.restitution[:, None], block)
     g_t = pc.to_env_minor(dyn.gravity, block)
-    return em, rh_t, mu_t, e_t, g_t, n_t
+    return rh_t, mu_t, e_t, g_t
 
 
 # ---------------------------------------------------------------------------
@@ -348,17 +361,32 @@ def megakernel_args(
                                     #  (el, ell, vl, vll) each (N, 12))
     decimation: int,
     lam_in_t=None,                  # (P, 3, Npad) cross-step warm seed
+    exact: bool = False,
 ):
     """The (args, kwargs) of the `ops/megastep.control_step` call for one
-    control step: the env-minor cache of the entry state, the state and the
-    control inputs transposed to env-minor and padded to MEGASTEP_BLOCK, the
-    per-dof bound columns, and the solver's static parameters."""
+    control step: the env-minor cache of the entry state (reuse mode) or
+    the payload and COM shift the kernel rebuilds it from (exact mode), the
+    state and the control inputs transposed to env-minor and padded to
+    MEGASTEP_BLOCK, the per-dof bound columns, and the solver's static
+    parameters."""
     f32 = state.base_pos.dtype
     dev = state.base_pos.device
     block = MEGASTEP_BLOCK
 
-    em, rh_t, mu_t, e_t, g_t, n_t = build_pallas_env_inputs(
-        model, state, dyn, terrain, block)
+    if exact:
+        # no cache here: the kernel rebuilds it before every substep.
+        # Flat ground only; every contact solve starts cold.
+        _flat_only(terrain)
+        N = state.base_pos.shape[0]
+        em, n_t = None, None
+        rh_t, mu_t, e_t, g_t = _contact_inputs(
+            model, dyn, -(-N // block) * block, block)
+        exact_inputs = (pc.to_env_minor(dyn.payload[:, None], block),
+                        pc.to_env_minor(dyn.com_displacement, block))
+    else:
+        em, rh_t, mu_t, e_t, g_t, n_t = build_pallas_env_inputs(
+            model, state, dyn, terrain, block)
+        exact_inputs = None
     q_t = pc.to_env_minor(state.q, block)
     qd_t = pc.to_env_minor(state.qd, block)
     pos_t = pc.to_env_minor(state.base_pos, block)
@@ -393,7 +421,7 @@ def megakernel_args(
         model=model, control_type=ctrl[0],
         dt=params.dt, num_iters=params.num_contact_iters,
         warm_iters=(params.num_contact_iters_warm
-                    if params.contact_warm_start else 0),
+                    if params.contact_warm_start and not exact else 0),
         relaxation=params.relaxation, baumgarte=params.contact_baumgarte,
         slop=params.contact_slop,
         max_depen=params.max_depenetration_velocity,
@@ -403,7 +431,7 @@ def megakernel_args(
         limit_damping=params.joint_limit_damping,
         max_base_ang_vel=params.max_base_ang_vel,
         max_base_lin_vel=params.max_base_lin_vel,
-        decimation=decimation)
+        decimation=decimation, exact_inputs=exact_inputs)
     return args, kwargs
 
 
@@ -425,19 +453,18 @@ def control_step_megakernel(
     (ops/megastep.control_step): `decimation` substeps of torque model +
     cached dynamics + contact + integration in a single launch, with the
     J/W cache built in-kernel.  Reuse-mode semantics (cache anchored at
-    the entry state, contact points advanced at velocity level).
-    Arguments as `megakernel_args`.
+    the entry state, contact points advanced at velocity level) — or, with
+    `exact=True`, exact per-substep semantics: the kernel rebuilds the whole
+    cache (FK/twists/inertia/CRBA/M^-1/J/W) from the current state before
+    every substep (flat ground only; every contact solve starts cold, as in
+    the per-substep exact route).  Arguments as `megakernel_args`.
 
     Returns (new_state, lam_t, pcp_t, pcp_prev_t, torques (N, 12),
-    hist (dict of (N, 12) actuator histories))."""
-    if exact:
-        raise NotImplementedError(
-            "exact mode (cache rebuilt before every substep) belongs to a "
-            "later slice of the port")
+    hist (dict of (N, 12) actuator histories, empty for P control))."""
     N = state.base_pos.shape[0]
     args, kwargs = megakernel_args(
         model, params, state, dyn, terrain, tgt_eff, strengths,
-        torque_limits, ctrl, decimation, lam_in_t)
+        torque_limits, ctrl, decimation, lam_in_t, exact)
     outs = pm.control_step(*args, **kwargs)
     (q_o, qd_o, pos_o, quat_o, lin_o, ang_o, pcp_t, pcp_prev_t, lam_t,
      tau_o) = outs[:10]

@@ -319,9 +319,16 @@ def cache_columns(model, q_cols, base_quat_cols, ref, payload,
     return Sw, Sv, Minv, A_blk, B_blk, m, r_cp, p_cp
 
 
+# number of eager cache builds (`build_cache_envminor` calls); exact mode
+# on the control-step route makes none
+cache_builds = 0
+
+
 def build_cache_envminor(model, state, dyn, block: int) -> EnvMinorCache:
     """FK + twist + inertia + CRBA + M^-1 chain for the entry state of a
     control step; reference point = base position."""
+    global cache_builds
+    cache_builds += 1
     f32 = state.base_pos.dtype
     N = state.base_pos.shape[0]
     Npad = ((N + block - 1) // block) * block

@@ -1,0 +1,139 @@
+"""Train the full walk-these-ways MoB policy on one NVIDIA GPU.
+
+Counterpart of the JAX package's scripts/train.py (reference
+scripts/train.py:1-256, train_go1): the config is the `mob_train_cfg` preset
+(or, with `--config small`, `small_train_cfg`: flat, no DR, P control), the
+trainer is the PPO-CSE loop of learn/runner.py, logging goes to a local
+JSONL run dir.  Runs on the GPU only: without a CUDA device it raises.
+
+Usage: python -m walk_these_ways_tpu_torch.scripts.train
+           [--num-envs 4000] [--iterations 1500] [--exact] [--resume CKPT]
+
+The flags of later slices of the port raise NotImplementedError naming their
+ROADMAP item: `--terrain rough` (15), `--algo rma` (19), `--mesh` and
+`--multihost` (22), the eval flags (18) and `--shared-ckpt` (22).
+"""
+import argparse
+import dataclasses
+import os
+from datetime import datetime
+
+
+def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
+              num_eval_envs: int = 0, eval_expert: bool = False,
+              algo: str = "cse", use_mesh: bool = False,
+              multihost: bool = False, exact: bool = False,
+              terrain: str = "flat", warm_start: bool | None = None,
+              warm_iters: int | None = None, resume: str | None = None,
+              eval_dr: str | None = None, eval_terrain: str | None = None,
+              shared_ckpt: str | None = None, config: str = "mob"):
+    import torch
+
+    from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv
+    from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
+                                                      small_train_cfg)
+    from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
+
+    later = (
+        (terrain == "rough", "--terrain rough", 15),
+        (algo == "rma", "--algo rma", 19),
+        (use_mesh or multihost, "--mesh / --multihost", 22),
+        (bool(num_eval_envs or eval_expert or eval_dr or eval_terrain),
+         "--num-eval-envs / --eval-expert / --eval-dr / --eval-terrain", 18),
+        (shared_ckpt is not None, "--shared-ckpt", 22),
+    )
+    for given, flag, item in later:
+        if given:
+            raise NotImplementedError(
+                f"{flag} belongs to a later slice of the PyTorch port "
+                f"(ROADMAP item {item})")
+    if not torch.cuda.is_available():
+        raise RuntimeError("the PyTorch port trains on a CUDA device: "
+                           "torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = (small_train_cfg if config == "small" else mob_train_cfg)(
+        num_envs=num_envs)
+    sim = cfg.sim
+    if warm_start is not None:
+        sim = dataclasses.replace(sim, contact_warm_start=warm_start)
+    if warm_iters is not None:
+        sim = dataclasses.replace(sim, num_contact_iters_warm=warm_iters)
+    if exact:
+        # exact per-substep dynamics (no matrix reuse): the cache is rebuilt
+        # inside the control-step kernel before every substep
+        sim = dataclasses.replace(sim, reuse_matrices=False)
+    cfg = dataclasses.replace(cfg, sim=sim)
+    env = LeggedRobotEnv(cfg)
+    runner = Runner(env, log_dir=log_dir, seed=seed,
+                    args=RunnerArgs(max_iterations=iterations,
+                                    resume=resume is not None,
+                                    resume_path=resume))
+    runner.learn(num_learning_iterations=iterations,
+                 init_at_random_ep_len=True)
+    return runner
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--num-envs", type=int, default=4000)
+    p.add_argument("--iterations", type=int, default=1500)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--log-dir", type=str, default=None)
+    p.add_argument("--config", choices=["mob", "small"], default="mob",
+                   help="mob = go1_config.mob_train_cfg (default); small = "
+                        "small_train_cfg (flat, no DR, P control)")
+    p.add_argument("--num-eval-envs", type=int, default=0,
+                   help="extra eval envs (ROADMAP item 18: not ported yet)")
+    p.add_argument("--eval-expert", action="store_true",
+                   help="eval envs use the teacher head (item 18)")
+    p.add_argument("--algo", choices=["cse", "rma"], default="cse",
+                   help="cse = concurrent state estimation (default); "
+                        "rma = teacher-student (item 19)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard envs over all local devices (item 22)")
+    p.add_argument("--multihost", action="store_true",
+                   help="several hosts (item 22)")
+    p.add_argument("--exact", action="store_true",
+                   help="exact per-substep dynamics (reuse_matrices off)")
+    p.add_argument("--terrain", choices=["flat", "rough"], default="flat",
+                   help="flat = MoB boxes tiles (default); rough = "
+                        "rough-slope heightfield (item 15)")
+    p.add_argument("--warm-start", dest="warm_start", action="store_true",
+                   default=None,
+                   help="warm-start contact impulses across decimation "
+                        "substeps (control-step route)")
+    p.add_argument("--no-warm-start", dest="warm_start",
+                   action="store_false",
+                   help="force cold-start contact solves")
+    p.add_argument("--warm-iters", type=int, default=None,
+                   help="warm-started solver iterations per substep "
+                        "(SimCfg.num_contact_iters_warm)")
+    p.add_argument("--eval-dr", type=str, default=None,
+                   help="DR preset for the eval slice (item 18)")
+    p.add_argument("--eval-terrain", type=str, default=None,
+                   choices=["flat", "rough"],
+                   help="the eval slice's own terrain rows (item 18)")
+    p.add_argument("--resume", type=str, default=None, metavar="CKPT",
+                   help="a train_state_*.pkl to resume from: restores the "
+                        "full train state incl. env/curriculum/generator "
+                        "states; training continues from the stored "
+                        "iteration count")
+    p.add_argument("--shared-ckpt", type=str, default=None, metavar="DIR",
+                   help="shared-storage checkpoints (item 22)")
+    a = p.parse_args(argv)
+    log_dir = a.log_dir or os.path.join(
+        "runs", "gait-conditioned-agility",
+        datetime.now().strftime("%Y-%m-%d/train/%H%M%S"))
+    train_go1(a.num_envs, a.iterations, log_dir, a.seed,
+              num_eval_envs=a.num_eval_envs, eval_expert=a.eval_expert,
+              algo=a.algo, use_mesh=a.mesh, multihost=a.multihost,
+              exact=a.exact, terrain=a.terrain, warm_start=a.warm_start,
+              warm_iters=a.warm_iters, resume=a.resume,
+              eval_dr=a.eval_dr, eval_terrain=a.eval_terrain,
+              shared_ckpt=a.shared_ckpt, config=a.config)
+
+
+if __name__ == "__main__":
+    main()

@@ -126,6 +126,32 @@ def env_state_from_numpy(arrays: Mapping, generator: torch.Generator,
     return EnvState(**out)
 
 
+def env_state_to_numpy(state: EnvState) -> dict:
+    """Inverse of `env_state_from_numpy`: every leaf as numpy, `phys` and
+    `curriculum` as nested dicts of their fields, and the state of the
+    generator in `rng` (a uint8 array, `torch.Generator.get_state`)."""
+    out = {}
+    for name in EnvState._fields:
+        v = getattr(state, name)
+        if name == "rng":
+            out[name] = v.get_state().numpy()
+        elif name in ("phys", "curriculum"):
+            out[name] = {k: x.detach().cpu().numpy()
+                         for k, x in v._asdict().items()}
+        elif v is None:
+            out[name] = None
+        else:
+            out[name] = v.detach().cpu().numpy()
+    return out
+
+
+def generator_from_state(state: np.ndarray, device="cuda") -> torch.Generator:
+    """A generator on `device` continuing from a `get_state()` array."""
+    g = torch.Generator(device=device)
+    g.set_state(torch.from_numpy(np.asarray(state, np.uint8).copy()))
+    return g
+
+
 def cache_from_numpy(arrays: Mapping[str, np.ndarray], block: int = 256,
                      device="cuda") -> PallasOps:
     """The env-minor dynamics cache (physics/engine.PallasOps) from numpy:
