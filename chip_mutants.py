@@ -59,6 +59,15 @@ MUTANTS = (
      "      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, "
      "ex_B,\n                        ex_m, si == 0 ? ex_minv : stale, pcp);",
      "control_step_exact"),
+    # the general-normal rows (K4b's and K3b's) take the normal part of the
+    # impulse as if n were +z
+    ("normal_row_drops_normal_projection", "wtw_device.cuh",
+     "const float l_n0 = lam[0] * n[0] + lam[1] * n[1] + lam[2] * n[2];",
+     "const float l_n0 = lam[2];", "control_step_normals"),
+    # K3b's normal row takes the mass W22 instead of n^T W n
+    ("normals_substep_wnn_is_w22", "wtw_contact.cuh",
+     "inv_wnn[p] = c.relax / quad3(W9, n);",
+     "inv_wnn[p] = c.relax / W9[8];", "dynamics_substep_normals"),
 )
 
 

@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's four kernel sources from csrc/*.cu with nvcc (one nvcc
-each, all started together; csrc/megastep.cu holds three variants of the
-control-step kernel: K4, K4c with P control, K5 in exact mode), holds each
-kernel against its plain PyTorch version on the card at the shapes the paths
-below give it (4000 envs), then drives the port's paths through the entry
-points a user calls and checks what comes out:
+each, all started together; csrc/megastep.cu holds the variants of the
+control-step kernel: K4, K4c with P control, K4b on a heightfield with
+either torque model, K5 in exact mode; csrc/dynamics_substep.cu K3 and K3b
+on a heightfield), holds each kernel against its plain PyTorch version on
+the card at the shapes the paths below give it (4000 envs), then drives the
+port's paths through the entry points a user calls and checks what comes
+out:
 
 - the policy rollout of `mob_train_cfg(4000)` on the default route (one
   control-step kernel launch per step),
@@ -23,8 +25,15 @@ points a user calls and checks what comes out:
   against the per-substep exact route,
 - P control on the control-step route (`small_train_cfg(4000)`, K4c),
 - the training entry point: `learn/runner.Runner` (log, checkpoint, resume,
-  export), `python -m walk_these_ways_tpu_torch.scripts.train --exact` as a
-  subprocess, and the bench's `main`,
+  export), then four commands as subprocesses started together:
+  `python -m walk_these_ways_tpu_torch.scripts.train --exact` and
+  `... --terrain rough`, `scripts.play` (on the policy the runner exported)
+  and `scripts.test`; the bench's `main`,
+- rough terrain (`rough_train_cfg(4000)`): the default route (one K4b launch
+  per step), the exact route (`decimation` K4b launches of one substep per
+  step) and the per-substep route (K1 + 4 K3b per step), the exact route
+  held against the per-substep exact route, a PPO iteration and the bench
+  on rough terrain,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
   and the device-busy share).
 
@@ -54,7 +63,7 @@ from walk_these_ways_tpu_torch import bench  # noqa: E402
 from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
     LeggedRobotEnv, make_generator)
 from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
-    mob_train_cfg, small_train_cfg)
+    mob_train_cfg, rough_train_cfg, small_train_cfg)
 from walk_these_ways_tpu_torch.learn import ppo  # noqa: E402
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
 from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs  # noqa: E402
@@ -131,20 +140,24 @@ def time_host(fn, reps=2):
 def reset_counts():
     megastep.launches = 0
     megastep.p_launches = 0
+    megastep.normal_launches = 0
     megastep.exact_launches = 0
     contact.cache_launches = 0
     contact.substep_launches = 0
     dynamics.launches = 0
+    dynamics.normal_launches = 0
     envminor.cache_builds = 0
 
 
 def counts():
     return dict(control_step=megastep.launches,
                 control_step_p=megastep.p_launches,
+                control_step_normals=megastep.normal_launches,
                 control_step_exact=megastep.exact_launches,
                 contact_cache=contact.cache_launches,
                 contact_substep=contact.substep_launches,
                 dynamics_substep=dynamics.launches,
+                dynamics_substep_normals=dynamics.normal_launches,
                 eager_cache_builds=envminor.cache_builds)
 
 
@@ -225,7 +238,7 @@ def substep_inputs(env, state):
     m, p = env.model, env.sim_params
     block = engine.SUBSTEP_BLOCK
     dyn = env.dynamics_params(state)[1]
-    em, rh_t, mu_t, e_t, g_t, _ = engine.build_pallas_env_inputs(
+    em, rh_t, mu_t, e_t, g_t, n_t = engine.build_pallas_env_inputs(
         m, state.phys, dyn, env.terrain, block)
     anc_p = torch.tensor(
         np.asarray(m.anc_dof_body)[:, np.asarray(m.cp_body)].T,
@@ -245,19 +258,21 @@ def substep_inputs(env, state):
     topo = dict(anc=m.anc_dof_body, joint_body=m.joint_body,
                 cp_body=m.cp_body)
     return dict(em=em, anc_p=anc_p, rh_t=rh_t, mu_t=mu_t, e_t=e_t, g_t=g_t,
-                tau_t=tau_t, gv_t=gv_t, vlim=vlim, solver=solver, topo=topo)
+                n_t=n_t, tau_t=tau_t, gv_t=gv_t, vlim=vlim, solver=solver,
+                topo=topo)
 
 
 def substep_kernel_calls(x):
-    """The three kernels' argument lists from `substep_inputs`.  K2 is fed
-    the free velocity of the plain dynamics, so that its result can be held
-    against K3's as well."""
+    """The three kernels' argument lists from `substep_inputs` (on a
+    heightfield K3's end in the normals: K3b).  K2 is fed the free velocity
+    of the plain dynamics, so that its result can be held against K3's as
+    well."""
     em = x["em"]
     k1 = (x["anc_p"], em.Sw_t, em.Sv_t, em.Minv_t, em.r_t)
     J_t, W_t = contact.build_contact_cache(*k1)
     k3 = (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, x["g_t"],
           x["tau_t"], x["gv_t"], J_t, W_t, em.p_cp_t, x["rh_t"], x["mu_t"],
-          x["e_t"], x["vlim"])
+          x["e_t"], x["vlim"], x["n_t"])
     k3_kw = dict(x["topo"], **x["solver"])
     gv_free = dynamics.dynamics_substep_reference(
         *k3, **dict(k3_kw, contact=False))[0].contiguous()
@@ -304,9 +319,13 @@ def timing(kernel, fn_kernel, fn_plain, work, n, **extra):
 
 
 def check_rollout(name, env, state, obs, ro, steps, seconds, expect_counts,
-                  smi, config="mob_train_cfg", need_resets=True):
+                  smi, config="mob_train_cfg", need_resets=True, got=None,
+                  **extra):
+    """The rollout's outputs, its launch counts (`got`, read here unless
+    given) against `expect_counts`, and its rate; `extra` goes into the
+    phase's line."""
     N = env.num_envs
-    got = counts()
+    got = counts() if got is None else got
     finite = all(bool(torch.isfinite(v).all()) for v in
                  list(obs.values()) + [ro.rewards, ro.actions, ro.values,
                                        ro.log_probs, ro.base_height,
@@ -329,7 +348,7 @@ def check_rollout(name, env, state, obs, ro, steps, seconds, expect_counts,
         kernel_launches=got, expected_launches=expect_counts, finite=finite,
         shapes_ok=shapes_ok, envs_reset=n_resets, envs_reinitialised=reinit,
         mean_base_height=mean_h, mean_reward=float(ro.rewards.mean()),
-        ok=ok)
+        **extra, ok=ok)
     if not ok:
         raise SystemExit(f"{name} phase failed")
     return got
@@ -456,26 +475,148 @@ def runner_phase(env_p):
         raise SystemExit("runner phase failed")
 
 
-def train_script_phase():
-    """The port's train script with --exact, as a user runs it."""
-    d = os.path.join(OUT_DIR, "train_exact")
-    shutil.rmtree(d, ignore_errors=True)
-    cmd = [sys.executable, "-m", "walk_these_ways_tpu_torch.scripts.train",
-           "--num-envs", str(N_ENVS), "--iterations", "2", "--exact",
-           "--log-dir", d]
+def command_phases():
+    """The port's commands as a user runs them, four subprocesses started
+    together: the train script with --exact (2 iterations) and with
+    --terrain rough (1 iteration), `scripts.play` on the policy the runner
+    phase exported and `scripts.test`.  One phase line for each train
+    script and one for the two scripts."""
+    mod = "walk_these_ways_tpu_torch.scripts."
+    train = [sys.executable, "-m", mod + "train", "--num-envs", str(N_ENVS)]
+    logs = {k: os.path.join(OUT_DIR, k) for k in ("exact", "rough")}
+    for d in logs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    pol = os.path.join(OUT_DIR, "runner", "checkpoints", "policy_latest.npz")
+    cmds = dict(
+        exact=train + ["--iterations", "2", "--exact",
+                       "--log-dir", logs["exact"]],
+        rough=train + ["--iterations", "1", "--terrain", "rough",
+                       "--log-dir", logs["rough"]],
+        play=[sys.executable, "-m", mod + "play", "--policy", pol,
+              "--steps", "24"],
+        test=[sys.executable, "-m", mod + "test", "--num-envs", "3",
+              "--steps", "50"])
     t0 = time.time()
-    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                       timeout=600, env=dict(
-                           os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir()))
-    files = [f for f in ("provenance.json", "checkpoints/train_state_last.pkl",
-                         "checkpoints/policy_latest.npz")
-             if os.path.exists(os.path.join(d, f))]
-    ok = p.returncode == 0 and len(files) == 3
-    say(phase="train_script_exact", command=" ".join(cmd[1:]),
-        seconds=time.time() - t0, returncode=p.returncode, artifacts=files,
-        stderr_tail=p.stderr.strip().splitlines()[-3:], ok=ok)
+    env = dict(os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir())
+    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+             for k, c in cmds.items()}
+    res = {}
+    for k, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        res[k] = dict(command=" ".join(cmds[k][1:]),
+                      seconds_to_collected=time.time() - t0,
+                      returncode=p.returncode,
+                      stdout_tail=out.strip().splitlines()[-3:],
+                      stderr_tail=err.strip().splitlines()[-3:])
+    ok_all = True
+    for k in ("exact", "rough"):
+        files = [f for f in ("provenance.json",
+                             "checkpoints/train_state_last.pkl",
+                             "checkpoints/policy_latest.npz")
+                 if os.path.exists(os.path.join(logs[k], f))]
+        ok = res[k]["returncode"] == 0 and len(files) == 3
+        say(phase="train_script_" + k, **res[k], artifacts=files, ok=ok)
+        ok_all = ok_all and ok
+    ok = (res["play"]["returncode"] == 0
+          and any("mean body-frame vx" in ln
+                  for ln in res["play"]["stdout_tail"])
+          and res["test"]["returncode"] == 0
+          and res["test"]["stdout_tail"][-1:] == ["OK"])
+    say(phase="scripts", play=res["play"], test=res["test"], ok=ok)
+    if not (ok and ok_all):
+        raise SystemExit("a command of the port failed")
+
+
+def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
+    """K4b (actuator net), K4b with P control and K3b against their plain
+    versions on rough_train_cfg states: after the reset and after 24 random
+    steps on the default rough route.  Returns the last state and its
+    three kernel calls."""
+    N = env_r.num_envs
+    state, _ = env_r.reset(gen)
+    for st_name in ("after_reset", "24_random_steps_in"):
+        if st_name != "after_reset":
+            for _ in range(24):
+                a = torch.randn((N, 12), generator=gen, device=DEV)
+                state, *_ = env_r.step(state, a)
+        calls = []
+        for key, env_x, names in (
+                ("control_step_normals", env_r, OUT_NAMES),
+                ("control_step_normals_p", env_rp, OUT_NAMES[:10])):
+            args, kw = kernel_call_of(env_x, state)
+            assert args[5] is not None                  # the normals
+            worst[key] = max(worst.get(key, 0.0), compare(
+                key, st_name, names,
+                lambda: megastep.control_step(*args, **kw),
+                lambda: megastep.control_step_reference(*args, **kw), N))
+            calls.append((args, kw))
+        x = substep_inputs(env_rs, state)
+        k3, k3_kw = substep_kernel_calls(x)[2:4]
+        assert k3[16] is not None                       # the normals
+        worst["dynamics_substep_normals"] = max(
+            worst.get("dynamics_substep_normals", 0.0), compare(
+                "dynamics_substep_normals", st_name, ("gv", "pcp", "lam"),
+                lambda: dynamics.dynamics_substep(*k3, **k3_kw),
+                lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
+                N))
+        calls.append((k3, k3_kw))
+    n_t = calls[0][0][5]
+    say(phase="rough_normals", state="24_random_steps_in",
+        normal_z_min=float(n_t[:, 2, :N].min()),
+        padded_lanes_plus_z=bool((n_t[:, 2, N:] == 1).all()))
+    return state, calls
+
+
+def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi,
+                block):
+    """A rollout on rough terrain, with the time of one eager cache build
+    (terrain samples included) at the route's block."""
+    state, obs = env_x.reset(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state, obs, ro = rollout(env_x, policy, steps, gen, state=state, obs=obs)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = counts()
+    cache_ms = time_host(lambda: engine.build_pallas_env_inputs(
+        env_x.model, state.phys, env_x.dynamics_params(state)[1],
+        env_x.terrain, block))
+    return check_rollout(
+        name, env_x, state, obs, ro, steps, seconds, expect_counts, smi,
+        config=config, need_resets=False, got=got,
+        entry_cache_build_ms=cache_ms)
+
+
+def agreement(phase, what, s_a, s_b, n, max_envs_beyond=0, why=None):
+    """PhysicsState of two routes after one control step: the largest
+    difference per leaf and the count of elements and of envs beyond the
+    tolerance, over the envs that no reset touched.  Passes when at most
+    `max_envs_beyond` envs hold an element beyond it (`why` says why a
+    pair is allowed any)."""
+    keep = (s_a.episode_length > 0) & (s_b.episode_length > 0)
+    err, bad = {}, 0
+    env_bad = torch.zeros_like(keep)
+    for leaf in s_a.phys._fields:
+        u, v = getattr(s_a.phys, leaf)[keep], getattr(s_b.phys, leaf)[keep]
+        d = (u - v).abs()
+        err[leaf] = float(d.max())
+        beyond = d > ATOL + RTOL * v.abs()
+        bad += int(beyond.sum())
+        env_bad[keep] |= beyond.reshape(beyond.shape[0], -1).any(dim=1)
+    envs_beyond = int(env_bad.sum())
+    ok = envs_beyond <= max_envs_beyond and int(keep.sum()) > n // 2
+    say(phase=phase, n_envs=n, envs_compared=int(keep.sum()), what=what,
+        atol=ATOL, rtol=RTOL, tolerance=TOLERANCE, max_abs_err=err,
+        beyond_tol=bad, envs_beyond_tol=envs_beyond,
+        max_envs_beyond=max_envs_beyond, allowance=why, ok=ok)
     if not ok:
-        raise SystemExit("train script (--exact) failed")
+        raise SystemExit(f"{phase}: the two routes disagree")
 
 
 def trace_phase(env, gen):
@@ -530,12 +671,26 @@ def main():
     cfg_sub_exact = dataclasses.replace(cfg_exact, sim=dataclasses.replace(
         cfg_exact.sim, megastep=False))
     cfg_p = small_train_cfg(N)
+    cfg_r = rough_train_cfg(N)
+
+    def rough(**sim):
+        return dataclasses.replace(cfg_r, sim=dataclasses.replace(
+            cfg_r.sim, **sim))
+
+    cfg_rp = dataclasses.replace(cfg_r, control=dataclasses.replace(
+        cfg_r.control, control_type="P"))
     env = LeggedRobotEnv(cfg, device=DEV)
     env_sub = LeggedRobotEnv(cfg_sub, device=DEV)
     env_cold = LeggedRobotEnv(cfg_cold, device=DEV)
     env_exact = LeggedRobotEnv(cfg_exact, device=DEV)
     env_sub_exact = LeggedRobotEnv(cfg_sub_exact, device=DEV)
     env_p = LeggedRobotEnv(cfg_p, device=DEV)
+    env_r = LeggedRobotEnv(cfg_r, device=DEV)           # K4b
+    env_rp = LeggedRobotEnv(cfg_rp, device=DEV)         # K4b with P control
+    env_rs = LeggedRobotEnv(rough(megastep=False), device=DEV)   # K1 + K3b
+    env_rx = LeggedRobotEnv(rough(reuse_matrices=False), device=DEV)
+    env_rsx = LeggedRobotEnv(rough(megastep=False, reuse_matrices=False),
+                             device=DEV)
     gen = make_generator(SEED, DEV)
     m = env.model
     nv, P = m.nv, m.cp_body.shape[0]
@@ -553,7 +708,7 @@ def main():
             seconds=b["seconds"], cached=b["cached"], command=b["command"],
             ptxas=[ln.strip() for ln in b["log"].splitlines()
                    if "registers" in ln or "stack frame" in ln
-                   or "Compiling entry" in ln][:16])
+                   or "Compiling entry" in ln][:48])
     say(phase="build_all", sources=4, libraries=4, seconds=time.time() - t0)
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
@@ -612,6 +767,10 @@ def main():
                 lambda: megastep.control_step(*args_x, **kw_x),
                 lambda: megastep.control_step_reference(*args_x, **kw_x), N))
 
+    # ---- K4b (both torque models) and K3b on rough_train_cfg states -------
+    state_r, ((args_b, kw_b), (args_bp, kw_bp), (k3b, k3b_kw)) = \
+        rough_kernel_checks(env_r, env_rp, env_rs, gen, worst)
+
     # ---- kernel timing, bounds, plain versions' times ---------------------
     timed = {}
     t0 = time.time()
@@ -658,6 +817,35 @@ def main():
         megastep.work_per_env(m, D, 0, exact=True, num_iters=iters), N,
         threads_per_block=megastep.KERNEL_THREADS,
         max_abs_err_vs_plain=worst["control_step_exact"])
+    t0 = time.time()
+    engine.build_pallas_env_inputs(env_r.model, state_r.phys,
+                                   env_r.dynamics_params(state_r)[1],
+                                   env_r.terrain, engine.MEGASTEP_BLOCK)
+    torch.cuda.synchronize()
+    rough_cache_ms = (time.time() - t0) * 1e3
+    timed["control_step_normals"] = timing(
+        "control_step_normals",
+        lambda: megastep.control_step(*args_b, **kw_b),
+        lambda: megastep.control_step_reference(*args_b, **kw_b),
+        megastep.work_per_env(m, D, kw_b["warm_iters"], flat=False), N,
+        entry_cache_build_ms=rough_cache_ms,
+        threads_per_block=megastep.KERNEL_THREADS,
+        max_abs_err_vs_plain=worst["control_step_normals"])
+    timed["control_step_normals_p"] = timing(
+        "control_step_normals_p",
+        lambda: megastep.control_step(*args_bp, **kw_bp),
+        lambda: megastep.control_step_reference(*args_bp, **kw_bp),
+        megastep.work_per_env(m, D, kw_bp["warm_iters"], control_type="P",
+                              flat=False), N,
+        threads_per_block=megastep.KERNEL_THREADS,
+        max_abs_err_vs_plain=worst["control_step_normals_p"])
+    timed["dynamics_substep_normals"] = timing(
+        "dynamics_substep_normals",
+        lambda: dynamics.dynamics_substep(*k3b, **k3b_kw),
+        lambda: dynamics.dynamics_substep_reference(*k3b, **k3b_kw),
+        dynamics.work_per_env(m.anc_dof_body, m.cp_body, iters, flat=False),
+        N, threads_per_block=dynamics.KERNEL_THREADS,
+        max_abs_err_vs_plain=worst["dynamics_substep_normals"])
 
     # ---- small-input agreement: CUDA env (kernels) vs CPU env (plain) ----
     # the CPU env runs thousands of tiny ops: one intra-op thread
@@ -737,23 +925,12 @@ def main():
         state._replace(rng=make_generator(SEED + 3, DEV)), a)
     torch.cuda.synchronize()
     # untouched by resets (an env reset in this step draws a fresh state)
-    keep = (s_sub.episode_length > 0) & (s_k4.episode_length > 0)
-    route_err, route_bad = {}, 0
-    for leaf in s_sub.phys._fields:
-        u, v = getattr(s_sub.phys, leaf)[keep], getattr(s_k4.phys, leaf)[keep]
-        d = (u - v).abs()
-        route_err[leaf] = float(d.max())
-        route_bad += int((d > ATOL + RTOL * v.abs()).sum())
-    route_ok = route_bad == 0 and int(keep.sum()) > N // 2
-    say(phase="route_agreement", n_envs=N, envs_compared=int(keep.sum()),
-        what="PhysicsState after one control step from one state and the "
-             "same actions: per-substep route (torque model in PyTorch, K1, "
-             "4 x K3) vs the control-step kernel with contact_warm_start off "
-             "(cold start, 16 sweeps every substep)",
-        atol=ATOL, rtol=RTOL, tolerance=TOLERANCE, max_abs_err=route_err,
-        beyond_tol=route_bad, ok=route_ok)
-    if not route_ok:
-        raise SystemExit("route_agreement: the two routes disagree")
+    agreement(
+        "route_agreement",
+        "PhysicsState after one control step from one state and the same "
+        "actions: per-substep route (torque model in PyTorch, K1, 4 x K3) "
+        "vs the control-step kernel with contact_warm_start off (cold "
+        "start, 16 sweeps every substep)", s_sub, s_k4, N)
 
     # ---- the contact-substep kernel, driven directly ------------------------
     # No env branch launches it alone (as in the JAX package): a control
@@ -815,24 +992,12 @@ def main():
     s_sx, *_ = env_sub_exact.step(
         state._replace(rng=make_generator(SEED + 4, DEV)), a)
     torch.cuda.synchronize()
-    keep = (s_k5.episode_length > 0) & (s_sx.episode_length > 0)
-    ex_err, ex_bad = {}, 0
-    for leaf in s_k5.phys._fields:
-        u, v = getattr(s_k5.phys, leaf)[keep], getattr(s_sx.phys, leaf)[keep]
-        d = (u - v).abs()
-        ex_err[leaf] = float(d.max())
-        ex_bad += int((d > ATOL + RTOL * v.abs()).sum())
-    ex_ok = ex_bad == 0 and int(keep.sum()) > N // 2
-    say(phase="exact_route_agreement", n_envs=N,
-        envs_compared=int(keep.sum()),
-        what="PhysicsState after one control step from one state and the "
-             "same actions, exact mode: the control-step kernel (K5, cache "
-             "rebuilt in-kernel before every substep) vs the per-substep "
-             "route (eager cache + K1 and one K3 per substep)",
-        atol=ATOL, rtol=RTOL, tolerance=TOLERANCE, max_abs_err=ex_err,
-        beyond_tol=ex_bad, ok=ex_ok)
-    if not ex_ok:
-        raise SystemExit("exact_route_agreement: the two routes disagree")
+    agreement(
+        "exact_route_agreement",
+        "PhysicsState after one control step from one state and the same "
+        "actions, exact mode: the control-step kernel (K5, cache rebuilt "
+        "in-kernel before every substep) vs the per-substep route (eager "
+        "cache + K1 and one K3 per substep)", s_k5, s_sx, N)
 
     # ---- P control on the control-step route: K4c ---------------------------
     state_p, obs_p = env_p.reset(gen)
@@ -850,24 +1015,73 @@ def main():
 
     # ---- the training entry point ---------------------------------------
     runner_phase(env_p)
-    train_script_phase()
+    command_phases()
     row = bench.main(num_envs=N, warmup=1, iters=2)
     bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0)
     say(phase="bench", **row, ok=bench_ok)
     if not bench_ok:
         raise SystemExit("bench phase failed")
 
+    # ---- rough terrain: K4b, D x K4b (exact), K1 + 4 x K3b -------------
+    rough_counts = rough_route(
+        "rough_route", "rough_train_cfg", env_r, policy, steps, gen,
+        expect(control_step_normals=steps, eager_cache_builds=steps), smi,
+        engine.MEGASTEP_BLOCK)
+    rough_steps_exact = 4
+    rough_route(
+        "rough_exact_route", "rough_train_cfg, sim.reuse_matrices=False",
+        env_rx, policy, rough_steps_exact, gen,
+        expect(control_step_normals=rough_steps_exact * D,
+               eager_cache_builds=rough_steps_exact * D), smi,
+        engine.MEGASTEP_BLOCK)
+    rough_sub_counts = rough_route(
+        "rough_substep_route", "rough_train_cfg, sim.megastep=False", env_rs,
+        policy, steps, gen,
+        expect(contact_cache=steps, dynamics_substep_normals=steps * D,
+               eager_cache_builds=steps), smi, engine.SUBSTEP_BLOCK)
+    a = torch.randn((N, 12), generator=gen, device=DEV)
+    s_xb, *_ = env_rx.step(
+        state_r._replace(rng=make_generator(SEED + 5, DEV)), a)
+    s_sxb, *_ = env_rsx.step(
+        state_r._replace(rng=make_generator(SEED + 5, DEV)), a)
+    torch.cuda.synchronize()
+    agreement(
+        "rough_exact_route_agreement",
+        "PhysicsState after one control step from one rough_train_cfg state "
+        "and the same actions, exact mode: D control-step launches of one "
+        "substep each (K4b, cold, fresh cache and terrain samples) vs the "
+        "per-substep route (eager cache + K1 and one K3b per substep)",
+        s_xb, s_sxb, N, max_envs_beyond=N // 100,
+        why="the two routes' torque models sum in other orders (1e-6 in a "
+            "torque) and on rough ground a few envs sit where the solve "
+            "amplifies that into 1e-3 in a joint velocity: the plain "
+            "versions of the two routes, on the CPU from a state made the "
+            "same way, differ beyond the tolerance in 8 envs of 3995, and "
+            "in 7 of the same 8 with the entry velocities scaled by 1 + "
+            "1e-7 (PERF.md, section 6); at most 1 % of the envs may")
+    train_phase("rough", env_r, gen, 1,
+                expect(control_step_normals=steps, eager_cache_builds=steps))
+    row = bench.main(num_envs=N, warmup=1, iters=1, terrain="rough")
+    bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0
+                    and row["metric"] == f"train_env_steps_per_s_{N}env_rough")
+    say(phase="bench_rough", **row, ok=bench_ok)
+    if not bench_ok:
+        raise SystemExit("bench (rough) phase failed")
+
     # ---- one PPO iteration under the profiler -----------------------------
     trace_phase(env, gen)
 
     say(phase="total", seconds=time.time() - t_start)
     print(smi, flush=True)
-    launches = dict(control_step=main_counts["control_step"],
-                    contact_cache=sub_counts["contact_cache"],
-                    contact_substep=direct_counts["contact_substep"],
-                    dynamics_substep=sub_counts["dynamics_substep"],
-                    control_step_p=p_counts["control_step_p"],
-                    control_step_exact=exact_counts["control_step_exact"])
+    launches = dict(
+        control_step=main_counts["control_step"],
+        contact_cache=sub_counts["contact_cache"],
+        contact_substep=direct_counts["contact_substep"],
+        dynamics_substep=sub_counts["dynamics_substep"],
+        dynamics_substep_normals=rough_sub_counts["dynamics_substep_normals"],
+        control_step_normals=rough_counts["control_step_normals"],
+        control_step_p=p_counts["control_step_p"],
+        control_step_exact=exact_counts["control_step_exact"])
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel was never launched on its path: {launches}")
     rows = (
@@ -881,8 +1095,15 @@ def main():
          "advance on cached J/W)", "contact_substep.cu",
          "/ops/pallas_contact.py:372"),
         ("dynamics_substep", "dynamics_substep (K3: unconstrained dynamics, "
-         "midpoint rule, then the contact solve)", "dynamics_substep.cu",
-         "/ops/pallas_dynamics.py:139"),
+         "midpoint rule, then the contact solve, flat ground)",
+         "dynamics_substep.cu", "/ops/pallas_dynamics.py:139"),
+        ("dynamics_substep_normals", "dynamics_substep with surface normals "
+         "(K3b: as K3 on a heightfield, general-normal contact rows)",
+         "dynamics_substep.cu", "/ops/pallas_dynamics.py:147"),
+        ("control_step_normals", "control_step with surface normals (K4b: "
+         "whole control step on a heightfield, actuator net, warm start, "
+         "general-normal contact rows)", "megastep.cu",
+         "/ops/pallas_megastep.py:185"),
         ("control_step_p", "control_step, P control (K4c: whole control "
          "step, flat ground, reuse mode, tau = kp (tgt - q) - kd qd)",
          "megastep.cu", "/ops/pallas_megastep.py:154"),

@@ -252,8 +252,11 @@ def test_unported_branches_raise():
         cfg.sim, reuse_matrices=False)), device="cpu")
     with pytest.raises(NotImplementedError):
         t_env.LeggedRobotEnv(cfg, eval_cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_env.LeggedRobotEnv(t_cfg.rough_train_cfg(4), device="cpu")
+    # rough terrain is ported: a heightfield with its corner-packed table
+    rough = t_env.LeggedRobotEnv(t_cfg.rough_train_cfg(4), device="cpu")
+    assert rough.rough and tuple(rough.terrain.height.shape) == (1500, 1500)
+    assert tuple(rough.terrain.corners.shape) == (1499, 1499, 4)
+    assert not t_env.LeggedRobotEnv(cfg, device="cpu").rough
 
 
 def test_rollout_and_reference_api_adapter_on_cpu():

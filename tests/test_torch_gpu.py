@@ -11,7 +11,9 @@ import torch
 import dataclasses
 
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv, make_generator
-from walk_these_ways_tpu_torch.go1_config import mob_train_cfg, small_train_cfg
+from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
+                                                  rough_train_cfg,
+                                                  small_train_cfg)
 from walk_these_ways_tpu_torch.ops import contact, dynamics, megastep
 from walk_these_ways_tpu_torch.physics import engine
 
@@ -64,8 +66,10 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
     state, _ = env.reset(make_generator(0, cuda))
     args, kwargs = _call(env, state)
     normals = torch.zeros((28, 3, args[6].shape[-1]), device=cuda)
-    with pytest.raises(NotImplementedError):
-        megastep.control_step(*args[:5], normals, *args[6:], **kwargs)
+    normals[:, 2] = 1.0
+    with pytest.raises(ValueError):                  # normals of 64 envs
+        megastep.control_step(*args[:5], normals[..., :64], *args[6:],
+                              **kwargs)
     with pytest.raises(ValueError):
         megastep.control_step(*args, **dict(kwargs, control_type="PD"))
     with pytest.raises(ValueError):
@@ -77,6 +81,42 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
     with pytest.raises(ValueError):
         megastep.control_step(None, *args[1:19], args[6][:, :1].new_zeros(
             (28, 3, args[6].shape[-1])), **exact_kw)
+    # exact mode is flat-ground only: normals are refused
+    with pytest.raises(ValueError):
+        megastep.control_step(None, *args[1:5], normals, *args[6:19], None,
+                              **exact_kw)
+
+
+@pytest.mark.parametrize("control_type", ["actuator_net", "P"])
+def test_normals_kernel_matches_plain_version_on_the_card(cuda,
+                                                          control_type):
+    """K4b (either torque model) on rough_train_cfg, 10 random steps in:
+    |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane finite, padded
+    ones included."""
+    n = 250                          # 6 padded lanes
+    cfg = rough_train_cfg(n)
+    cfg = dataclasses.replace(cfg, control=dataclasses.replace(
+        cfg.control, control_type=control_type))
+    env = LeggedRobotEnv(cfg, device=cuda)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    for _ in range(10):
+        state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
+                                                device=cuda))
+    args, kwargs = _call(env, state)
+    assert args[5] is not None
+    before = (megastep.launches, megastep.p_launches,
+              megastep.normal_launches)
+    out_k = megastep.control_step(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert (megastep.launches, megastep.p_launches,
+            megastep.normal_launches) == before[:2] + (before[2] + 1,)
+    out_r = megastep.control_step_reference(*args, **kwargs)
+    for a, b in zip(out_k, out_r):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a[..., :n].cpu().numpy(),
+                                   b[..., :n].cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("variant", ["P", "exact", "P_exact"])
@@ -111,16 +151,18 @@ def test_p_and_exact_kernels_match_plain_versions_on_the_card(cuda,
                                    rtol=2e-4, atol=2e-4)
 
 
-def _substep_inputs(cuda, n=256):
-    """Inputs of the three per-substep kernels 10 random steps in."""
-    env = LeggedRobotEnv(mob_train_cfg(n), device=cuda)
+def _substep_inputs(cuda, n=256, rough=False):
+    """Inputs of the three per-substep kernels 10 random steps in (on
+    rough_train_cfg's heightfield with `rough`; the normals come last)."""
+    env = LeggedRobotEnv((rough_train_cfg if rough else mob_train_cfg)(n),
+                         device=cuda)
     gen = make_generator(0, cuda)
     state, _ = env.reset(gen)
     for _ in range(10):
         state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
                                                 device=cuda))
     m = env.model
-    em, rh_t, mu_t, e_t, g_t, _ = engine.build_pallas_env_inputs(
+    em, rh_t, mu_t, e_t, g_t, n_t = engine.build_pallas_env_inputs(
         m, state.phys, env.dynamics_params(state)[1], env.terrain,
         engine.SUBSTEP_BLOCK)
     anc_p = torch.tensor(
@@ -138,7 +180,7 @@ def _substep_inputs(cuda, n=256):
         dim=-1), engine.SUBSTEP_BLOCK)
     tau = torch.zeros_like(gv)
     tau[6:, :n] = state.torques.T
-    return m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau
+    return m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau, n_t
 
 
 def _close(outs_k, outs_r):
@@ -162,7 +204,7 @@ def test_contact_cache_kernel_matches_plain_version_on_the_card(cuda):
 
 
 def test_contact_substep_kernel_matches_plain_version_on_the_card(cuda):
-    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau = \
+    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau, _ = \
         _substep_inputs(cuda)
     J_t, W_t = contact.build_contact_cache(anc_p, em.Sw_t, em.Sv_t,
                                            em.Minv_t, em.r_t)
@@ -175,22 +217,26 @@ def test_contact_substep_kernel_matches_plain_version_on_the_card(cuda):
     _close(out_k, out_r)
 
 
-@pytest.mark.parametrize("with_contact", [True, False])
+@pytest.mark.parametrize("with_contact,rough", [(True, False), (False, False),
+                                               (True, True)])
 def test_dynamics_substep_kernel_matches_plain_version_on_the_card(
-        cuda, with_contact):
-    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau = \
-        _substep_inputs(cuda)
+        cuda, with_contact, rough):
+    """K3 and, on rough_train_cfg's heightfield, K3b."""
+    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau, n_t = \
+        _substep_inputs(cuda, rough=rough)
     J_t, W_t = contact.build_contact_cache(anc_p, em.Sw_t, em.Sv_t,
                                            em.Minv_t, em.r_t)
     args = (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, g_t, tau,
-            gv, J_t, W_t, em.p_cp_t, rh_t, mu_t, e_t, vlim)
+            gv, J_t, W_t, em.p_cp_t, rh_t, mu_t, e_t, vlim, n_t)
+    assert (n_t is not None) == rough
     kw = dict(anc=m.anc_dof_body, joint_body=m.joint_body, cp_body=m.cp_body,
               contact=with_contact, **statics)
-    before = dynamics.launches
+    before = (dynamics.launches, dynamics.normal_launches)
     out_k = dynamics.dynamics_substep(*args, **kw)
-    assert dynamics.launches == before + 1
+    assert (dynamics.launches, dynamics.normal_launches) == (
+        before[0] + (not rough), before[1] + rough)
     _close(out_k, dynamics.dynamics_substep_reference(*args, **kw))
-    with pytest.raises(NotImplementedError):
-        dynamics.dynamics_substep(*args, torch.zeros_like(em.p_cp_t), **kw)
     with pytest.raises(ValueError):
         dynamics.dynamics_substep(*args[:8], gv[:, :128], *args[9:], **kw)
+    with pytest.raises(ValueError):                  # normals of 128 envs
+        dynamics.dynamics_substep(*args[:16], em.p_cp_t[..., :128], **kw)

@@ -1,13 +1,18 @@
-"""The control-step kernel's source, built for the host CPU, against its plain
-version.
+"""The control-step and dynamics-substep kernels' sources, built for the host
+CPU, against their plain versions.
 
-`csrc/megastep.cu` is compiled with g++ against a stand-in for
-`cuda_runtime.h` (`__device__` and `__global__` empty, `__ldg(p)` = `*p`,
-each `<<<blocks, threads>>>` launch a loop over the grid), loaded with ctypes and called through the port's own operand
-packing (`ops/megastep.kernel_operands`) on CPU tensors.  K4, K4c and K5 with
-either torque model are held against `control_step_reference` after a reset
-and after some random control steps, with the tolerance `chip_smoke.py`
-holds the card to: |kernel - plain| <= 2e-4 + 2e-4 |plain|.
+`csrc/megastep.cu` and `csrc/dynamics_substep.cu` are compiled with g++
+against a stand-in for `cuda_runtime.h` (`__device__` and `__global__`
+empty, `__ldg(p)` = `*p`, each `<<<blocks, threads>>>` launch a loop over the
+grid), loaded with ctypes and called through the port's own operand packing
+(`ops/megastep.kernel_operands`, `ops/dynamics.kernel_operands`) on CPU
+tensors.  K4, K4c, K4b (rough terrain: surface normals) and K5, each with
+either torque model where it has two, are held against
+`control_step_reference`, and K3 and K3b against
+`dynamics_substep_reference`, after a reset and after some random control
+steps, with the tolerance `chip_smoke.py` holds the card to:
+|kernel - plain| <= 2e-4 + 2e-4 |plain|.  The rough cases stand on the 2 x 2
+rough-slope tiles of tests/test_torch_terrain.py.
 
 This checks the arithmetic of a kernel edit without a GPU.  It does not see
 what only the card does: the read-only data path, local memory, the launch
@@ -37,6 +42,8 @@ import torch
 from walk_these_ways_tpu_torch import go1_config as t_cfg
 from walk_these_ways_tpu_torch.envs import go1_env as t_env
 from walk_these_ways_tpu_torch.ops import _build
+from walk_these_ways_tpu_torch.ops import contact as t_pc
+from walk_these_ways_tpu_torch.ops import dynamics as t_pd
 from walk_these_ways_tpu_torch.ops import megastep as t_pm
 from walk_these_ways_tpu_torch.physics import engine
 
@@ -79,39 +86,63 @@ template <class F> void wtw_host_launch(int blocks, int threads, F kernel) {
 """
 
 
-def build_host_library(model, out_dir):
-    """csrc/megastep.cu for the host, with the header the card's build gets;
-    returns the bound ctypes library."""
+def build_host_library(model, out_dir, name="megastep"):
+    """csrc/<name>.cu (megastep or dynamics_substep) for the host, with the
+    header the card's build gets; returns the bound ctypes library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
-    with open(os.path.join(_build.CSRC_DIR, "megastep.cu")) as fh:
+    with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as fh:
         src = fh.read()
-    src, n = re.subn(r"(megastep_kernel<\w+, \w+>)<<<(\w+), (\w+), 0, \w+>>>"
+    src, n = re.subn(rf"({name}_kernel<[\w, ]+>)<<<(\w+), (\w+), 0, \w+>>>"
                      r"\((\w+)\);",
                      r"wtw_host_launch(\2, \3, [&] { \1(\4); });", src)
-    assert n == 4, "expected the four launches of the kernel's variants"
-    for name, text in (("cuda_runtime.h", CUDA_RUNTIME_STAND_IN),
-                       (_build.HEADER_NAME,
-                        t_pm.topology_header(model, 32, 6)),
-                       ("megastep_host.cpp", src)):
-        with open(os.path.join(out_dir, name), "w") as fh:
+    if name == "megastep":
+        assert n == 6, "expected the six launches of the kernel's variants"
+        header = t_pm.topology_header(model, 32, 6)
+        counts = (39, 14, 12)
+    else:
+        assert n == 2, "expected the launches of K3 and K3b"
+        header = t_pd.library_spec(model.anc_dof_body, model.joint_body,
+                                   model.cp_body)[1]
+        counts = (17, 3, 7)
+    for fname, text in (("cuda_runtime.h", CUDA_RUNTIME_STAND_IN),
+                        (_build.HEADER_NAME, header),
+                        (name + "_host.cpp", src)):
+        with open(os.path.join(out_dir, fname), "w") as fh:
             fh.write(text)
-    lib_path = os.path.join(out_dir, "libmegastep_host.so")
+    lib_path = os.path.join(out_dir, f"lib{name}_host.so")
     cmd = [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-ffp-contract=off",
            "-Wno-unknown-pragmas", "-I", out_dir, "-I", _build.CSRC_DIR,
-           "-o", lib_path, os.path.join(out_dir, "megastep_host.cpp")]
+           "-o", lib_path, os.path.join(out_dir, name + "_host.cpp")]
     p = subprocess.run(cmd, capture_output=True, text=True)
     assert p.returncode == 0, p.stderr[-3000:]
-    return _build.bind(ctypes.CDLL(lib_path), "megastep", 38, 14, 12)
+    return _build.bind(ctypes.CDLL(lib_path), name, *counts)
 
 
 def host_control_step(lib, args, kwargs):
     """The kernel's outputs for one `control_step` call on CPU tensors."""
-    ptrs, outs, floats, ints, _ = t_pm.kernel_operands(
-        *args[:5], *args[6:], **kwargs)
+    ptrs, outs, floats, ints, _ = t_pm.kernel_operands(*args, **kwargs)
     _build.launch(lib, "megastep", ptrs, outs, floats, ints, 0)
     return tuple(o for o in outs if o is not None)
+
+
+def host_dynamics_substep(lib, args, kwargs):
+    """The kernel's outputs for one `dynamics_substep` call on CPU
+    tensors."""
+    kw = {k: v for k, v in kwargs.items() if k != "joint_body"}
+    ptrs, outs, floats, ints = t_pd.kernel_operands(*args, **kw)
+    _build.launch(lib, "dynamics_substep", ptrs, outs, floats, ints, 0)
+    return outs
+
+
+def rough(cfg):
+    """The 2 x 2 rough-slope tiles (tests/test_torch_terrain.py)."""
+    return dataclasses.replace(cfg, terrain=dataclasses.replace(
+        cfg.terrain, mesh_type="heightfield", num_rows=2, num_cols=2,
+        terrain_length=4.0, terrain_width=4.0,
+        terrain_proportions=(0.0, 1.0, 0.0, 0.0, 0.0),
+        teleport_robots=False, curriculum=False, center_robots=False))
 
 
 def configs(n):
@@ -124,7 +155,8 @@ def configs(n):
     small = t_cfg.small_train_cfg(n)
     return {"K4": quiet(mob), "K4c": quiet(small),
             "K5": quiet(mob, reuse_matrices=False),
-            "K5_P": quiet(small, reuse_matrices=False)}
+            "K5_P": quiet(small, reuse_matrices=False),
+            "K4b": quiet(rough(mob)), "K4b_P": quiet(rough(small))}
 
 
 def kernel_call(env, state):
@@ -135,11 +167,42 @@ def kernel_call(env, state):
         env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices)
 
 
-def errors(out_k, out_r, n):
+def substep_call(env, state):
+    """(args, kwargs) of the dynamics-substep call that the per-substep
+    route makes at the first substep of a control step from `state`: the
+    cache of the state (with the surface normals on a heightfield), its
+    anchor-point velocity and the torque model's torques."""
+    m, p = env.model, env.sim_params
+    block = engine.SUBSTEP_BLOCK
+    dyn = env.dynamics_params(state)[1]
+    em, rh_t, mu_t, e_t, g_t, n_t = engine.build_pallas_env_inputs(
+        m, state.phys, dyn, env.terrain, block)
+    anc_p = torch.tensor(m.anc_dof_body[:, m.cp_body].T, dtype=torch.float32)
+    J_t, W_t = t_pc.build_contact_cache(anc_p, em.Sw_t, em.Sv_t, em.Minv_t,
+                                        em.r_t)
+    tau = env._compute_torques(state)[0]
+    zeros = torch.zeros((env.num_envs, 6))
+    tau_t = t_pc.to_env_minor(torch.cat([zeros, tau], dim=-1), block)
+    ph = state.phys
+    gv_t = t_pc.to_env_minor(
+        torch.cat([ph.base_ang_vel, ph.base_lin_vel, ph.qd], dim=-1), block)
+    vlim = engine._velocity_bounds(m, p, torch.float32, "cpu")
+    args = (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, g_t, tau_t,
+            gv_t, J_t, W_t, em.p_cp_t, rh_t, mu_t, e_t, vlim, n_t)
+    kwargs = dict(anc=m.anc_dof_body, joint_body=m.joint_body,
+                  cp_body=m.cp_body, dt=p.dt, num_iters=p.num_contact_iters,
+                  relaxation=p.relaxation, baumgarte=p.contact_baumgarte,
+                  slop=p.contact_slop,
+                  max_depen=p.max_depenetration_velocity,
+                  bounce_thresh=p.bounce_threshold_velocity)
+    return args, kwargs
+
+
+def errors(out_k, out_r, n, names=OUT_NAMES):
     """Per output: largest |kernel - plain| over the valid envs, and the
     count of elements beyond the tolerance."""
     res = {}
-    for nm, a, b in zip(OUT_NAMES, out_k, out_r):
+    for nm, a, b in zip(names, out_k, out_r):
         a, b = a[..., :n], b[..., :n]
         d = (a - b).abs()
         res[nm] = (float(d.max()), int((d > ATOL + RTOL * b.abs()).sum()))
@@ -148,41 +211,71 @@ def errors(out_k, out_r, n):
 
 def cases(n, steps, seed=0):
     """(variant, state name, args, kwargs) for each variant in two states:
-    after a reset, and after `steps` random control steps (feet loaded)."""
+    after a reset, and after `steps` random control steps (feet loaded).
+    The states of K4 and K4b also give the dynamics-substep kernel's cases,
+    K3 (flat) and K3b (rough)."""
     out = []
     for variant, cfg in configs(n).items():
         env = t_env.LeggedRobotEnv(cfg, device="cpu")
         gen = t_env.make_generator(seed, "cpu")
         state, _ = env.reset(gen)
-        out.append((variant, "after_reset", *kernel_call(env, state)))
-        for _ in range(steps):
-            state, *_ = env.step(state, torch.randn((n, 12), generator=gen))
-        out.append((variant, f"{steps}_random_steps_in",
-                    *kernel_call(env, state)))
+        for st_name in ("after_reset", f"{steps}_random_steps_in"):
+            if st_name != "after_reset":
+                for _ in range(steps):
+                    state, *_ = env.step(state, torch.randn(
+                        (n, 12), generator=gen))
+            out.append((variant, st_name, *kernel_call(env, state)))
+            if variant in ("K4", "K4b"):
+                out.append(({"K4": "K3", "K4b": "K3b"}[variant], st_name,
+                            *substep_call(env, state)))
     return out
 
 
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu").model
-    lib = build_host_library(model, str(tmp_path_factory.mktemp("host")))
-    return lib, cases(N, STEPS)
+    d = str(tmp_path_factory.mktemp("host"))
+    libs = {name: build_host_library(model, d, name)
+            for name in ("megastep", "dynamics_substep")}
+    return libs, cases(N, STEPS)
 
 
-@pytest.mark.parametrize("variant", ["K4", "K4c", "K5", "K5_P"])
+@pytest.mark.parametrize("variant", ["K4", "K4c", "K5", "K5_P", "K4b",
+                                     "K4b_P"])
 def test_host_build_of_the_kernel_matches_its_plain_version(host, variant):
-    lib, all_cases = host
+    libs, all_cases = host
     for v, state_name, args, kwargs in all_cases:
         if v != variant:
             continue
-        out_k = host_control_step(lib, args, kwargs)
+        assert (args[5] is not None) == variant.startswith("K4b")   # n_t
+        out_k = host_control_step(libs["megastep"], args, kwargs)
         out_r = t_pm.control_step_reference(*args, **kwargs)
-        assert len(out_k) == len(out_r) == (10 if variant in ("K4c", "K5_P")
-                                            else 14)
+        assert len(out_k) == len(out_r) == (10 if variant.endswith("P")
+                                            or variant == "K4c" else 14)
         for nm, (max_abs, beyond) in errors(out_k, out_r, N).items():
             assert beyond == 0, (state_name, nm, max_abs)
+        # every lane finite, the padded ones included
+        assert all(bool(torch.isfinite(o).all()) for o in out_k)
         if state_name != "after_reset":
             assert float(out_r[8][..., :N].abs().max()) > 0  # contacts
+
+
+@pytest.mark.parametrize("variant", ["K3", "K3b"])
+def test_host_build_of_the_dynamics_substep_kernel_matches_its_plain_version(
+        host, variant):
+    libs, all_cases = host
+    for v, state_name, args, kwargs in all_cases:
+        if v != variant:
+            continue
+        assert (args[16] is not None) == (variant == "K3b")      # n_t
+        out_k = host_dynamics_substep(libs["dynamics_substep"], args, kwargs)
+        out_r = t_pd.dynamics_substep_reference(*args, **kwargs)
+        for nm, (max_abs, beyond) in errors(out_k, out_r, N,
+                                            ("gv", "pcp", "lam")).items():
+            assert beyond == 0, (state_name, nm, max_abs)
+        assert all(bool(torch.isfinite(o).all()) for o in out_k)
+        if state_name != "after_reset":
+            assert float(out_r[2][..., :N].abs().max()) > 0  # contacts
 
 
 def envs_beyond(out_k, out_r, n):
@@ -198,7 +291,8 @@ def envs_beyond(out_k, out_r, n):
 def main(argv):
     """One JSON line per variant and state.  Where envs lie beyond the
     tolerance, the kernel and the plain version are run once more with the
-    entry joint velocities scaled by 1 + 1e-7, and the line gives those
+    entry joint velocities (K3, K3b: all entry velocities) scaled by
+    1 + 1e-7, and the line gives those
     envs' largest error then: a fault stays, while a rounding-level choice
     at one of the solver's branches (a contact point's gap crossing zero,
     a friction cone's edge) comes out the same in both."""
@@ -207,11 +301,22 @@ def main(argv):
     with tempfile.TemporaryDirectory() as d:
         model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4),
                                      device="cpu").model
-        lib = build_host_library(model, d)
+        libs = {name: build_host_library(model, d, name)
+                for name in ("megastep", "dynamics_substep")}
         for variant, state_name, args, kwargs in cases(n, 24):
-            out_k = host_control_step(lib, args, kwargs)
-            out_r = t_pm.control_step_reference(*args, **kwargs)
-            errs = errors(out_k, out_r, n)
+            if variant.startswith("K3"):
+                def run(a):
+                    return (host_dynamics_substep(
+                        libs["dynamics_substep"], a, kwargs),
+                        t_pd.dynamics_substep_reference(*a, **kwargs))
+                names, qd_index = ("gv", "pcp", "lam"), 8       # gv_t
+            else:
+                def run(a):
+                    return (host_control_step(libs["megastep"], a, kwargs),
+                            t_pm.control_step_reference(*a, **kwargs))
+                names, qd_index = OUT_NAMES, 7                  # qd_t
+            out_k, out_r = run(args)
+            errs = errors(out_k, out_r, n, names)
             bad = envs_beyond(out_k, out_r, n)
             row = dict(
                 variant=variant, state=state_name, n_envs=n,
@@ -221,9 +326,8 @@ def main(argv):
                          for k, e in errs.items()})
             if bad:
                 moved = list(args)
-                moved[7] = args[7] * (1 + 1e-7)        # qd_t
-                out_k2 = host_control_step(lib, moved, kwargs)
-                out_r2 = t_pm.control_step_reference(*moved, **kwargs)
+                moved[qd_index] = args[qd_index] * (1 + 1e-7)
+                out_k2, out_r2 = run(moved)
                 row["those_envs_max_abs_err_with_qd_scaled_by_1_plus_1e-7"] \
                     = max(float((a[..., bad] - b[..., bad]).abs().max())
                           for a, b in zip(out_k2, out_r2))

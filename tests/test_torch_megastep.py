@@ -9,6 +9,10 @@ output ref — no `pallas_call`, no interpret mode.
 Tolerance: rtol 1e-5 / atol 1e-6 for one call — both sides are float32 and do
 the same operations in the same order; only the order inside sums and matrix
 products differs.
+
+Heightfield cases (surface normals: the general-normal rows of
+`contact_core`, K4b's arithmetic) put the same seeded states on an inclined,
+bumpy field (`_rough_inputs`), so that the normals are far from +z.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -47,20 +51,39 @@ class _Box:
         self.value = value
 
 
-def _jax_inputs(*seeds_heights):
+def _jax_inputs(*seeds_heights, terrain=None):
     """Env-minor kernel inputs from the JAX package (block = the batch: no
-    padding) for N envs per (seed, height), the groups side by side."""
+    padding) for N envs per (seed, height), the groups side by side; on a
+    JAX `terrain`, each base stands `height` above the ground under it, and
+    the inputs end with the surface normals n_t."""
     model = j_go1()
     ph = [random_phys_np(N, sd, h) for sd, h in seeds_heights]
     dy = [random_dyn_np(N, sd) for sd, _ in seeds_heights]
     ph, dy = ({k: np.concatenate([d[k] for d in ds]) for k in ds[0]}
               for ds in (ph, dy))
+    if terrain is not None:
+        ground, _ = terrain.lookup(jnp.asarray(ph["base_pos"][:, 0]),
+                                   jnp.asarray(ph["base_pos"][:, 1]))
+        ph["base_pos"][:, 2] += np.asarray(ground)
     state = j_engine.PhysicsState(**{k: jnp.asarray(v) for k, v in ph.items()})
     dyn = j_engine.DynamicsParams(**{k: jnp.asarray(v) for k, v in dy.items()})
     em, rh_t, mu_t, e_t, g_t, n_t = j_engine.build_pallas_env_inputs(
-        model, state, dyn, None, block=N * len(seeds_heights))
-    assert n_t is None
-    return model, ph, em, rh_t, mu_t, e_t, g_t, dy
+        model, state, dyn, terrain, block=N * len(seeds_heights))
+    assert (n_t is None) == (terrain is None)
+    out = (model, ph, em, rh_t, mu_t, e_t, g_t, dy)
+    return out if terrain is None else out + (n_t,)
+
+
+def _rough_inputs():
+    """Both states of STATES side by side on an inclined (about 14 deg),
+    bumpy heightfield that covers every contact point."""
+    rs = np.random.RandomState(3)
+    gx, gy = np.meshgrid(np.arange(41) * 0.1 - 2.0, np.arange(41) * 0.1 - 2.0,
+                         indexing="ij")
+    h = (0.25 * gx - 0.1 * gy + 0.02 * rs.randn(41, 41)).astype(np.float32)
+    terrain = j_engine.make_heightfield_terrain(h, 0.1, (-2.0, -2.0))
+    return _jax_inputs(*[(seed, hh) for _, seed, hh in STATES],
+                       terrain=terrain)
 
 
 STATES = (("reset", 0, 0.34), ("stance", 1, 0.27))
@@ -141,6 +164,50 @@ def test_contact_core_matches_jax(world, which, warm):
     assert_close(lt, lj, 1e-4, 1e-5)
 
 
+@pytest.fixture(scope="module")
+def rough():
+    return _rough_inputs()
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_contact_core_with_normals_matches_jax(rough, warm):
+    """The general-normal rows (K4b's and K3b's arithmetic), cold with 16
+    sweeps and warm-started with 3 from a seed that is not along +z."""
+    model, ph, em, rh_t, mu_t, e_t, g_t, dy, n_t = rough
+    n = ph["q"].shape[0]
+    _, anc_p = _anc(model)
+    groups = tuple(j_pc.point_dof_groups(anc_p))
+    r = em.p_cp_t - jnp.asarray(ph["base_pos"]).T[None]
+    Jj, Wj = j_pc.cache_core(jnp.asarray(anc_p, jnp.float32), em.Sw_t,
+                             em.Sv_t, em.Minv_t, r, eps=1e-6)
+    rs = np.random.RandomState(12)
+    gv = rs.uniform(-1, 1, (18, n)).astype(np.float32)
+    gv[5] -= 1.0      # falling: contacts engage
+    lam0 = rs.uniform(-0.02, 0.02, (28, 3, n)).astype(np.float32)
+    lam0[:, 2] += 0.04
+    vlim = np.concatenate([np.full(3, 25.0), np.full(3, 15.0),
+                           np.asarray(model.dof_vel_limit)]
+                          ).astype(np.float32)[:, None]
+    kw = dict(num_iters=3 if warm else 16, groups=groups, **STATICS)
+    gj, pj, lj = j_pc.contact_core(
+        Jj, Wj, em.Minv_t, em.p_cp_t, jnp.asarray(gv), rh_t, mu_t, e_t,
+        jnp.asarray(vlim), n=n_t, lam0=jnp.asarray(lam0) if warm else None,
+        **kw)
+    gt, pt, lt = t_pc.contact_core(
+        t(Jj), t(Wj), t(em.Minv_t), t(em.p_cp_t), t(gv), t(rh_t), t(mu_t),
+        t(e_t), t(vlim), n=t(n_t), lam0=t(lam0) if warm else None, **kw)
+    assert float(np.asarray(n_t)[:, 2].min()) < 0.95     # normals lean
+    lj = np.asarray(lj)
+    assert float(np.abs(lj).max()) > 1e-3                # contacts active
+    # impulses off the vertical: the tangential rows are exercised
+    assert float(np.abs(lj[:, :2]).max()) > 1e-3
+    # 16 chained sweeps amplify rounding: one decade above the single-call
+    # tolerance, as on flat ground
+    assert_close(gt, gj, 1e-4, 1e-5)
+    assert_close(pt, pj, 1e-4, 1e-5)
+    assert_close(lt, lj, 1e-4, 1e-5)
+
+
 def _eager_fori_loop(lower, upper, body, carry):
     for i in range(lower, upper):
         carry = body(jnp.int32(i), carry)
@@ -151,12 +218,13 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
                        seeded=()):
     """One control step of the JAX kernel body (eagerly) and of the port's
     wrapper on CPU tensors (= the plain version), on the same inputs
-    (`_jax_inputs`); reuse mode seeds the impulses of the envs in `seeded`
-    from a previous step.  Exact mode shapes the JAX inputs as
-    engine.control_step_megakernel does: the batch split (8, n / 8), the
-    mask (P, nv, 1, 1), bound columns (rows, 1, 1), no cross-step seed, no
-    warm start."""
-    model, ph, em, rh_t, mu_t, e_t, g_t, dy = inputs
+    (`_jax_inputs`; with surface normals where they end in n_t); reuse
+    mode seeds the impulses of the envs in `seeded` from a previous step.
+    Exact mode shapes the JAX inputs as engine.control_step_megakernel
+    does: the batch split (8, n / 8), the mask (P, nv, 1, 1), bound columns
+    (rows, 1, 1), no cross-step seed, no warm start."""
+    model, ph, em, rh_t, mu_t, e_t, g_t, dy = inputs[:8]
+    n_t = inputs[8] if len(inputs) > 8 else None
     n = ph["q"].shape[0]
     tmodel = t_go1()
     anc, anc_p = _anc(model)
@@ -190,7 +258,8 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
         return x.reshape(x.shape[:-1] + (8, x.shape[-1] // 8)) if exact else x
 
     wj = j_pm.blockdiag_actuator_weights(j_act.load())
-    batch = ([rh_t, mu_t, e_t, g_t] + ([] if exact else [lam_in])
+    batch = ([rh_t, mu_t, e_t, g_t] + ([] if n_t is None else [n_t])
+             + ([] if exact else [lam_in])
              + state_t + [tgt, strengths]
              + ([kp, kd] if pctrl else []))
     bounds = [jnp.asarray(x)[..., None] if exact else jnp.asarray(x)
@@ -220,7 +289,8 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
             *j_inputs, *boxes, anc=anc,
             joint_body=np.asarray(model.joint_body), groups=groups,
             nb=model.nb, nj=model.nj, nv=model.nv, P=28, D=D,
-            warm0=not exact, flat=True, control_type=control_type, eps=1e-6,
+            warm0=not exact, flat=n_t is None, control_type=control_type,
+            eps=1e-6,
             exact=exact, model=model if exact else None, **common)
     j_out = [np.asarray(b.value) for b in boxes]
     if exact:
@@ -237,16 +307,19 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     ctrl = ((t(kp), t(kd)) if pctrl
             else tuple(wt) + tuple(t(h) for h in hist))
-    before = (t_pm.launches, t_pm.p_launches, t_pm.exact_launches)
+    counters = ("launches", "p_launches", "normal_launches",
+                "exact_launches")
+    before = [getattr(t_pm, c) for c in counters]
     t_out = t_pm.control_step(
-        t_em, t(rh_t), t(mu_t), t(e_t), t(g_t), None,
+        t_em, t(rh_t), t(mu_t), t(e_t), t(g_t),
+        None if n_t is None else t(n_t),
         *[t(x) for x in state_t], t(tgt), t(strengths), ctrl,
         t(vlim), t(tlim), t(qlo), t(qhi), None if exact else t(lam_in),
         model=tmodel, control_type=control_type, decimation=D,
         exact_inputs=tuple(t(x) for x in exact_in) if exact else None,
         **common)
     # CPU tensors launch no kernel
-    assert (t_pm.launches, t_pm.p_launches, t_pm.exact_launches) == before
+    assert [getattr(t_pm, c) for c in counters] == before
     return j_out, t_out
 
 
@@ -306,13 +379,53 @@ def test_control_step_variants_match_jax_kernel_body(variants, which,
         assert_close(a[..., envs], b[..., envs], RTOL, atol, err_msg=name)
 
 
+# On the slope the impulses reach 0.49 (0.32 tangential) and the general-
+# normal rows renormalise a 3-D slip in each of 3 sweeps per substep; the
+# summation-order rounding that reaches the joint velocities goes through
+# the actuator network into the torques and is carried by the velocity
+# histories.  Measured beyond rtol 1e-5 with the actuator network (x86-64,
+# one thread): tau 5.1e-6, vl 1.4e-6, vll 9.0e-7, qd 8.4e-7; every other
+# output, and every output with P control, within the flat-ground atol.
+ATOL_NORMALS_NET = 1e-5
+
+
+@pytest.fixture(scope="module")
+def normal_variants(rough):
+    """K4b's plain version with either torque model against the JAX kernel
+    body with flat=False, both states side by side (the stance group
+    seeded from a previous step)."""
+    return {ct: _control_step_both(rough, ct, seeded=range(N, 2 * N))
+            for ct in ("actuator_net", "P")}
+
+
+@pytest.mark.parametrize("which", ["reset", "stance"])
+@pytest.mark.parametrize("control_type", ["actuator_net", "P"])
+def test_control_step_with_normals_matches_jax_kernel_body(
+        normal_variants, control_type, which):
+    j_out, t_out = normal_variants[control_type]
+    envs = slice(0, N) if which == "reset" else slice(N, 2 * N)
+    assert len(t_out) == (10 if control_type == "P" else 14)
+    if which == "stance":
+        # feet load the slope
+        assert float(np.abs(j_out[8][..., envs]).max()) > 1e-3
+    for name, a, b in zip(OUT_NAMES, t_out, j_out):
+        assert tuple(a.shape) == b.shape, name
+        if control_type == "P":
+            atol = ATOL_TAU_P if name == "tau" else ATOL
+        else:
+            atol = (ATOL_NORMALS_NET if name in ("qd", "tau", "vl", "vll")
+                    else ATOL)
+        assert_close(a[..., envs], b[..., envs], RTOL, atol, err_msg=name)
+
+
 def test_control_step_on_cuda_has_no_plain_path():
     """The wrapper's CUDA branch never reaches the plain version, for any
-    variant (K4, K4c P control, K5 exact mode): it launches the kernel or
-    raises for what the kernel does not cover; its source does not name
-    control_step_reference, the exact-mode cache rebuild or a library
-    product after the CPU return, and a tensor on neither the CPU nor a
-    CUDA device raises."""
+    variant (K4, K4c P control, K4b surface normals, K5 exact mode): it
+    launches the kernel or raises for what the kernel does not cover; its
+    source does not name control_step_reference, the exact-mode cache
+    rebuild or a library product after the CPU return, and a tensor on
+    neither the CPU nor a CUDA device raises.  Exact mode with normals
+    raises on every device."""
     import inspect
     src = inspect.getsource(t_pm.control_step)
     head, tail = src.split('if dev.type != "cuda"', 1)
@@ -321,17 +434,19 @@ def test_control_step_on_cuda_has_no_plain_path():
                    "cache_columns", "torch.matmul", "F.linear",
                    "torch.compile", " @ "):
         assert banned not in tail, banned
-    # the three variants each pass their own flags to the one launch, packed
-    # by kernel_operands, which names no plain path either
+    # the variants each pass their own flags to the one launch, packed by
+    # kernel_operands, which names no plain path either
     assert "kernel_operands(" in tail
+    assert "exact_inputs is not None and n_t is not None" in tail
     packing = inspect.getsource(t_pm.kernel_operands)
-    assert "pctrl, exact)" in packing
+    assert "pctrl, exact, n_t is None)" in packing
+    assert 'given["n_t"] = (n_t, (P, 3, Npad))' in packing
     for banned in ("control_step_reference", "_cache_arrays", "envminor",
                    "cache_columns", "torch.matmul", "F.linear",
                    "torch.compile", " @ "):
         assert banned not in packing, banned
     for counter in ("exact_launches += 1", "p_launches += 1",
-                    "launches += 1"):
+                    "normal_launches += 1", "launches += 1"):
         assert counter in tail
     m = t_go1()
     meta = torch.zeros(12, 8, device="meta")
@@ -339,10 +454,19 @@ def test_control_step_on_cuda_has_no_plain_path():
               baumgarte=0.2, slop=0.002, max_depen=1.0, bounce_thresh=0.5,
               contact=True, limit_stiffness=60.0, limit_damping=2.0,
               max_base_ang_vel=25.0, max_base_lin_vel=15.0, decimation=4)
-    for ctrl, exact in (("P", False), ("P", True), ("actuator_net", True)):
+    for ctrl, exact, n_t in (("P", False, None), ("P", True, None),
+                             ("actuator_net", True, None),
+                             ("actuator_net", False, meta),
+                             ("P", False, meta)):
         with pytest.raises(ValueError, match="unsupported device"):
             t_pm.control_step(
-                None, *[None] * 5, meta, meta, meta, meta, meta, meta, meta,
-                meta, (meta, meta), None, None, None, None,
+                None, *[None] * 4, n_t, meta, meta, meta, meta, meta, meta,
+                meta, meta, (meta, meta), None, None, None, None,
                 control_type=ctrl,
                 exact_inputs=(meta, meta) if exact else None, **kw)
+    cpu = torch.zeros(12, 8)
+    with pytest.raises(ValueError, match="flat-ground only"):
+        t_pm.control_step(
+            None, *[None] * 4, cpu, cpu, cpu, cpu, cpu, cpu, cpu, cpu, cpu,
+            (cpu, cpu), None, None, None, None, control_type="P",
+            exact_inputs=(cpu, cpu), **kw)

@@ -11,7 +11,10 @@ iteration, a log row, a checkpoint and a curriculum dump every iteration.
   the JAX `Runner.export_policy`, called on a stand-in holding a JAX
   parameter tree made from the same weights, gives equal arrays;
 - the script and the bench raise without a CUDA device, and the flags of
-  later slices raise naming their ROADMAP item.
+  later slices raise naming their ROADMAP item;
+- `scripts.play` plays back the policy the runner exported (its actions are
+  the runner's policy mean) and `scripts.test` steps a few envs, both with
+  device="cpu"; without it, neither runs on a box with no CUDA device.
 """
 import json
 import os
@@ -32,6 +35,8 @@ from walk_these_ways_tpu_torch import bench as t_bench
 from walk_these_ways_tpu_torch import go1_config as t_cfg
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv
 from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
+from walk_these_ways_tpu_torch.scripts import play as t_play
+from walk_these_ways_tpu_torch.scripts import test as t_test
 from walk_these_ways_tpu_torch.scripts import train as t_train
 from walk_these_ways_tpu_torch.utils import checkpoint as t_ckpt
 from walk_these_ways_tpu_torch.utils import convert, profiling
@@ -213,7 +218,7 @@ def test_restore_like_refuses_a_mismatched_checkpoint(runs, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--terrain", "rough"], "15"), (["--algo", "rma"], "19"),
+    (["--algo", "rma"], "19"),
     (["--mesh"], "22"), (["--multihost"], "22"),
     (["--num-eval-envs", "4"], "18"), (["--eval-expert"], "18"),
     (["--shared-ckpt", "d"], "22")])
@@ -229,6 +234,19 @@ def test_entry_points_raise_without_a_cuda_device(tmp_path):
                       "--log-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         t_bench.main(num_envs=4, warmup=0, iters=1)
+    # rough terrain is ported: it gets as far as the device check
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_train.main(["--num-envs", "4", "--iterations", "1", "--terrain",
+                      "rough", "--log-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_bench.main(num_envs=4, warmup=0, iters=1, terrain="rough")
+    with pytest.raises(ValueError, match="rough"):
+        t_train.main(["--num-envs", "4", "--iterations", "1", "--terrain",
+                      "rough", "--config", "small"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_play.play_go1(str(tmp_path / "policy_latest.npz"), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_test.run_env(num_envs=2, steps=1)
     env = LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu")
     for kw in (dict(algo="rma"), dict(mesh=object()),
                dict(args=RunnerArgs(eval_expert=True)),
@@ -236,6 +254,28 @@ def test_entry_points_raise_without_a_cuda_device(tmp_path):
                dict(args=RunnerArgs(shared_ckpt_dir="d"))):
         with pytest.raises(NotImplementedError):
             Runner(env, log_dir=str(tmp_path / "r"), **kw)
+
+
+def test_play_script_plays_back_the_exported_policy(runs, capsys):
+    env, a, _ = runs
+    path = os.path.join(a.log_dir, "checkpoints", "policy_latest.npz")
+    policy = t_play.load_policy(path, device="cpu")
+    obs = {"obs": torch.randn(2, env.num_obs),
+           "obs_history": torch.randn(2, env.num_obs_history)}
+    with torch.no_grad():
+        want = a.train_state.policy.actor_mean(obs["obs_history"])
+    assert torch.equal(policy(obs), want)
+    vxs = t_play.play_go1(path, steps=3, device="cpu")
+    assert vxs.shape == (3,) and np.isfinite(vxs).all()
+    assert "mean body-frame vx" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="item 20"):
+        t_play.main(["--policy", path, "--video", "v.mp4"])
+
+
+def test_test_script_steps_envs_on_the_cpu(capsys):
+    obs = t_test.run_env(num_envs=2, steps=3, device="cpu")
+    assert tuple(obs["obs"].shape) == (2, 70)
+    assert capsys.readouterr().out.strip().endswith("OK")
 
 
 def test_profiling_trace_and_phase_timer_on_the_cpu(tmp_path):

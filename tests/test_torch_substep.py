@@ -201,7 +201,15 @@ def test_contact_substep_matches_jax_kernel_body(world, which):
         assert_close(a, b.value, 1e-4, 1e-5)
 
 
-def _dyn_substep_both(world, which, contact=True):
+def _normals(seed):
+    """(28, 3, N) unit surface normals tilted up to about 25 deg off +z."""
+    rs = np.random.RandomState(seed)
+    n = np.concatenate([rs.uniform(-0.45, 0.45, (28, 2, N)),
+                        np.ones((28, 1, N))], axis=1)
+    return (n / np.linalg.norm(n, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _dyn_substep_both(world, which, contact=True, normals=None):
     model, em, rh_t, mu_t, e_t, g_t = world[which]
     anc, anc_p = _topology(model)
     Jj, Wj = _jax_cache(model, em)
@@ -215,19 +223,21 @@ def _dyn_substep_both(world, which, contact=True):
     j_pd._dyn_substep_kernel(
         em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, g_t,
         jnp.asarray(tau), jnp.asarray(gv), Jj, Wj, em.p_cp_t, rh_t, mu_t,
-        e_t, jnp.asarray(vlim), *boxes, anc=anc,
-        joint_body=np.asarray(model.joint_body),
+        e_t, jnp.asarray(vlim),
+        *([] if normals is None else [jnp.asarray(normals)]), *boxes,
+        anc=anc, joint_body=np.asarray(model.joint_body),
         groups=tuple(j_pc.point_dof_groups(anc_p)), nb=13, nj=12, nv=18,
-        flat=True, **kw)
+        flat=normals is None, **kw)
     tm = t_go1()
     args = [t(x) for x in (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t,
                            em.Minv_t, g_t, tau, gv, Jj, Wj, em.p_cp_t, rh_t,
                            mu_t, e_t, vlim)]
     topo = dict(anc=tm.anc_dof_body, joint_body=tm.joint_body,
                 cp_body=tm.cp_body)
-    before = t_pd.launches
-    outs = t_pd.dynamics_substep(*args, **topo, **kw)
-    assert t_pd.launches == before
+    before = (t_pd.launches, t_pd.normal_launches)
+    outs = t_pd.dynamics_substep(
+        *args, None if normals is None else t(normals), **topo, **kw)
+    assert (t_pd.launches, t_pd.normal_launches) == before
     return outs, [b.value for b in boxes], args, topo, kw
 
 
@@ -255,8 +265,15 @@ def test_dynamics_substep_without_contact_and_with_normals(world):
     full = t_pd.dynamics_substep(*args, **topo, **dict(kw, contact=True))
     for a, b in zip((gv2, pcp2, lam2), full):
         assert_close(a, b, 1e-5, 1e-6)
-    with pytest.raises(NotImplementedError):
-        t_pd.dynamics_substep(*args, torch.zeros(28, 3, N), **topo, **kw)
+    # K3b's arithmetic: the plain version with surface normals against the
+    # JAX kernel body with flat=False, at the tolerance of 16 chained sweeps
+    outs_n, refs_n, *_ = _dyn_substep_both(world, "stance",
+                                           normals=_normals(21))
+    lam_n = np.asarray(refs_n[2])
+    assert float(np.abs(lam_n[:, :2]).max()) > 1e-3     # off the vertical
+    for a, b in zip(outs_n, refs_n):
+        assert_close(a, b, 1e-4, 1e-5)
+    assert float((outs_n[2] - full[2]).abs().max()) > 1e-3
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu(world):
@@ -268,6 +285,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu(world):
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError):
         t_pd.dynamics_substep(*meta, **topo, **kw)
+    with pytest.raises(ValueError):                      # K3b's operands
+        t_pd.dynamics_substep(*meta, torch.zeros(28, 3, N, device="meta"),
+                              **topo, **kw)
     with pytest.raises(ValueError):
         t_pc.contact_substep(*[meta[i] for i in (9, 10, 5, 11, 8, 12, 13, 14,
                                                  15)],
@@ -288,6 +308,19 @@ def test_wrappers_do_not_fall_back_off_the_cpu(world):
         assert plain in head and plain not in tail
         for banned in ("torch.matmul", "torch.compile", " @ ", "einsum"):
             assert banned not in tail
+    # K3 and K3b: one launch, the normals' flag packed into it by
+    # kernel_operands (which names no plain path either), each variant
+    # counted on its own
+    tail = inspect.getsource(t_pd.dynamics_substep).split(
+        'if dev.type != "cuda"', 1)[1]
+    assert "kernel_operands(" in tail
+    assert "normal_launches += 1" in tail and "launches += 1" in tail
+    packing = inspect.getsource(t_pd.kernel_operands)
+    assert "KERNEL_THREADS, n_t is not None)" in packing
+    assert 'ins.append(("n_t", n_t, (P, 3, Npad)))' in packing
+    for banned in ("dynamics_substep_reference", "contact_core", "dyn_core(",
+                   "torch.matmul", " @ "):
+        assert banned not in packing, banned
 
 
 def _dyn_of(env, s):

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's bench.py: end-to-end env-steps/s of the
 complete training iteration (physics x4 decimation + actuator net + MoB
 rewards + DR + curriculum + PPO/adaptation update — `mob_train_cfg`, the
-`scripts/train.py` configuration of the reference), host clock around
+`scripts/train.py` configuration of the reference, or with `terrain="rough"`
+`rough_train_cfg`, the same on a rough heightfield), host clock around
 `iters` iterations that end in a synchronise, after `warmup` iterations.
 
 Prints ONE JSON line: {"metric", "value", "unit", "gpu", "power_limit",
@@ -13,6 +14,7 @@ is an assumption, not a measurement.  One attempt, no retry: a failure
 raises.  Without a CUDA device it raises.
 
 Usage: python -m walk_these_ways_tpu_torch.bench [num_envs]
+           [--terrain rough]
 """
 import json
 import subprocess
@@ -31,19 +33,19 @@ def main(num_envs: int = 4000, warmup: int = 3, iters: int = 20,
 
     from walk_these_ways_tpu_torch.envs.go1_env import (LeggedRobotEnv,
                                                         make_generator)
-    from walk_these_ways_tpu_torch.go1_config import mob_train_cfg
+    from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
+                                                      rough_train_cfg)
     from walk_these_ways_tpu_torch.learn import ppo as ppo_mod
 
-    if terrain != "flat":
-        raise NotImplementedError(
-            "rough terrain belongs to a later slice of the PyTorch port "
-            "(ROADMAP item 15)")
+    if terrain not in ("flat", "rough"):
+        raise ValueError(f"terrain {terrain!r}: flat or rough")
     if not torch.cuda.is_available():
         raise RuntimeError("the bench measures a CUDA device: "
                            "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    env = LeggedRobotEnv(mob_train_cfg(num_envs=num_envs))
+    cfg_fn = rough_train_cfg if terrain == "rough" else mob_train_cfg
+    env = LeggedRobotEnv(cfg_fn(num_envs=num_envs))
     ts = ppo_mod.init_train_state(0, env)
     env_state, obs_dict = env.reset(make_generator(1, env.device),
                                     random_episode_lengths=True)
@@ -60,7 +62,8 @@ def main(num_envs: int = 4000, warmup: int = 3, iters: int = 20,
     dt = time.perf_counter() - t0
 
     row = {
-        "metric": f"train_env_steps_per_s_{num_envs}env",
+        "metric": f"train_env_steps_per_s_{num_envs}env"
+                  + ("" if terrain == "flat" else f"_{terrain}"),
         "value": iters * num_steps * num_envs / dt,
         "unit": "env-steps/s",
         "gpu": torch.cuda.get_device_name(0),

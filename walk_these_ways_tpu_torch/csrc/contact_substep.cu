@@ -2,7 +2,8 @@
 // pipeline on cached point Jacobians.
 //
 // Replaces: the JAX package's ops/pallas_contact.py::_substep_kernel (the TPU
-// kernel reached through contact_substep_pallas; body contact_core).
+// kernel reached through contact_substep_pallas; body contact_core, which
+// that kernel calls on flat ground only: no normal operand).
 //
 // What it computes, per env (envs are independent): contact gaps from the
 // carried contact points, restitution / capped-Baumgarte velocity targets,
@@ -51,10 +52,10 @@ contact_substep_kernel(const SubstepArgs a) {
 #pragma unroll
   for (int v = 0; v < NV; ++v)
     gv[v] = __ldg(a.in[I_GV] + (size_t)v * npad + env);
-  contact_core_dev<false>(
+  contact_core_dev<false, false>(
       a.in[I_J], a.in[I_W], a.in[I_MINV], a.in[I_PCP], a.in[I_RH],
-      a.in[I_VLIM], __ldg(a.in[I_MU] + env), __ldg(a.in[I_E] + env), a.c, gv,
-      a.out[O_PCP], a.out[O_LAM], npad, env);
+      a.in[I_VLIM], nullptr, __ldg(a.in[I_MU] + env), __ldg(a.in[I_E] + env),
+      a.c, gv, a.out[O_PCP], a.out[O_LAM], npad, env);
 #pragma unroll
   for (int v = 0; v < NV; ++v) a.out[O_GV][(size_t)v * npad + env] = gv[v];
 }

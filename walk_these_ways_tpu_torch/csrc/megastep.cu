@@ -2,20 +2,27 @@
 // `decimation` physics substeps of one control step.
 //
 // Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
-// TPU kernel reached through control_step_pallas), flat ground (n = +z), in
-// three compile-time variants (template flags PCTRL, EXACT):
-//   K4   reuse mode, actuator-network torque model, contact impulses
-//        warm-started (from `lam_in` and across substeps);
-//   K4c  reuse mode, P control: tau = kp (tgt - q) - kd qd in place of the
+// TPU kernel reached through control_step_pallas), in the compile-time
+// variants of the template flags PCTRL, EXACT and FLAT:
+//   K4   reuse mode, flat ground (n = +z), actuator-network torque model,
+//        contact impulses warm-started (from `lam_in` and across substeps);
+//   K4c  as K4 with P control: tau = kp (tgt - q) - kd qd in place of the
 //        network; no actuator histories in or out;
-//   K5   exact mode (either torque model): the whole dynamics cache is
-//        rebuilt from the current state before every substep, in the kernel
-//        (csrc/wtw_cache.cuh); every substep's contact solve starts cold.
+//   K4b  reuse mode on a heightfield (FLAT false, either torque model): the
+//        per-point surface normals n (sampled once per control step at the
+//        entry contact points) enter the contact solve through its
+//        general-normal rows (wtw_device.cuh normal_row_update);
+//   K5   exact mode, flat ground (either torque model): the whole dynamics
+//        cache is rebuilt from the current state before every substep, in
+//        the kernel (csrc/wtw_cache.cuh); every substep's contact solve
+//        starts cold.  Exact mode on a heightfield is not a variant: the env
+//        runs it as `decimation` K4b launches of one substep each.
 //
 // What it computes, per env (envs are independent):
 //   reuse, once: r = p_cp - pos;  leg-joint Jacobian columns
 //            J[p,:,v] = anc[p,v] * (Sv[v] + Sw[v] x r[p]);  the entries
-//            W00, W01, W11, W22 of W_p = J_p M^-1 J_p^T + eps I
+//            W00, W01, W11, W22 of W_p = J_p M^-1 J_p^T + eps I (K4b: the
+//            six distinct entries of the symmetric W_p, and n^T W_p n)
 //   D times: torque model (actuator MLP 6 -> H -> H -> 1, softsign, per joint;
 //            or P control) -> x motor strength -> torque clip -> joint-limit
 //            torque -> [exact: FK, twists, inertia, CRBA, M^-1 and contact
@@ -45,12 +52,17 @@
 // entry and once on exit.
 //
 // Bound on this card (ops/megastep.work_per_env): per env a few KB in and
-// out and 0.3 (K4, K4c) to 0.5 (K5) MFLOP of fp32 on the CUDA cores, so at
-// 4000 envs the least time is set by arithmetic, not by memory.  One thread
-// per env gives about one warp per SM at 4000 envs, so the kernel as written
-// is bound by instruction latency, far above that least time; exact mode adds
-// about 4 KB of thread-local arrays per env, in local memory.  The measured
-// numbers are kept in PERF.md.
+// out and 0.12 (K4c) to 0.55 (K5) MFLOP of fp32 on the CUDA cores (K4b:
+// 0.28, K4's 0.26 and about 50 more operations per point and sweep for the
+// general-normal rows), so at 4000 envs the least time is set by
+// arithmetic, not by memory.  One thread per env gives about one warp per
+// SM at 4000 envs, so the kernel as written is bound by instruction
+// latency, far above that least time; exact mode adds about 4 KB of
+// thread-local arrays per env, in local memory.  K4b reads a point's normal
+// from global memory where it needs it (read-only for the launch, so
+// through __ldg) rather than holding 84 more floats per thread, and keeps
+// W_p's extra entries W02, W12, W22 in thread-local memory beside K4's.
+// The measured numbers are kept in PERF.md.
 //
 // Reuse mode: rows 0..5 of Sw/Sv must be the unit root twists (rows 0..2:
 // unit angular, rows 3..5: unit linear), as physics/envminor makes them.  The
@@ -73,7 +85,7 @@ enum InIdx {
   I_SW = 0, I_SV, I_A, I_B, I_M, I_MINV, I_PCP, I_RH, I_MU, I_E, I_G,
   I_LAM, I_Q, I_QD, I_POS, I_QUAT, I_LIN, I_ANG, I_TGT, I_STR,
   I_W0, I_B0, I_W1, I_B1, I_W2, I_B2, I_EL, I_ELL, I_VL, I_VLL,
-  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP, N_IN
+  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP, I_N, N_IN
 };
 enum OutIdx {
   O_Q = 0, O_QD, O_POS, O_QUAT, O_LIN, O_ANG, O_PCP, O_PCPPREV, O_LAM,
@@ -128,12 +140,16 @@ __device__ __forceinline__ void jt_acc_p(int p, const float* f,
 }
 
 // Per contact point: the leg-joint Jacobian columns Jl and the entries of
-// W_p = J_p M^-1 J_p^T + eps I that the flat-ground solve reads.
-template <class Rows>
+// W_p = J_p M^-1 J_p^T + eps I that the solve reads.  Flat ground: W00,
+// W01, W11 and the normal row's relax / W22.  With surface normals `nrm`
+// (FLAT false; env-minor (P, 3, npad)): also W02, W12, W22 — W_p is
+// symmetric — and relax / n^T W_p n.
+template <bool FLAT, class Rows>
 __device__ __forceinline__ void point_cache(
     const Rows& Minv, const float (*sw)[3], const float (*sv)[3],
     const float (*r)[3], float (*Jl)[GM][3], float* W00, float* W01,
-    float* W11, float* inv_wnn, float eps, float relax) {
+    float* W11, float* W02, float* W12, float* W22, float* inv_wnn,
+    const float* nrm, size_t npad, int env, float eps, float relax) {
 #pragma unroll 1
   for (int p = 0; p < NP; ++p) {
     const int lo = MS_PT_LO[p], n = MS_PT_N[p];
@@ -161,6 +177,7 @@ __device__ __forceinline__ void point_cache(
     // W[i][j] = sum_v J[j][v] * t_i[v],  t_i[v] = sum_w J[i][w] Minv[w][v]
     const int nd = 6 + n;
     float w00 = 0.0f, w01 = 0.0f, w11 = 0.0f, w22 = 0.0f;
+    float w02 = 0.0f, w12 = 0.0f;
     for (int kv = 0; kv < nd; ++kv) {
       const int dv = kv < 6 ? kv : lo + kv - 6;
       float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
@@ -171,15 +188,28 @@ __device__ __forceinline__ void point_cache(
       }
       w00 += Jp[kv][0] * t0; w01 += Jp[kv][1] * t0;
       w11 += Jp[kv][1] * t1; w22 += Jp[kv][2] * t2;
+      if constexpr (!FLAT) {
+        w02 += Jp[kv][2] * t0; w12 += Jp[kv][2] * t1;
+      }
     }
     W00[p] = w00 + eps; W01[p] = w01; W11[p] = w11 + eps;
-    inv_wnn[p] = relax / (w22 + eps);
+    if constexpr (FLAT) {
+      inv_wnn[p] = relax / (w22 + eps);
+    } else {
+      W02[p] = w02; W12[p] = w12; W22[p] = w22 + eps;
+      const float Wp[9] = {W00[p], w01, w02, w01, W11[p], w12,
+                           w02, w12, W22[p]};
+      float nv[3];
+      load_normal(nrm, p, npad, env, nv);
+      inv_wnn[p] = relax / quad3(Wp, nv);
+    }
   }
 }
 
-template <bool PCTRL, bool EXACT>
+template <bool PCTRL, bool EXACT, bool FLAT>
 __global__ void __launch_bounds__(128)
 megastep_kernel(const MegastepArgs a) {
+  static_assert(FLAT || !EXACT, "exact mode is flat-ground only");
   const int env = blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= a.npad) return;          // ragged edge of the last block
   const size_t npad = (size_t)a.npad;
@@ -216,6 +246,8 @@ megastep_kernel(const MegastepArgs a) {
   float sw[NV][3], sv[NV][3];
   float pcp[NP][3], r[NP][3], lam[NP][3], Jl[NP][GM][3];
   float W00[NP], W01[NP], W11[NP], inv_wnn[NP];
+  // the extra entries of W_p that the general-normal rows read
+  float W02[FLAT ? 1 : NP], W12[FLAT ? 1 : NP], W22[FLAT ? 1 : NP];
   float ex_A[EXACT ? NB * 9 : 1], ex_B[EXACT ? NB * 9 : 1];
   float ex_m[EXACT ? NB : 1], ex_minv[EXACT ? NV * NV : 1];
   float payload = 0.0f, comdisp[3] = {0.0f, 0.0f, 0.0f};
@@ -249,7 +281,8 @@ megastep_kernel(const MegastepArgs a) {
         pcp[p][i] = LD(I_PCP, p * 3 + i);
         r[p][i] = pcp[p][i] - pos[i];
       }
-    point_cache(rMinv, sw, sv, r, Jl, W00, W01, W11, inv_wnn, eps, relax);
+    point_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12, W22,
+                      inv_wnn, a.in[I_N], npad, env, eps, relax);
   }
 #pragma unroll 1
   for (int p = 0; p < NP; ++p)
@@ -321,7 +354,8 @@ megastep_kernel(const MegastepArgs a) {
       for (int p = 0; p < NP; ++p)
 #pragma unroll
         for (int i = 0; i < 3; ++i) r[p][i] = pcp[p][i] - pos[i];
-      point_cache(rMinv, sw, sv, r, Jl, W00, W01, W11, inv_wnn, eps, relax);
+      point_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12, W22,
+                        inv_wnn, a.in[I_N], npad, env, eps, relax);
 #pragma unroll
       for (int i = 0; i < 3; ++i) ref[i] = pos[i];
     }
@@ -360,7 +394,12 @@ megastep_kernel(const MegastepArgs a) {
         active[p] = phi > 0.0f ? 1.0f : 0.0f;
         float v0[3];
         jdot_p(p, gv, r, Jl, v0);
-        const float vn0 = v0[2];
+        float vn0 = v0[2];
+        if constexpr (!FLAT) {
+          float nv[3];
+          load_normal(a.in[I_N], p, npad, env, nv);
+          vn0 = nv[0] * v0[0] + nv[1] * v0[1] + nv[2] * v0[2];
+        }
         const float bounce = vn0 < -a.f[F_BOUNCE] ? -rest * vn0 : 0.0f;
         const float bias = fminf(
             a.f[F_BAUM_DT] * fmaxf(phi - a.f[F_SLOP], 0.0f),
@@ -390,27 +429,37 @@ megastep_kernel(const MegastepArgs a) {
         for (int p = 0; p < NP; ++p) {
           float v[3];
           jdot_p(p, gv, r, Jl, v);
-          const float vn = v[2], vtx = v[0], vty = v[1];
-          const float vtn = sqrtf(vtx * vtx + vty * vty + 1e-18f);
-          const float itn = 1.0f / vtn;
-          const float tx = vtx * itn, ty = vty * itn;
-          const float w_tt = fmaxf(
-              tx * tx * W00[p] + 2.0f * tx * ty * W01[p] + ty * ty * W11[p],
-              1e-6f);
-          const float dln = (target[p] - vn) * inv_wnn[p];
-          const float dlt = -relax * vtn / w_tt;
-          const float ln = fmaxf(lam[p][2] + dln, 0.0f);
-          float lx = lam[p][0] + dlt * tx;
-          float ly = lam[p][1] + dlt * ty;
-          const float ltn = sqrtf(lx * lx + ly * ly + 1e-18f);
-          const float max_t = mu * ln;
-          const float scale = ltn > max_t ? max_t / ltn : 1.0f;
-          lx = lx * scale * active[p];
-          ly = ly * scale * active[p];
-          const float lz = ln * active[p];
-          const float ap[3] = {lx - lam[p][0], ly - lam[p][1],
-                               lz - lam[p][2]};
-          lam[p][0] = lx; lam[p][1] = ly; lam[p][2] = lz;
+          float l[3] = {lam[p][0], lam[p][1], lam[p][2]};
+          if constexpr (FLAT) {
+            const float vn = v[2], vtx = v[0], vty = v[1];
+            const float vtn = sqrtf(vtx * vtx + vty * vty + 1e-18f);
+            const float itn = 1.0f / vtn;
+            const float tx = vtx * itn, ty = vty * itn;
+            const float w_tt = fmaxf(
+                tx * tx * W00[p] + 2.0f * tx * ty * W01[p] + ty * ty * W11[p],
+                1e-6f);
+            const float dln = (target[p] - vn) * inv_wnn[p];
+            const float dlt = -relax * vtn / w_tt;
+            const float ln = fmaxf(lam[p][2] + dln, 0.0f);
+            float lx = lam[p][0] + dlt * tx;
+            float ly = lam[p][1] + dlt * ty;
+            const float ltn = sqrtf(lx * lx + ly * ly + 1e-18f);
+            const float max_t = mu * ln;
+            const float scale = ltn > max_t ? max_t / ltn : 1.0f;
+            l[0] = lx * scale * active[p];
+            l[1] = ly * scale * active[p];
+            l[2] = ln * active[p];
+          } else {
+            float nv[3];
+            load_normal(a.in[I_N], p, npad, env, nv);
+            const float Wp[9] = {W00[p], W01[p], W02[p], W01[p], W11[p],
+                                 W12[p], W02[p], W12[p], W22[p]};
+            normal_row_update(v, nv, Wp, target[p], inv_wnn[p], relax, mu,
+                              active[p], l);
+          }
+          const float ap[3] = {l[0] - lam[p][0], l[1] - lam[p][1],
+                               l[2] - lam[p][2]};
+          lam[p][0] = l[0]; lam[p][1] = l[1]; lam[p][2] = l[2];
           jt_acc_p(p, ap, r, Jl, jta);
         }
         minv_mul(rMinv, jta, dgv);
@@ -503,12 +552,14 @@ megastep_kernel(const MegastepArgs a) {
 
 // Plain C interface for ctypes.  `in` / `out` are host arrays of device
 // pointers in InIdx / OutIdx order, `f` the FIdx scalars, `ip` = {npad, D,
-// num_iters, warm_iters, contact, threads per block, P control, exact}.  A
-// variant leaves the slots it does not read null: in[I_LAM] without a
-// cross-step seed; the actuator weights and histories (in and out) with P
-// control; kp, kd without it; the reuse cache (Sw .. p_cp) and the seed in
-// exact mode; payload and COM shift outside it.  Launches on `stream`, does
-// not synchronise, returns the launch's cudaError_t (0 = launched).
+// num_iters, warm_iters, contact, threads per block, P control, exact,
+// flat}.  A variant leaves the slots it does not read null: in[I_LAM]
+// without a cross-step seed; the actuator weights and histories (in and
+// out) with P control; kp, kd without it; the reuse cache (Sw .. p_cp) and
+// the seed in exact mode; payload and COM shift outside it; the normals
+// in[I_N] on flat ground.  Exact mode with normals is refused.  Launches on
+// `stream`, does not synchronise, returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int megastep_launch(const void* const* in, void* const* out,
                                const float* f, const int* ip, void* stream) {
   MegastepArgs a;
@@ -517,19 +568,24 @@ extern "C" int megastep_launch(const void* const* in, void* const* out,
   for (int i = 0; i < N_F; ++i) a.f[i] = f[i];
   a.npad = ip[0]; a.D = ip[1]; a.num_iters = ip[2]; a.warm_iters = ip[3];
   a.contact = ip[4];
-  const int threads = ip[5], pctrl = ip[6], exact = ip[7];
-  if (threads < 1 || threads > 128 || a.npad < 1 || a.D < 1)
+  const int threads = ip[5], pctrl = ip[6], exact = ip[7], flat = ip[8];
+  if (threads < 1 || threads > 128 || a.npad < 1 || a.D < 1
+      || (exact && !flat) || (!flat && a.in[I_N] == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (a.npad + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pctrl && exact)
-    megastep_kernel<true, true><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<true, true, true><<<blocks, threads, 0, st>>>(a);
   else if (exact)
-    megastep_kernel<false, true><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<false, true, true><<<blocks, threads, 0, st>>>(a);
+  else if (pctrl && !flat)
+    megastep_kernel<true, false, false><<<blocks, threads, 0, st>>>(a);
+  else if (!flat)
+    megastep_kernel<false, false, false><<<blocks, threads, 0, st>>>(a);
   else if (pctrl)
-    megastep_kernel<true, false><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<true, false, true><<<blocks, threads, 0, st>>>(a);
   else
-    megastep_kernel<false, false><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<false, false, true><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

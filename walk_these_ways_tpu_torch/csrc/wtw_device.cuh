@@ -88,6 +88,59 @@ __device__ __forceinline__ void minv_mul(const Rows& Minv, const float* x,
   }
 }
 
+// x^T M x for a row-major 3x3 M, summed as the JAX package sums n^T W n
+// and t^T W t: x0 (M0 x0 + M1 x1 + M2 x2) + x1 (...) + x2 (...)
+__device__ __forceinline__ float quad3(const float* M, const float* x) {
+  return x[0] * (M[0] * x[0] + M[1] * x[1] + M[2] * x[2])
+       + x[1] * (M[3] * x[0] + M[4] * x[1] + M[5] * x[2])
+       + x[2] * (M[6] * x[0] + M[7] * x[1] + M[8] * x[2]);
+}
+
+// Unit surface normal of contact point p: env-minor (P, 3, npad) operand
+// that no thread writes during the launch.
+__device__ __forceinline__ void load_normal(const float* __restrict__ n,
+                                            int p, size_t npad, int env,
+                                            float* out) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[i] = __ldg(n + (size_t)(p * 3 + i) * npad + env);
+}
+
+// One contact point's row update in a projected-Jacobi sweep on a surface of
+// unit normal n: the general-normal branch of the JAX package's
+// ops/pallas_contact.py::contact_core.  The normal row drives n.v to
+// `target` (inv_wnn = relax / n^T W n), the friction row pushes against the
+// 3-D slip t = (v - (n.v) n) / |...| with scalar mass t^T W t (floored at
+// 1e-6), and the tangential part of the total impulse is clamped to the
+// mu * lambda_n cone.  W: the point's row-major 3x3 effective mass.  lam:
+// in the total impulse, out the new one (zero where the point is not
+// `active`).
+__device__ __forceinline__ void normal_row_update(
+    const float* v, const float* n, const float* W, float target,
+    float inv_wnn, float relax, float mu, float active, float* lam) {
+  const float vn = n[0] * v[0] + n[1] * v[1] + n[2] * v[2];
+  const float vtx = v[0] - vn * n[0];
+  const float vty = v[1] - vn * n[1];
+  const float vtz = v[2] - vn * n[2];
+  const float vtn = sqrtf(vtx * vtx + vty * vty + vtz * vtz + 1e-18f);
+  const float itn = 1.0f / vtn;
+  const float t[3] = {vtx * itn, vty * itn, vtz * itn};
+  const float w_tt = fmaxf(quad3(W, t), 1e-6f);
+  const float dln = (target - vn) * inv_wnn;
+  const float dlt = -relax * vtn / w_tt;
+  const float l_n0 = lam[0] * n[0] + lam[1] * n[1] + lam[2] * n[2];
+  const float ln = fmaxf(l_n0 + dln, 0.0f);
+  const float lx = lam[0] - l_n0 * n[0] + dlt * t[0];
+  const float ly = lam[1] - l_n0 * n[1] + dlt * t[1];
+  const float lz = lam[2] - l_n0 * n[2] + dlt * t[2];
+  const float ltn = sqrtf(lx * lx + ly * ly + lz * lz + 1e-18f);
+  const float max_t = mu * ln;
+  const float scale = ltn > max_t ? max_t / ltn : 1.0f;
+  lam[0] = (ln * n[0] + lx * scale) * active;
+  lam[1] = (ln * n[1] + ly * scale) * active;
+  lam[2] = (ln * n[2] + lz * scale) * active;
+}
+
 #ifdef MS_NB
 // Unconstrained dynamics: body twists over the static ancestor mask,
 // velocity-product terms, F = I a + V x* (I V) in 3x3 blocks, projection onto

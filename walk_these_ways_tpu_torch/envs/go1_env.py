@@ -23,16 +23,18 @@ callbacks -> termination -> rewards -> masked auto-reset -> observations ->
 shift last_* buffers.
 
 Physics runs on the two env-minor kernel routes (`sim.use_pallas_contact`
-on, flat ground): with `sim.megastep` one launch of the whole-control-step
-kernel per control step (ops/megastep.py), in reuse mode or, with
-`sim.reuse_matrices` off, in exact mode (the cache rebuilt inside the kernel
-before every substep); with `sim.megastep` off one contact-cache launch per
-control step (reuse) or per substep (exact) and one dynamics-substep launch
-per physics substep (ops/contact.py, ops/dynamics.py), the torque model
-evaluated between them (`_compute_torques`).  The dense physics branches of
-the reference (`use_pallas_contact` off), the train/eval env split and
-heightfield terrain raise NotImplementedError until their slices of the port
-are written.
+on), on flat ground or a heightfield: with `sim.megastep` one launch of the
+whole-control-step kernel per control step (ops/megastep.py), in reuse mode
+or, with `sim.reuse_matrices` off, in exact mode (on flat ground the cache
+rebuilt inside the kernel before every substep; on a heightfield
+`decimation` reuse-mode launches of one substep each, every one from a
+fresh cache and fresh terrain samples); with `sim.megastep` off one
+contact-cache launch per control step (reuse) or per substep (exact) and
+one dynamics-substep launch per physics substep (ops/contact.py,
+ops/dynamics.py), the torque model evaluated between them
+(`_compute_torques`).  The dense physics branches of the reference
+(`use_pallas_contact` off) and the train/eval env split raise
+NotImplementedError until their slices of the port are written.
 """
 from __future__ import annotations
 
@@ -186,13 +188,14 @@ class LeggedRobotEnv:
         hf_types = ("heightfield", "trimesh")
         if cfg.terrain.mesh_type in hf_types:
             arrays = terrain_mod.build(cfg.terrain, seed=terrain_seed)
-            if np.abs(arrays.height).max() != 0.0:
-                raise NotImplementedError(
-                    "heightfield terrain belongs to the rough-terrain "
-                    "slice of the port (ROADMAP item 15), which is not "
-                    "written yet")
-            # all-flat tiles (the MoB train config): flat ground
-            self.terrain = engine.flat_terrain(dev)
+            if np.abs(arrays.height).max() == 0.0:
+                # all-flat tiles (the MoB train config): flat ground, no
+                # lookups
+                self.terrain = engine.flat_terrain(dev)
+            else:
+                self.terrain = engine.make_heightfield_terrain(
+                    arrays.height, arrays.horizontal_scale,
+                    arrays.origin_xy, device=dev)
             origins = terrain_mod.assign_env_origins(
                 cfg.terrain, arrays, self.num_envs, np_rng)
         else:
@@ -200,6 +203,7 @@ class LeggedRobotEnv:
             origins = terrain_mod.grid_env_origins(self.num_envs)
         self.env_origins = torch.tensor(np.asarray(origins),
                                         dtype=torch.float32, device=dev)
+        self.rough = tuple(self.terrain.height.shape) != (2, 2)
 
         self.sim_params = engine.SimParams(
             dt=cfg.sim.dt, num_contact_iters=cfg.sim.num_contact_iters,
@@ -690,6 +694,17 @@ class LeggedRobotEnv:
         )
         return gravity, dyn
 
+    def _ctrl(self, state: EnvState):
+        """The torque model's inputs to the control-step kernel from
+        `state`: ("actuator_net", block-diagonal weights, (el, ell, vl,
+        vll)) or ("P", kp, kd)."""
+        if self.cfg.control.control_type == "actuator_net":
+            return ("actuator_net", self.actuator_blockdiag,
+                    (state.joint_pos_err_last, state.joint_pos_err_last_last,
+                     state.joint_vel_last, state.joint_vel_last_last))
+        return ("P", self.p_gains[None, :] * state.Kp_factors,
+                self.d_gains[None, :] * state.Kd_factors)
+
     def control_step_inputs(self, state: EnvState):
         """What one control step feeds the control-step kernel from `state`
         (its `actions` already clipped): (gravity (3,), DynamicsParams,
@@ -700,14 +715,9 @@ class LeggedRobotEnv:
         tgt_raw, lag_final = self._substep_targets(state)
         if cfg.control.control_type == "actuator_net":
             tgt_eff = tgt_raw - state.motor_offsets[:, None, :]
-            ctrl = ("actuator_net", self.actuator_blockdiag,
-                    (state.joint_pos_err_last,
-                     state.joint_pos_err_last_last,
-                     state.joint_vel_last, state.joint_vel_last_last))
         else:
             tgt_eff = tgt_raw + state.motor_offsets[:, None, :]
-            ctrl = ("P", self.p_gains[None, :] * state.Kp_factors,
-                    self.d_gains[None, :] * state.Kd_factors)
+        ctrl = self._ctrl(state)
         # exact mode starts every contact solve cold: no cross-step seed
         cross_warm = (self.sim_params.contact_warm_start
                       and self.sim_params.contact_cross_step_warm_start
@@ -731,7 +741,24 @@ class LeggedRobotEnv:
 
         # 2. decimation loop (legged_robot.py:74-81)
         D = cfg.control.decimation
-        if cfg.sim.megastep:
+        if cfg.sim.megastep and not self.reuse_matrices and self.rough:
+            # exact mode on a heightfield (the kernel's exact variant is
+            # flat-ground only): D launches of one substep each in reuse
+            # mode, every one from a fresh cache and fresh terrain samples
+            # at the current state, cold-started, the torque model's
+            # histories carried from launch to launch
+            gravity, dyn, tgt_raw, lag_final, tgt_eff, _, _ = \
+                self.control_step_inputs(state)
+            for si in range(D):
+                phys2, lam_t, p_cp_t, p_cp_prev_t, torques, hist = \
+                    engine.control_step_megakernel(
+                        m, self.sim_params, state.phys, dyn, self.terrain,
+                        tgt_eff[:, si:si + 1], state.motor_strengths,
+                        self.torque_limits, self._ctrl(state), 1)
+                state = state._replace(phys=phys2, torques=torques, **hist)
+            state = state._replace(
+                joint_pos_target=tgt_raw[:, -1], lag_buffer=lag_final)
+        elif cfg.sim.megastep:
             # one launch of the whole-control-step kernel: torque model +
             # all decimation substeps + integration, J/W built in-kernel;
             # the cache anchored at the entry state (reuse mode) or rebuilt

@@ -243,8 +243,7 @@ def rough_train_cfg(num_envs: int = 4000) -> Cfg:
 
     Same training stack as mob_train_cfg with the terrain switched from
     the all-flat 'boxes' tiles to a rough-slope heightfield (reference
-    Cfg.terrain.terrain_proportions semantics, terrain.py:114-160).
-    Carried as data: the port does not run heightfield terrain yet."""
+    Cfg.terrain.terrain_proportions semantics, terrain.py:114-160)."""
     cfg = mob_train_cfg(num_envs=num_envs)
     return replace(
         cfg,

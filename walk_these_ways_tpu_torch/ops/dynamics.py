@@ -13,9 +13,10 @@ held against.
 then ops/contact.contact_core.  CPU tensors go to the plain version
 `dynamics_substep_reference`; CUDA tensors go to the hand-written kernel
 `csrc/dynamics_substep.cu` (replaces `_dyn_substep_kernel` of
-ops/pallas_dynamics.py), or the call raises.  There is no fallback from the
-kernel to the plain version.  `launches` counts kernel launches (and nothing
-else).
+ops/pallas_dynamics.py: K3 on flat ground, K3b with the per-point surface
+normals of a heightfield), or the call raises.  There is no fallback from
+the kernel to the plain version.  `launches` (K3) and `normal_launches`
+(K3b) count kernel launches (and nothing else).
 """
 from __future__ import annotations
 
@@ -25,8 +26,10 @@ import torch
 from . import _build
 from . import contact as pc
 
-# number of times `dynamics_substep` launched the CUDA kernel
+# number of times `dynamics_substep` launched the CUDA kernel: K3 (flat
+# ground), K3b (surface normals)
 launches = 0
+normal_launches = 0
 
 # threads per block of the CUDA kernel: one env per thread; at 4096 envs a
 # 32-thread block spreads the batch over the most SMs
@@ -143,7 +146,8 @@ def dynamics_substep_reference(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t,
                                contact: bool = True):
     """The substep in plain PyTorch: unconstrained dynamics with the
     midpoint rule on the velocity-product terms, then the contact pipeline
-    on the cached J/W with the static point->dof sparsity."""
+    on the cached J/W with the static point->dof sparsity (and the surface
+    normals `n_t`, None on flat ground)."""
     nv = gv_t.shape[0]
     nb = m_t.shape[0]
     nj = nv - 6
@@ -164,7 +168,7 @@ def dynamics_substep_reference(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t,
         bounce_thresh=bounce_thresh, groups=groups, n=n_t)
 
 
-_COUNTS = (16, 3, 7)
+_COUNTS = (17, 3, 7)
 
 
 def library_spec(anc, joint_body, cp_body):
@@ -190,32 +194,57 @@ def dynamics_substep(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t,
     point advance), env-minor: Sw_t/Sv_t (nv, 3, Npad); A_t/B_t (nb, 9,
     Npad); m_t (nb, Npad); Minv_t (nv, nv, Npad); g_t (3, Npad); tau_t, gv_t
     (nv, Npad); J_t (P, 3, nv, Npad); W_t (P, 9, Npad); pcp_t (P, 3, Npad);
-    rh_t (P, Npad); mu_t, e_t (1, Npad); vlim (nv, 1).  `anc` (nv, nb),
-    `joint_body` (nj,), `cp_body` (P,) are the robot's static topology.
-    Returns (gv_new_t (nv, Npad), pcp_new_t (P, 3, Npad), lam_t (P, 3,
-    Npad)).
+    rh_t (P, Npad); mu_t, e_t (1, Npad); vlim (nv, 1); `n_t` (P, 3, Npad)
+    the per-point surface normals of a heightfield, None on flat ground.
+    `anc` (nv, nb), `joint_body` (nj,), `cp_body` (P,) are the robot's
+    static topology.  Returns (gv_new_t (nv, Npad), pcp_new_t (P, 3, Npad),
+    lam_t (P, 3, Npad)).
 
-    `n_t` (per-point surface normals of a heightfield) is not supported on
-    any device yet.  Tensors on the CPU: `dynamics_substep_reference`.
-    Tensors on a CUDA device: the kernel of csrc/dynamics_substep.cu,
-    launched on the current stream without synchronising, outputs allocated
-    here; a failed build or launch raises."""
-    global launches
-    if n_t is not None:
-        raise NotImplementedError(
-            "dynamics_substep: heightfield normals (n_t) belong to the "
-            "rough-terrain slice of the port, which is not written yet")
+    Tensors on the CPU: `dynamics_substep_reference`.  Tensors on a CUDA
+    device: the kernel of csrc/dynamics_substep.cu (K3, or K3b with
+    `n_t`), launched on the current stream without synchronising, outputs
+    allocated here; a failed build or launch raises."""
+    global launches, normal_launches
     dev = gv_t.device
     if dev.type == "cpu":
         return dynamics_substep_reference(
             Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t, J_t, W_t,
-            pcp_t, rh_t, mu_t, e_t, vlim, None, anc=anc,
+            pcp_t, rh_t, mu_t, e_t, vlim, n_t, anc=anc,
             joint_body=joint_body, cp_body=cp_body, dt=dt,
             num_iters=num_iters, relaxation=relaxation, baumgarte=baumgarte,
             slop=slop, max_depen=max_depen, bounce_thresh=bounce_thresh,
             contact=contact)
     if dev.type != "cuda":
         raise ValueError(f"dynamics_substep: unsupported device {dev}")
+    ptrs, outs, floats, ints = kernel_operands(
+        Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t, J_t, W_t, pcp_t,
+        rh_t, mu_t, e_t, vlim, n_t, anc=anc, cp_body=cp_body, dt=dt,
+        num_iters=num_iters, relaxation=relaxation, baumgarte=baumgarte,
+        slop=slop, max_depen=max_depen, bounce_thresh=bounce_thresh,
+        contact=contact)
+    lib = build_library(anc, joint_body, cp_body)
+    with torch.cuda.device(dev):
+        _build.launch(lib, "dynamics_substep", ptrs, outs, floats, ints,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    if n_t is None:
+        launches += 1
+    else:
+        normal_launches += 1
+    return outs
+
+
+def kernel_operands(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t,
+                    J_t, W_t, pcp_t, rh_t, mu_t, e_t, vlim, n_t=None, *,
+                    anc, cp_body, dt: float, num_iters: int,
+                    relaxation: float, baumgarte: float, slop: float,
+                    max_depen: float, bounce_thresh: float,
+                    contact: bool = True):
+    """The arguments of csrc/dynamics_substep.cu's `dynamics_substep_launch`:
+    input pointers in its InIdx order (the normals' slot null on flat
+    ground), the three output tensors, allocated on the inputs' device, the
+    FIdx floats and the int scalars.  Checks every operand's device, dtype,
+    shape and contiguity."""
+    dev = gv_t.device
     nv, Npad = gv_t.shape
     nb = m_t.shape[0]
     P = pcp_t.shape[0]
@@ -227,22 +256,21 @@ def dynamics_substep(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t,
            ("W_t", W_t, (P, 9, Npad)), ("pcp_t", pcp_t, (P, 3, Npad)),
            ("rh_t", rh_t, (P, Npad)), ("mu_t", mu_t, (1, Npad)),
            ("e_t", e_t, (1, Npad)), ("vlim", vlim, (nv, 1))]
+    if n_t is not None:
+        ins.append(("n_t", n_t, (P, 3, Npad)))
     ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
+    if n_t is None:
+        ptrs.append(None)
     if tuple(np.shape(anc)) != (nv, nb) or len(cp_body) != P:
         raise ValueError("dynamics_substep: topology and operand shapes "
                          "disagree")
-    lib = build_library(anc, joint_body, cp_body)
-    with torch.cuda.device(dev):
-        outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
-                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
-                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))
-        _build.launch(lib, "dynamics_substep", ptrs, outs,
-                      (dt, relaxation, baumgarte / dt, slop, max_depen,
-                       bounce_thresh, 0.5 * dt),
-                      (Npad, num_iters, bool(contact), KERNEL_THREADS),
-                      torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
-    return outs
+    outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
+            torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
+            torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))
+    floats = (dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
+              0.5 * dt)
+    ints = (Npad, num_iters, bool(contact), KERNEL_THREADS, n_t is not None)
+    return ptrs, outs, floats, ints
 
 
 def dyn_ops(anc) -> int:
@@ -260,21 +288,26 @@ def dyn_ops(anc) -> int:
             + 12 * n_janc + 2 * nv * nv + nv + 9)
 
 
-def work_per_env(anc, cp_body, num_iters: int, contact: bool = True):
+def work_per_env(anc, cp_body, num_iters: int, contact: bool = True,
+                 flat: bool = True):
     """(bytes moved, fp32 operations) per env of `dynamics_substep`: each
     input the function needs read once (twist bases, inertia blocks, masses,
     M^-1, gravity, torques, velocity, points, gap offsets, friction,
     restitution; of J the entries that the point->dof groups leave nonzero,
-    of W the four entries the flat-ground solve uses: W00, W01, W11, W22),
-    velocity, points and impulses written once; operations with the static
-    sparsity of the ancestor masks and the point->dof groups taken out."""
+    of W the four entries the flat-ground solve uses, W00, W01, W11, W22, or
+    all nine and the normals with `flat` False), velocity, points and
+    impulses written once; operations with the static sparsity of the
+    ancestor masks and the point->dof groups taken out (K3b: n^T W n per
+    point, 20 operations, and the general-normal rows)."""
     anc, anc_p, _ = _build.topology(anc, cp_body)
     nv, nb = anc.shape
     P = anc_p.shape[0]
     jnz = int(3 * anc_p.sum())
+    w_and_n = P * 4 if flat else P * (9 + 3)
     floats = (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv + 3 + 2 * nv
-              + jnz + P * 4 + P * 3 + P + 2) + (nv + 2 * P * 3)
+              + jnz + w_and_n + P * 3 + P + 2) + (nv + 2 * P * 3)
     ops = 2 * dyn_ops(anc) + 4 * nv
     if contact:
-        ops += pc.solve_ops(jnz, P, nv, num_iters, False)
+        ops += pc.solve_ops(jnz, P, nv, num_iters, False, flat)
+        ops += 0 if flat else 20 * P
     return 4 * floats, ops

@@ -12,9 +12,11 @@ here:
 - `control_step`: the wrapper.  CPU tensors go to the plain version; CUDA
   tensors go to the hand-written kernel `csrc/megastep.cu` (replaces
   `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.  There
-  is no fallback from the kernel to the plain version.  The kernel has
-  three variants on flat ground: K4 (reuse mode, actuator network), K4c
-  (reuse mode, P control) and K5 (exact mode, either torque model).
+  is no fallback from the kernel to the plain version.  The kernel's
+  variants: K4 (reuse mode, flat ground, actuator network), K4c (reuse
+  mode, flat ground, P control), K4b (reuse mode on a heightfield: surface
+  normals `n_t`, either torque model) and K5 (exact mode, flat ground,
+  either torque model).
 - `blockdiag_actuator_weights`: host helper that lays the 12 per-joint
   actuator MLPs (6 -> 32 -> 32 -> 1, softsign) out as block-diagonal
   matrices, with features stacked as X[12 f + j] = feature f of joint j.
@@ -27,11 +29,11 @@ header generated from the RobotModel, and is bound through `ctypes`
 (ops/_build.py, shared by all the port's kernels).
 
 Bound of the kernel on an H100 (see csrc/megastep.cu and `work_per_env`):
-a few KB moved and 0.2-0.5 MFLOP fp32 per env and control step; at 4000 envs
+a few KB moved and 0.1-0.6 MFLOP fp32 per env and control step; at 4000 envs
 the least time is tens of microseconds and is set by arithmetic.
 
-`launches` (K4), `p_launches` (K4c) and `exact_launches` (K5) count kernel
-launches (and nothing else).
+`launches` (K4), `p_launches` (K4c), `normal_launches` (K4b, either torque
+model) and `exact_launches` (K5) count kernel launches (and nothing else).
 """
 from __future__ import annotations
 
@@ -44,9 +46,11 @@ from . import contact as pc
 from . import dynamics as pd
 
 # number of times `control_step` launched each variant of the CUDA kernel:
-# K4 (reuse, actuator network), K4c (reuse, P control), K5 (exact mode)
+# K4 (reuse, actuator network), K4c (reuse, P control), K4b (reuse on a
+# heightfield, either torque model), K5 (exact mode)
 launches = 0
 p_launches = 0
+normal_launches = 0
 exact_launches = 0
 
 # threads per block of the CUDA kernel: one env per thread; at 4000 envs a
@@ -177,8 +181,8 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
     `exact_inputs`: None for reuse mode (cache from `em`, anchored at the
     entry state), or (payload_t (1, Npad), comdisp_t (3, Npad)) for exact
     mode: the whole cache is rebuilt from the current state before every
-    substep and every contact solve starts cold (flat ground only; `em` and
-    `lam_in_t` must be None).
+    substep and every contact solve starts cold (flat ground only: `n_t`,
+    `em` and `lam_in_t` must be None).
 
     Returns (q, qd, pos, quat, lin, ang, pcp, pcp_prev, lam, tau_last
     [, el, ell, vl, vll]) — all env-minor."""
@@ -322,12 +326,13 @@ def topology_header(model, hidden: int, features: int) -> str:
             + _build.model_tables(model))
 
 
-_N_IN, _N_OUT, _N_F = 38, 14, 12
+_N_IN, _N_OUT, _N_F = 39, 14, 12
 
 
 def library_spec(model, hidden: int = 32, features: int = 6):
     """What `_build.build_libraries` needs to build csrc/megastep.cu (all
-    four variants: K4, K4c and K5 with either torque model)."""
+    its variants: K4, K4c, K4b with either torque model, K5 with either
+    torque model)."""
     return ("megastep", topology_header(model, hidden, features),
             (_N_IN, _N_OUT, _N_F))
 
@@ -355,10 +360,12 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
 
     Tensors on the CPU: the plain version.  Tensors on a CUDA device: the
     kernel of csrc/megastep.cu, launched on the current stream without
-    synchronising, outputs allocated here.  The kernel covers flat ground
-    with either torque model, in reuse and in exact mode; anything else on
-    a CUDA device raises, as does a failed build or launch."""
-    global launches, p_launches, exact_launches
+    synchronising, outputs allocated here.  The kernel covers either torque
+    model in reuse mode on flat ground and on a heightfield (`n_t`), and in
+    exact mode on flat ground; exact mode with `n_t` raises on every device,
+    as does anything else the kernel does not take on a CUDA device and a
+    failed build or launch."""
+    global launches, p_launches, normal_launches, exact_launches
     kw = dict(model=model, control_type=control_type, dt=dt,
               num_iters=num_iters, warm_iters=warm_iters,
               relaxation=relaxation, baumgarte=baumgarte, slop=slop,
@@ -376,11 +383,8 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
             lam_in_t, **kw)
     if dev.type != "cuda":
         raise ValueError(f"control_step: unsupported device {dev}")
-    if n_t is not None:
-        raise NotImplementedError(
-            "control_step on CUDA: heightfield normals (n_t) need the "
-            "general-normal kernel variant (K4b, ROADMAP item 15), which is "
-            "not written yet")
+    if exact_inputs is not None and n_t is not None:
+        raise ValueError("exact mode is flat-ground only: n_t must be None")
     if control_type not in ("P", "actuator_net"):
         raise ValueError(f"control_step: unknown control_type "
                          f"{control_type!r}")
@@ -388,7 +392,7 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
         raise ValueError("exact mode starts every contact solve cold: "
                          "lam_in_t must be None")
     ptrs, outs, floats, ints, (H, F) = kernel_operands(
-        em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
+        em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
         tgt_t, strengths_t, ctrl_inputs, vlim, tlim, qlo, qhi, lam_in_t, **kw)
     lib = build_library(model, H, F)
     with torch.cuda.device(dev):
@@ -396,6 +400,8 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
                       torch.cuda.current_stream(dev).cuda_stream)
     if exact_inputs is not None:
         exact_launches += 1
+    elif n_t is not None:
+        normal_launches += 1
     elif control_type == "P":
         p_launches += 1
     else:
@@ -403,7 +409,7 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     return tuple(o for o in outs if o is not None)
 
 
-def kernel_operands(em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t,
+def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
                     lin_t, ang_t, tgt_t, strengths_t, ctrl_inputs,
                     vlim, tlim, qlo, qhi, lam_in_t=None, *,
                     model, control_type: str, dt: float, num_iters: int,
@@ -414,7 +420,7 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t,
                     max_base_lin_vel: float, decimation: int,
                     eps: float = 1e-6, exact_inputs=None):
     """The arguments of csrc/megastep.cu's `megastep_launch` for one control
-    step (flat ground): input pointers in its InIdx order (null where the
+    step: input pointers in its InIdx order (null where the
     variant reads nothing), the output tensors, allocated on the inputs'
     device, in OutIdx order (None where the variant writes nothing), the
     FIdx floats, the int scalars and the actuator network's (hidden,
@@ -462,6 +468,8 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t,
         ("qlo", qlo, (nj, 1)), ("qhi", qhi, (nj, 1))))
     if lam_in_t is not None:
         given["lam_in_t"] = (lam_in_t, (P, 3, Npad))
+    if n_t is not None:
+        given["n_t"] = (n_t, (P, 3, Npad))
     if pctrl:
         given["kp_t"] = (kp_t, (nj, Npad))
         given["kd_t"] = (kd_t, (nj, Npad))
@@ -475,7 +483,7 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t,
              "quat_t", "lin_t", "ang_t", "tgt_t", "strengths_t", "W0b", "b0b",
              "W1b", "b1b", "W2b", "b2b", "el_t", "ell_t", "vl_t", "vll_t",
              "vlim", "tlim", "qlo", "qhi", "kp_t", "kd_t", "payload_t",
-             "comdisp_t")
+             "comdisp_t", "n_t")
     assert len(slots) == _N_IN and set(given) <= set(slots)
     ptrs = [None if name not in given else
             _build.check(name, given[name][0], given[name][1], dev).data_ptr()
@@ -491,7 +499,7 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, q_t, qd_t, pos_t, quat_t,
               limit_stiffness, limit_damping, max_base_ang_vel,
               max_base_lin_vel, eps, 0.5 * dt)
     ints = (Npad, D, num_iters, warm_iters, bool(contact), KERNEL_THREADS,
-            pctrl, exact)
+            pctrl, exact, n_t is None)
     return ptrs, outs, floats, ints, (H, F)
 
 
@@ -539,16 +547,18 @@ def cache_rebuild_ops(model) -> int:
 
 def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
                  features: int = 6, control_type: str = "actuator_net",
-                 exact: bool = False, num_iters: int = 16):
+                 exact: bool = False, num_iters: int = 16, flat: bool = True):
     """(bytes moved, fp32 operations) per env for one control step of the
     kernel variant: each input read once and each output written once, and
     the arithmetic the algorithm needs with its static sparsity (a
-    multiply-add counts 2).  Reuse mode (K4, K4c): the cache is an input,
-    built once per control step into J and W, every substep warm-started
-    with `warm_iters` sweeps.  Exact mode (K5): payload and COM shift in
-    place of the cache, which is rebuilt (`cache_rebuild_ops`) and formed
-    into J and W before every substep, and every solve runs `num_iters`
-    sweeps from a cold start.  The actuator weights and the bound columns
+    multiply-add counts 2).  Reuse mode (K4, K4c; K4b with `flat` False):
+    the cache is an input, built once per control step into J and W, every
+    substep warm-started with `warm_iters` sweeps (cold with `num_iters`
+    where `warm_iters` is 0); K4b also reads the normals, forms W's six
+    distinct entries and n^T W n, and runs the general-normal rows.  Exact
+    mode (K5): payload and COM shift in place of the cache, which is
+    rebuilt (`cache_rebuild_ops`) and formed into J and W before every
+    substep, and every solve runs `num_iters` sweeps from a cold start.  The actuator weights and the bound columns
     are shared by all envs and are not counted per env."""
     nv, nb = model.nv, model.nb
     nj = nv - 6
@@ -559,18 +569,26 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
     hist = 0 if pctrl else 4 * nj
     cache_in = (1 + 3) if exact else (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv
                                       + P * 3 + P * 3)   # + the lam seed
+    if not flat:
+        cache_in += P * 3                                  # the normals
     floats_in = (cache_in + P + 1 + 1 + 3 + 2 * nj + 3 + 4 + 3 + 3 + D * nj
                  + nj + (2 * nj if pctrl else hist))
     floats_out = 2 * nj + 3 + 4 + 3 + 3 + 3 * P * 3 + nj + hist
     nd = anc_p.sum(axis=1)                    # dofs per point
     jnz = int(3 * nd.sum())                   # nonzero J entries
-    cache = int(sum(3 * 2 * d * d + 4 * 2 * d for d in nd)) + 9 * jnz // 3
+    # per point: t_i = J_i M^-1 over its dofs, then W's entries and the
+    # normal row's mass (flat: 4 entries; else 6 and n^T W n, 20 operations)
+    n_w = 4 if flat else 6
+    cache = int(sum(3 * 2 * d * d + n_w * 2 * d for d in nd)) + 9 * jnz // 3
+    if not flat:
+        cache += 20 * P
     torque = 4 * nj if pctrl else (
         nj * 2 * (features * hidden + hidden * hidden + hidden)
         + nj * 2 * hidden * 4)
     dyn = pd.dyn_ops(anc)
-    solve = pc.solve_ops(jnz, P, nv, num_iters if exact else warm_iters,
-                         not exact)
+    warm = not exact and warm_iters > 0
+    solve = pc.solve_ops(jnz, P, nv, warm_iters if warm else num_iters,
+                         warm, flat)
     integ = 100 + 4 * nv
     per_substep = torque + 10 * nj + 2 * dyn + 4 * nv + solve + integ
     if exact:

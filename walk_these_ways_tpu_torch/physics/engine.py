@@ -22,9 +22,10 @@ non-kernel halves of the two functions above) are not ported yet.
   `root_states` / `dof_state`, so env code matches the reference 1:1.
 - Mass matrix via CRBA and bias forces via RNEA(qdd=0), with world-frame
   spatial vectors referenced at each env's base position.
-- Contacts: sphere/point vs. flat ground, solved as velocity-level
-  unilateral constraints by row-decoupled projected Jacobi in dual space,
-  the friction row clamped to the mu * lambda_n cone.
+- Contacts: sphere/point vs. flat ground or a heightfield (bilinear
+  height and surface normal sampled per point once per cache), solved as
+  velocity-level unilateral constraints by row-decoupled projected Jacobi
+  in dual space, the friction row clamped to the mu * lambda_n cone.
 - Joint limits: stiff one-sided springs; joint velocity clamped to the URDF
   limit.
 
@@ -116,22 +117,46 @@ class ContactInfo(NamedTuple):
 
 class Terrain(NamedTuple):
     """Heightfield terrain. A zero (2, 2) field is flat ground at z=0.
-    Only flat ground is run by this package so far."""
+
+    `corners` is a corner-packed copy of the field:
+    corners[i, j] = (h[i,j], h[i+1,j], h[i,j+1], h[i+1,j+1]), so that a
+    bilinear lookup gathers one contiguous 4-vector per query point.
+    A heightfield is built with `make_heightfield_terrain`, which makes
+    it; flat ground has none."""
 
     height: torch.Tensor       # (rows, cols) float32 heights [m]
     horizontal_scale: float    # grid pitch [m] (static)
     origin_xy: tuple           # (x0, y0) of grid index (0, 0)  (static)
+    corners: "torch.Tensor | None" = None  # (rows-1, cols-1, 4)
 
     def lookup(self, x, y):
-        """Height + surface normal at world (x, y). Shapes preserved."""
+        """Bilinear height + surface normal at world (x, y). Shapes
+        preserved.  Queries outside the field take the border cell's
+        plane clamped to its edge."""
         if tuple(self.height.shape) == (2, 2):
+            # flat ground (static shape check): no gathers
             h = torch.zeros_like(x) + self.height[0, 0]
             n = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype,
                              device=x.device).expand(tuple(x.shape) + (3,))
             return h, n
-        raise NotImplementedError(
-            "heightfield terrain lookup belongs to the rough-terrain slice "
-            "of the port, which is not written yet")
+        hs = self.horizontal_scale
+        gx = (x - self.origin_xy[0]) / hs
+        gy = (y - self.origin_xy[1]) / hs
+        H, W = self.height.shape
+        i0 = torch.clamp(torch.floor(gx).to(torch.int32), 0, H - 2)
+        j0 = torch.clamp(torch.floor(gy).to(torch.int32), 0, W - 2)
+        fx = torch.clamp(gx - i0, 0.0, 1.0)
+        fy = torch.clamp(gy - j0, 0.0, 1.0)
+        # one gather of contiguous 4-vectors on the flattened grid
+        c = self.corners.reshape(-1, 4)[(i0 * (W - 1) + j0).long()]
+        h00, h10, h01, h11 = c[..., 0], c[..., 1], c[..., 2], c[..., 3]
+        h = (h00 * (1 - fx) * (1 - fy) + h10 * fx * (1 - fy)
+             + h01 * (1 - fx) * fy + h11 * fx * fy)
+        dhdx = ((h10 - h00) * (1 - fy) + (h11 - h01) * fy) / hs
+        dhdy = ((h01 - h00) * (1 - fx) + (h11 - h10) * fx) / hs
+        n = torch.stack([-dhdx, -dhdy, torch.ones_like(h)], dim=-1)
+        n = n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True))
+        return h, n
 
 
 def flat_terrain(device="cuda") -> Terrain:
@@ -140,28 +165,49 @@ def flat_terrain(device="cuda") -> Terrain:
                    horizontal_scale=1.0, origin_xy=(-1e4, -1e4))
 
 
+def make_heightfield_terrain(height, horizontal_scale, origin_xy,
+                             device="cuda") -> Terrain:
+    """Heightfield Terrain with the corner-packed lookup table prebuilt."""
+    height = torch.as_tensor(np.asarray(height), dtype=torch.float32,
+                             device=device)
+    corners = torch.stack([height[:-1, :-1], height[1:, :-1],
+                           height[:-1, 1:], height[1:, 1:]],
+                          dim=-1).contiguous()
+    return Terrain(height=height, horizontal_scale=horizontal_scale,
+                   origin_xy=tuple(origin_xy), corners=corners)
+
+
 def build_pallas_env_inputs(model: RobotModel, state: PhysicsState,
                             dyn: DynamicsParams,
                             terrain: "Terrain | None" = None,
                             block: int = 256):
     """Env-minor kernel inputs: the scalar-per-env dynamics cache
-    (physics/envminor.py) plus per-point gap offsets, friction/restitution
-    and gravity.  (Name kept from the JAX package.)
+    (physics/envminor.py) plus per-point gap offsets, friction/restitution,
+    gravity and, on a heightfield, surface normals.  (Name kept from the JAX
+    package.)
+
+    On a heightfield the height h and the normal n are sampled at the
+    cache geometry (the entry contact points `em.p_cp_t`), once per cache:
+    rh_t = h + radius.  The padded env lanes of `n_t` hold +z (valid
+    lanes are untouched): a zero normal there would make the normal row's
+    mass n^T W n zero and the kernels' impulses NaN.
 
     Returns (em: EnvMinorCache, rh_t (P, Npad), mu_t (1, Npad),
     e_t (1, Npad), g_t (3, Npad), n_t (P, 3, Npad) | None)."""
-    _flat_only(terrain)
     em = envminor.build_cache_envminor(model, state, dyn, block)
-    return (em,) + _contact_inputs(model, dyn, em.Sw_t.shape[-1], block) \
-        + (None,)
-
-
-def _flat_only(terrain):
+    Npad = em.Sw_t.shape[-1]
+    rh_t, mu_t, e_t, g_t = _contact_inputs(model, dyn, Npad, block)
+    n_t = None
     if terrain is not None and tuple(terrain.height.shape) != (2, 2):
-        raise NotImplementedError(
-            "heightfield terrain (per-point normals n_t) belongs to the "
-            "rough-terrain slice of the port (ROADMAP item 15), which is not "
-            "written yet")
+        N = state.base_pos.shape[0]
+        p_cp = pc.from_env_minor(em.p_cp_t, N)                # (N, P, 3)
+        h, n_srf = terrain.lookup(p_cp[..., 0], p_cp[..., 1])
+        radius = torch.as_tensor(np.asarray(model.cp_radius),
+                                 dtype=h.dtype, device=h.device)
+        rh_t = pc.to_env_minor(h + radius[None, :], block)
+        n_t = pc.to_env_minor(n_srf, block)
+        n_t[:, 2, N:] = 1.0
+    return em, rh_t, mu_t, e_t, g_t, n_t
 
 
 def _contact_inputs(model: RobotModel, dyn: DynamicsParams, Npad: int,
@@ -376,7 +422,11 @@ def megakernel_args(
     if exact:
         # no cache here: the kernel rebuilds it before every substep.
         # Flat ground only; every contact solve starts cold.
-        _flat_only(terrain)
+        if terrain is not None and tuple(terrain.height.shape) != (2, 2):
+            raise ValueError(
+                "exact mode in the control-step kernel is flat-ground only; "
+                "on a heightfield the env runs exact mode as `decimation` "
+                "reuse-mode launches of one substep each")
         N = state.base_pos.shape[0]
         em, n_t = None, None
         rh_t, mu_t, e_t, g_t = _contact_inputs(
@@ -453,7 +503,9 @@ def control_step_megakernel(
     (ops/megastep.control_step): `decimation` substeps of torque model +
     cached dynamics + contact + integration in a single launch, with the
     J/W cache built in-kernel.  Reuse-mode semantics (cache anchored at
-    the entry state, contact points advanced at velocity level) — or, with
+    the entry state, contact points advanced at velocity level; on a
+    heightfield the surface normals sampled at the entry contact points
+    go to the kernel's general-normal variant) — or, with
     `exact=True`, exact per-substep semantics: the kernel rebuilds the whole
     cache (FK/twists/inertia/CRBA/M^-1/J/W) from the current state before
     every substep (flat ground only; every contact solve starts cold, as in

@@ -2,16 +2,19 @@
 
 Counterpart of the JAX package's scripts/train.py (reference
 scripts/train.py:1-256, train_go1): the config is the `mob_train_cfg` preset
-(or, with `--config small`, `small_train_cfg`: flat, no DR, P control), the
-trainer is the PPO-CSE loop of learn/runner.py, logging goes to a local
-JSONL run dir.  Runs on the GPU only: without a CUDA device it raises.
+(with `--terrain rough`, `rough_train_cfg`: the same stack on a rough
+heightfield; with `--config small`, `small_train_cfg`: flat, no DR, P
+control), the trainer is the PPO-CSE loop of learn/runner.py, logging goes
+to a local JSONL run dir.  Runs on the GPU only: without a CUDA device it
+raises.
 
 Usage: python -m walk_these_ways_tpu_torch.scripts.train
-           [--num-envs 4000] [--iterations 1500] [--exact] [--resume CKPT]
+           [--num-envs 4000] [--iterations 1500] [--exact]
+           [--terrain rough] [--resume CKPT]
 
 The flags of later slices of the port raise NotImplementedError naming their
-ROADMAP item: `--terrain rough` (15), `--algo rma` (19), `--mesh` and
-`--multihost` (22), the eval flags (18) and `--shared-ckpt` (22).
+ROADMAP item: `--algo rma` (19), `--mesh` and `--multihost` (22), the eval
+flags (18) and `--shared-ckpt` (22).
 """
 import argparse
 import dataclasses
@@ -31,11 +34,11 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
 
     from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv
     from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
+                                                      rough_train_cfg,
                                                       small_train_cfg)
     from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
 
     later = (
-        (terrain == "rough", "--terrain rough", 15),
         (algo == "rma", "--algo rma", 19),
         (use_mesh or multihost, "--mesh / --multihost", 22),
         (bool(num_eval_envs or eval_expert or eval_dr or eval_terrain),
@@ -47,14 +50,20 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
             raise NotImplementedError(
                 f"{flag} belongs to a later slice of the PyTorch port "
                 f"(ROADMAP item {item})")
+    if terrain == "rough" and config == "small":
+        raise ValueError("--terrain rough runs rough_train_cfg; there is no "
+                         "small configuration on rough terrain")
     if not torch.cuda.is_available():
         raise RuntimeError("the PyTorch port trains on a CUDA device: "
                            "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = (small_train_cfg if config == "small" else mob_train_cfg)(
-        num_envs=num_envs)
+    if terrain == "rough":
+        cfg_fn = rough_train_cfg
+    else:
+        cfg_fn = small_train_cfg if config == "small" else mob_train_cfg
+    cfg = cfg_fn(num_envs=num_envs)
     sim = cfg.sim
     if warm_start is not None:
         sim = dataclasses.replace(sim, contact_warm_start=warm_start)
@@ -99,7 +108,7 @@ def main(argv=None):
                    help="exact per-substep dynamics (reuse_matrices off)")
     p.add_argument("--terrain", choices=["flat", "rough"], default="flat",
                    help="flat = MoB boxes tiles (default); rough = "
-                        "rough-slope heightfield (item 15)")
+                        "go1_config.rough_train_cfg (rough heightfield)")
     p.add_argument("--warm-start", dest="warm_start", action="store_true",
                    default=None,
                    help="warm-start contact impulses across decimation "
