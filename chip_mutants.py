@@ -23,9 +23,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("walk_these_ways_tpu_torch", "csrc")
 # (name, source, text to replace, replacement, the check that must fail)
 MUTANTS = (
+    # the one-thread kernels' dynamics (K3 is the first checked that runs
+    # them; K4 runs the team kernel's own, next)
     ("shared_dynamics_bias_sign", "wtw_device.cuh",
      "tb[6 + j] = tau[6 + j] - acc;", "tb[6 + j] = tau[6 + j] + acc;",
+     "dynamics_substep"),
+    ("team_dynamics_bias_sign", "megastep_team.cu",
+     "s.x[lane] = s.tau[lane] - acc;", "s.x[lane] = s.tau[lane] + acc;",
      "control_step"),
+    # the team kernel's sum of the points' J^T dlam rows into the dof slots
+    # reads one slot past a point's leg columns (the next point's row)
+    ("team_dof_sum_reads_past_the_points_columns", "megastep_team.cu",
+     "if (k >= 0 && k < MS_PT_N[p]) acc += s.u.jt[p][6 + k];",
+     "if (k >= 0 && k <= MS_PT_N[p]) acc += s.u.jt[p][6 + k];",
+     "control_step"),
+    # the in-kernel heightfield sample (K4b) tilts the normal the wrong way
+    # along x
+    ("heightfield_sample_slope_sign", "wtw_device.cuh",
+     "const float nx = -dhdx, ny = -dhdy, nz = 1.0f;",
+     "const float nx = dhdx, ny = -dhdy, nz = 1.0f;",
+     "control_step_normals"),
     ("dynamics_substep_integration_sign", "dynamics_substep.cu",
      "gv[v] = gv[v] + a.c.dt * qdd[v];", "gv[v] = gv[v] - a.c.dt * qdd[v];",
      "dynamics_substep"),
@@ -48,6 +65,10 @@ MUTANTS = (
     ("cache_rebuild_drops_payload_scale", "wtw_cache.cuh",
      "const float scale0 = mass[0] / MS_MASS[0];",
      "const float scale0 = 1.0f;", "control_step_exact"),
+    # the same edit in the team kernel's entry-cache build (K4, K4b)
+    ("team_cache_drops_payload_scale", "megastep_team.cu",
+     "const float scale0 = (MS_MASS[0] + payload) / MS_MASS[0];",
+     "const float scale0 = 1.0f;", "control_step"),
     # K5 reads a stale M^-1 after its first substep: the matrix of substep 0,
     # plausible values one to three substeps old, as a read of the rewritten
     # cache through a path that is not coherent with the kernel's own stores

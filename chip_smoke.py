@@ -43,6 +43,7 @@ non-zero if any phase fails or no CUDA device is present.
 The last line of the output is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": n}}
 """
+import ctypes
 import dataclasses
 import json
 import os
@@ -141,6 +142,7 @@ def reset_counts():
     megastep.launches = 0
     megastep.p_launches = 0
     megastep.normal_launches = 0
+    megastep.p_normal_launches = 0
     megastep.exact_launches = 0
     contact.cache_launches = 0
     contact.substep_launches = 0
@@ -153,6 +155,7 @@ def counts():
     return dict(control_step=megastep.launches,
                 control_step_p=megastep.p_launches,
                 control_step_normals=megastep.normal_launches,
+                control_step_normals_p=megastep.p_normal_launches,
                 control_step_exact=megastep.exact_launches,
                 contact_cache=contact.cache_launches,
                 contact_substep=contact.substep_launches,
@@ -177,14 +180,17 @@ def bound(nbytes, nops, n):
                 bound_by="operations" if o_ms >= b_ms else "bytes")
 
 
-def kernel_call_of(env, state):
+def kernel_call_of(env, state, eager_cache=False):
     """(args, kwargs) of the control-step call that `env.step` makes from
-    `state`."""
+    `state`; with `eager_cache` the entry cache (and on a heightfield the
+    normals) built on the host, as the plain version of K4 and K4b is fed
+    here: their kernel builds it inside its launch."""
     _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
         state.motor_strengths, env.torque_limits, ctrl,
-        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices)
+        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices,
+        eager_cache=eager_cache)
 
 
 def compare(kernel, state_name, names, out_k, out_r, n_valid):
@@ -305,15 +311,43 @@ def compare_substep_kernels(env, state, state_name, worst):
     return (k1, k2, k3, k3_kw, x)
 
 
-def timing(kernel, fn_kernel, fn_plain, work, n, **extra):
-    ms = time_cuda(fn_kernel, 20)
+def megastep_launch(model, args, kw):
+    """The control-step kernel's launch on operands packed once: one ctypes
+    call, without the wrapper's checks and allocations."""
+    ptrs, outs, floats, ints, (H, F) = megastep.kernel_operands(*args, **kw)
+    team = kw["entry_inputs"] is not None
+    lib = megastep.build_library(model, H, F, team)
+    name = "megastep_team" if team else "megastep"
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    return lambda: _build.launch(lib, name, ptrs, outs, floats, ints, stream)
+
+
+def dynamics_launch(args, kw):
+    """The dynamics-substep kernel's launch on operands packed once."""
+    ptrs, outs, floats, ints = dynamics.kernel_operands(
+        *args, **{k: v for k, v in kw.items() if k != "joint_body"})
+    lib = dynamics.build_library(kw["anc"], kw["joint_body"], kw["cp_body"])
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    return lambda: _build.launch(lib, "dynamics_substep", ptrs, outs, floats,
+                                 ints, stream)
+
+
+def timing(kernel, fn_kernel, fn_plain, work, n, launch=None, **extra):
+    """The kernel's time over 20 back-to-back launches (CUDA events):
+    `launch` (operands packed once, so that the device and not the
+    wrapper's Python paces the launches) where given, else the wrapper
+    `fn_kernel`; the wrapper's own time beside it; the plain version's."""
+    wrapper_ms = time_cuda(fn_kernel, 20)
+    ms = wrapper_ms if launch is None else time_cuda(launch, 20)
     plain_ms = time_host(fn_plain)
     b = bound(*work, n)
     say(phase="kernel_timing", kernel=kernel, n_envs=n, kernel_ms=ms,
-        plain_ms=plain_ms, **b, **extra,
+        wrapper_ms=wrapper_ms, plain_ms=plain_ms, **b, **extra,
         note="kernel timed over 20 back-to-back launches on one input set "
-             "(inputs L2-resident); plain version is one eager call, the "
-             "less of two")
+             "(inputs L2-resident): "
+             + ("launches of operands packed once" if launch is not None
+                else "wrapper calls, which may pace them")
+             + "; plain version is one eager call, the less of two")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"])
 
@@ -549,11 +583,15 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
                 ("control_step_normals", env_r, OUT_NAMES),
                 ("control_step_normals_p", env_rp, OUT_NAMES[:10])):
             args, kw = kernel_call_of(env_x, state)
-            assert args[5] is not None                  # the normals
+            p_args, p_kw = kernel_call_of(env_x, state, eager_cache=True)
+            # the normals (K4b-P), or the terrain K4b samples in its launch
+            assert p_args[5] is not None
+            assert (args[5] is None) == (key == "control_step_normals")
             worst[key] = max(worst.get(key, 0.0), compare(
                 key, st_name, names,
                 lambda: megastep.control_step(*args, **kw),
-                lambda: megastep.control_step_reference(*args, **kw), N))
+                lambda: megastep.control_step_reference(*p_args, **p_kw),
+                N))
             calls.append((args, kw))
         x = substep_inputs(env_rs, state)
         k3, k3_kw = substep_kernel_calls(x)[2:4]
@@ -565,7 +603,7 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
                 lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
                 N))
         calls.append((k3, k3_kw))
-    n_t = calls[0][0][5]
+    n_t = calls[1][0][5]
     say(phase="rough_normals", state="24_random_steps_in",
         normal_z_min=float(n_t[:, 2, :N].min()),
         padded_lanes_plus_z=bool((n_t[:, 2, N:] == 1).all()))
@@ -573,9 +611,10 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
 
 
 def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi,
-                block):
-    """A rollout on rough terrain, with the time of one eager cache build
-    (terrain samples included) at the route's block."""
+                block=None):
+    """A rollout on rough terrain; on a route that builds its cache on the
+    host (`block` given), with the time of one eager cache build (terrain
+    samples included) at the route's block."""
     state, obs = env_x.reset(gen)
     torch.cuda.synchronize()
     reset_counts()
@@ -584,13 +623,39 @@ def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi,
     torch.cuda.synchronize()
     seconds = time.time() - t0
     got = counts()
-    cache_ms = time_host(lambda: engine.build_pallas_env_inputs(
-        env_x.model, state.phys, env_x.dynamics_params(state)[1],
-        env_x.terrain, block))
+    extra = {} if block is None else dict(
+        entry_cache_build_ms=time_host(lambda: engine.build_pallas_env_inputs(
+            env_x.model, state.phys, env_x.dynamics_params(state)[1],
+            env_x.terrain, block)))
     return check_rollout(
         name, env_x, state, obs, ro, steps, seconds, expect_counts, smi,
-        config=config, need_resets=False, got=got,
-        entry_cache_build_ms=cache_ms)
+        config=config, need_resets=False, got=got, **extra)
+
+
+def team_occupancy(lib):
+    """Launch shape of the team kernel (K4, K4b) and its resident blocks
+    and warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn = lib.megastep_team_occupancy
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    rc = fn(*[ctypes.byref(v) for v in vals])
+    blocks_flat, blocks_rough, threads, smem = (v.value for v in vals)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    envs_per_block = threads // 32
+    say(phase="team_occupancy", kernel="megastep_team (K4, K4b)",
+        threads_per_block=threads, envs_per_block=envs_per_block,
+        static_shared_bytes_per_block=smem, multiprocessors=sms,
+        blocks_per_sm=dict(flat=blocks_flat, heightfield=blocks_rough),
+        warps_per_sm=dict(flat=blocks_flat * envs_per_block,
+                          heightfield=blocks_rough * envs_per_block),
+        waves_at_n_envs=dict(
+            n_envs=N_ENVS,
+            flat=N_ENVS / max(1, blocks_flat * envs_per_block * sms),
+            heightfield=N_ENVS / max(1, blocks_rough * envs_per_block * sms)),
+        ok=rc == 0)
+    if rc != 0:
+        raise SystemExit(f"megastep_team_occupancy failed: {rc}")
 
 
 def agreement(phase, what, s_a, s_b, n, max_envs_beyond=0, why=None):
@@ -697,19 +762,21 @@ def main():
 
     # ---- build: one nvcc per source, all started together ----------------
     t0 = time.time()
-    _build.build_libraries([
+    libs = _build.build_libraries([
         megastep.library_spec(m, 32, 6),
+        megastep.library_spec(m, 32, 6, team=True),
         contact.cache_spec(nv, P), contact.substep_spec(nv, P),
         dynamics.library_spec(m.anc_dof_body, m.joint_body, m.cp_body)])
-    for name in ("megastep", "contact_cache", "contact_substep",
-                 "dynamics_substep"):
+    for name in ("megastep", "megastep_team", "contact_cache",
+                 "contact_substep", "dynamics_substep"):
         b = _build.builds[name]
         say(phase="build", library=name, source=CSRC + name + ".cu",
             seconds=b["seconds"], cached=b["cached"], command=b["command"],
             ptxas=[ln.strip() for ln in b["log"].splitlines()
                    if "registers" in ln or "stack frame" in ln
                    or "Compiling entry" in ln][:48])
-    say(phase="build_all", sources=4, libraries=4, seconds=time.time() - t0)
+    say(phase="build_all", sources=5, libraries=5, seconds=time.time() - t0)
+    team_occupancy(libs[1])
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
@@ -726,17 +793,19 @@ def main():
     state, obs = env.reset(gen)
     state0 = state
     args, kwargs = kernel_call_of(env, state)
+    p_args, p_kwargs = kernel_call_of(env, state, eager_cache=True)
     worst["control_step"] = compare(
         "control_step", "after_reset", OUT_NAMES,
         megastep.control_step(*args, **kwargs),
-        megastep.control_step_reference(*args, **kwargs), N)
+        megastep.control_step_reference(*p_args, **p_kwargs), N)
     compare_substep_kernels(env_sub, state, "after_reset", worst)
     # 24 control steps of random actions in: feet and bodies on the ground
     for _ in range(24):
         a = torch.randn((N, 12), generator=gen, device=DEV)
         state, obs, _, _, _ = env.step(state, a)
     args, kwargs = kernel_call_of(env, state)
-    out_r = megastep.control_step_reference(*args, **kwargs)
+    p_args, p_kwargs = kernel_call_of(env, state, eager_cache=True)
+    out_r = megastep.control_step_reference(*p_args, **p_kwargs)
     worst["control_step"] = max(worst["control_step"], compare(
         "control_step", "24_random_steps_in", OUT_NAMES,
         megastep.control_step(*args, **kwargs), out_r, N))
@@ -772,6 +841,9 @@ def main():
         rough_kernel_checks(env_r, env_rp, env_rs, gen, worst)
 
     # ---- kernel timing, bounds, plain versions' times ---------------------
+    # K4 and K4b build their entry cache in the launch: the kernel's time
+    # and its plain version's (eager build + plain step) include it; the
+    # eager build alone, which the routes no longer make, is timed beside
     timed = {}
     t0 = time.time()
     engine.build_pallas_env_inputs(env.model, state.phys,
@@ -783,9 +855,10 @@ def main():
         "control_step", lambda: megastep.control_step(*args, **kwargs),
         lambda: megastep.control_step_reference(*args, **kwargs),
         megastep.work_per_env(m, cfg.control.decimation,
-                              cfg.sim.num_contact_iters_warm), N,
-        entry_cache_build_ms=cache_ms,
-        threads_per_block=megastep.KERNEL_THREADS)
+                              cfg.sim.num_contact_iters_warm, entry=True), N,
+        launch=megastep_launch(m, args, kwargs),
+        eager_entry_cache_build_ms=cache_ms,
+        threads_per_block=megastep.TEAM_THREADS)
     anc_p_np = np.asarray(m.anc_dof_body)[:, np.asarray(m.cp_body)].T
     timed["contact_cache"] = timing(
         "contact_cache", lambda: contact.build_contact_cache(*k1),
@@ -803,18 +876,21 @@ def main():
         "dynamics_substep", lambda: dynamics.dynamics_substep(*k3, **k3_kw),
         lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
         dynamics.work_per_env(m.anc_dof_body, m.cp_body, iters), N,
+        launch=dynamics_launch(k3, k3_kw),
         threads_per_block=dynamics.KERNEL_THREADS)
     D = cfg.control.decimation
     timed["control_step_p"] = timing(
         "control_step_p", lambda: megastep.control_step(*args_p, **kw_p),
         lambda: megastep.control_step_reference(*args_p, **kw_p),
         megastep.work_per_env(m, D, kw_p["warm_iters"], control_type="P"),
-        N, threads_per_block=megastep.KERNEL_THREADS,
+        N, launch=megastep_launch(m, args_p, kw_p),
+        threads_per_block=megastep.KERNEL_THREADS,
         max_abs_err_vs_plain=worst["control_step_p"])
     timed["control_step_exact"] = timing(
         "control_step_exact", lambda: megastep.control_step(*args_x, **kw_x),
         lambda: megastep.control_step_reference(*args_x, **kw_x),
         megastep.work_per_env(m, D, 0, exact=True, num_iters=iters), N,
+        launch=megastep_launch(m, args_x, kw_x),
         threads_per_block=megastep.KERNEL_THREADS,
         max_abs_err_vs_plain=worst["control_step_exact"])
     t0 = time.time()
@@ -827,9 +903,11 @@ def main():
         "control_step_normals",
         lambda: megastep.control_step(*args_b, **kw_b),
         lambda: megastep.control_step_reference(*args_b, **kw_b),
-        megastep.work_per_env(m, D, kw_b["warm_iters"], flat=False), N,
-        entry_cache_build_ms=rough_cache_ms,
-        threads_per_block=megastep.KERNEL_THREADS,
+        megastep.work_per_env(m, D, kw_b["warm_iters"], flat=False,
+                              entry=True), N,
+        launch=megastep_launch(m, args_b, kw_b),
+        eager_entry_cache_build_ms=rough_cache_ms,
+        threads_per_block=megastep.TEAM_THREADS,
         max_abs_err_vs_plain=worst["control_step_normals"])
     timed["control_step_normals_p"] = timing(
         "control_step_normals_p",
@@ -837,6 +915,7 @@ def main():
         lambda: megastep.control_step_reference(*args_bp, **kw_bp),
         megastep.work_per_env(m, D, kw_bp["warm_iters"], control_type="P",
                               flat=False), N,
+        launch=megastep_launch(m, args_bp, kw_bp),
         threads_per_block=megastep.KERNEL_THREADS,
         max_abs_err_vs_plain=worst["control_step_normals_p"])
     timed["dynamics_substep_normals"] = timing(
@@ -844,7 +923,8 @@ def main():
         lambda: dynamics.dynamics_substep(*k3b, **k3b_kw),
         lambda: dynamics.dynamics_substep_reference(*k3b, **k3b_kw),
         dynamics.work_per_env(m.anc_dof_body, m.cp_body, iters, flat=False),
-        N, threads_per_block=dynamics.KERNEL_THREADS,
+        N, launch=dynamics_launch(k3b, k3b_kw),
+        threads_per_block=dynamics.KERNEL_THREADS,
         max_abs_err_vs_plain=worst["dynamics_substep_normals"])
 
     # ---- small-input agreement: CUDA env (kernels) vs CPU env (plain) ----
@@ -901,7 +981,7 @@ def main():
     torch.cuda.synchronize()
     main_counts = check_rollout(
         "main_path", env, state, obs, ro, steps, time.time() - t0,
-        expect(control_step=steps, eager_cache_builds=steps), smi)
+        expect(control_step=steps), smi)
 
     # ---- the same rollout on the per-substep route -------------------------
     state_s, obs_s = env_sub.reset(gen)
@@ -966,8 +1046,7 @@ def main():
         raise SystemExit("contact_substep_direct phase failed")
 
     # ---- PPO training iterations on both routes ----------------------------
-    train_phase("control_step", env, gen, 1,
-                expect(control_step=steps, eager_cache_builds=steps))
+    train_phase("control_step", env, gen, 1, expect(control_step=steps))
     train_phase("substep", env_sub, gen, 1,
                 expect(contact_cache=steps, dynamics_substep=steps * D,
                        eager_cache_builds=steps))
@@ -1022,18 +1101,21 @@ def main():
     if not bench_ok:
         raise SystemExit("bench phase failed")
 
-    # ---- rough terrain: K4b, D x K4b (exact), K1 + 4 x K3b -------------
+    # ---- rough terrain: K4b, K4b-P, D x K4b (exact), K1 + 4 x K3b ---------
     rough_counts = rough_route(
         "rough_route", "rough_train_cfg", env_r, policy, steps, gen,
-        expect(control_step_normals=steps, eager_cache_builds=steps), smi,
-        engine.MEGASTEP_BLOCK)
+        expect(control_step_normals=steps), smi)
     rough_steps_exact = 4
+    rough_p_counts = rough_route(
+        "rough_p_control_route", "rough_train_cfg, control.control_type=P",
+        env_rp, policy, rough_steps_exact, gen,
+        expect(control_step_normals_p=rough_steps_exact,
+               eager_cache_builds=rough_steps_exact), smi,
+        engine.MEGASTEP_BLOCK)
     rough_route(
         "rough_exact_route", "rough_train_cfg, sim.reuse_matrices=False",
         env_rx, policy, rough_steps_exact, gen,
-        expect(control_step_normals=rough_steps_exact * D,
-               eager_cache_builds=rough_steps_exact * D), smi,
-        engine.MEGASTEP_BLOCK)
+        expect(control_step_normals=rough_steps_exact * D), smi)
     rough_sub_counts = rough_route(
         "rough_substep_route", "rough_train_cfg, sim.megastep=False", env_rs,
         policy, steps, gen,
@@ -1059,8 +1141,7 @@ def main():
             "same way, differ beyond the tolerance in 8 envs of 3995, and "
             "in 7 of the same 8 with the entry velocities scaled by 1 + "
             "1e-7 (PERF.md, section 6); at most 1 % of the envs may")
-    train_phase("rough", env_r, gen, 1,
-                expect(control_step_normals=steps, eager_cache_builds=steps))
+    train_phase("rough", env_r, gen, 1, expect(control_step_normals=steps))
     row = bench.main(num_envs=N, warmup=1, iters=1, terrain="rough")
     bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0
                     and row["metric"] == f"train_env_steps_per_s_{N}env_rough")
@@ -1080,13 +1161,15 @@ def main():
         dynamics_substep=sub_counts["dynamics_substep"],
         dynamics_substep_normals=rough_sub_counts["dynamics_substep_normals"],
         control_step_normals=rough_counts["control_step_normals"],
+        control_step_normals_p=rough_p_counts["control_step_normals_p"],
         control_step_p=p_counts["control_step_p"],
         control_step_exact=exact_counts["control_step_exact"])
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel was never launched on its path: {launches}")
     rows = (
         ("control_step", "control_step (K4: whole control step, flat ground, "
-         "actuator net, warm start)", "megastep.cu",
+         "actuator net, warm start, entry cache built in the launch, one "
+         "warp per env)", "megastep_team.cu",
          "/ops/pallas_megastep.py:154"),
         ("contact_cache", "build_contact_cache (K1: point Jacobians J and "
          "effective masses W)", "contact_cache.cu",
@@ -1102,7 +1185,12 @@ def main():
          "dynamics_substep.cu", "/ops/pallas_dynamics.py:147"),
         ("control_step_normals", "control_step with surface normals (K4b: "
          "whole control step on a heightfield, actuator net, warm start, "
-         "general-normal contact rows)", "megastep.cu",
+         "general-normal contact rows, entry cache and heightfield samples "
+         "in the launch, one warp per env)", "megastep_team.cu",
+         "/ops/pallas_megastep.py:185"),
+        ("control_step_normals_p", "control_step with surface normals, P "
+         "control (K4b-P: as K4b with tau = kp (tgt - q) - kd qd, cache "
+         "and normals built on the host, one thread per env)", "megastep.cu",
          "/ops/pallas_megastep.py:185"),
         ("control_step_p", "control_step, P control (K4c: whole control "
          "step, flat ground, reuse mode, tau = kp (tgt - q) - kd qd)",

@@ -15,7 +15,7 @@ from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
                                                   rough_train_cfg,
                                                   small_train_cfg)
 from walk_these_ways_tpu_torch.ops import contact, dynamics, megastep
-from walk_these_ways_tpu_torch.physics import engine
+from walk_these_ways_tpu_torch.physics import engine, envminor
 
 pytestmark = pytest.mark.gpu
 
@@ -27,17 +27,23 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _call(env, state):
+def _call(env, state, eager_cache=False):
+    """(args, kwargs) of the control-step call of `env.step`; with
+    `eager_cache` the entry cache built on the host, as the plain version of
+    K4 and K4b is fed (their kernel builds it in its launch)."""
     _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
         state.motor_strengths, env.torque_limits, ctrl,
-        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices)
+        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices,
+        eager_cache=eager_cache)
 
 
 def test_kernel_matches_plain_version_on_the_card(cuda):
-    """|kernel - plain| <= 2e-4 + 2e-4 |plain| on every output (float32;
-    another summation order in the kernel)."""
+    """K4 (the team kernel, entry cache built in its launch) against its
+    plain version fed the eager build: |kernel - plain| <= 2e-4 + 2e-4
+    |plain| on every output (float32; another summation order in the
+    kernel)."""
     n = 256
     env = LeggedRobotEnv(mob_train_cfg(n), device=cuda)
     gen = make_generator(0, cuda)
@@ -46,15 +52,18 @@ def test_kernel_matches_plain_version_on_the_card(cuda):
         state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
                                                 device=cuda))
     args, kwargs = _call(env, state)
+    p_args, p_kwargs = _call(env, state, eager_cache=True)
+    assert args[0] is None and kwargs["entry_inputs"] is not None
     assert args[-1] is not None and float(args[-1].abs().max()) > 0
     # with the cross-step seed (the main path), and without it: the first
     # substep then cold-starts at the full iteration count
-    for call_args in (args, args[:-1] + (None,)):
+    for seed in (args[-1], None):
         before = megastep.launches
-        out_k = megastep.control_step(*call_args, **kwargs)
+        out_k = megastep.control_step(*args[:-1], seed, **kwargs)
         torch.cuda.synchronize()
         assert megastep.launches == before + 1
-        out_r = megastep.control_step_reference(*call_args, **kwargs)
+        out_r = megastep.control_step_reference(*p_args[:-1], seed,
+                                                **p_kwargs)
         for a, b in zip(out_k, out_r):
             a, b = a[..., :n].cpu().numpy(), b[..., :n].cpu().numpy()
             np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4)
@@ -75,7 +84,7 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
     with pytest.raises(ValueError):
         megastep.control_step(*args[:6], args[6][:, :64], *args[7:], **kwargs)
     # exact mode starts every solve cold: a cross-step seed is refused
-    exact_kw = dict(kwargs, exact_inputs=(
+    exact_kw = dict(kwargs, entry_inputs=None, exact_inputs=(
         torch.zeros((1, args[6].shape[-1]), device=cuda),
         torch.zeros((3, args[6].shape[-1]), device=cuda)))
     with pytest.raises(ValueError):
@@ -90,9 +99,11 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
 @pytest.mark.parametrize("control_type", ["actuator_net", "P"])
 def test_normals_kernel_matches_plain_version_on_the_card(cuda,
                                                           control_type):
-    """K4b (either torque model) on rough_train_cfg, 10 random steps in:
-    |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane finite, padded
-    ones included."""
+    """K4b (the team kernel: entry cache and heightfield samples in its
+    launch) and K4b-P (cache and normals built on the host) on
+    rough_train_cfg, 10 random steps in, against the plain version fed the
+    eager build: |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane
+    finite, padded ones included."""
     n = 250                          # 6 padded lanes
     cfg = rough_train_cfg(n)
     cfg = dataclasses.replace(cfg, control=dataclasses.replace(
@@ -104,19 +115,50 @@ def test_normals_kernel_matches_plain_version_on_the_card(cuda,
         state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
                                                 device=cuda))
     args, kwargs = _call(env, state)
-    assert args[5] is not None
-    before = (megastep.launches, megastep.p_launches,
-              megastep.normal_launches)
+    p_args, p_kwargs = _call(env, state, eager_cache=True)
+    assert p_args[5] is not None                 # the normals
+    team = control_type == "actuator_net"
+    assert (kwargs["entry_inputs"] is not None) == team
+    counters = ("launches", "p_launches", "normal_launches",
+                "p_normal_launches")
+    before = [getattr(megastep, c) for c in counters]
     out_k = megastep.control_step(*args, **kwargs)
     torch.cuda.synchronize()
-    assert (megastep.launches, megastep.p_launches,
-            megastep.normal_launches) == before[:2] + (before[2] + 1,)
-    out_r = megastep.control_step_reference(*args, **kwargs)
+    assert [getattr(megastep, c) - b for c, b in zip(counters, before)] == (
+        [0, 0, 1, 0] if team else [0, 0, 0, 1])
+    out_r = megastep.control_step_reference(*p_args, **p_kwargs)
     for a, b in zip(out_k, out_r):
         assert bool(torch.isfinite(a).all())
         np.testing.assert_allclose(a[..., :n].cpu().numpy(),
                                    b[..., :n].cpu().numpy(),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("route", ["flat", "rough", "rough_exact"])
+def test_team_kernel_routes_make_no_eager_cache_build_on_the_card(cuda,
+                                                                  route):
+    """The default route (K4), the rough default route (K4b) and the rough
+    exact route (`decimation` K4b launches of one substep) build their
+    entry cache in the launch: no eager build; every output finite."""
+    n = 256
+    cfg = mob_train_cfg(n) if route == "flat" else rough_train_cfg(n)
+    if route == "rough_exact":
+        cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, reuse_matrices=False))
+    env = LeggedRobotEnv(cfg, device=cuda)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    counter = "launches" if route == "flat" else "normal_launches"
+    builds, before = envminor.cache_builds, getattr(megastep, counter)
+    for _ in range(3):
+        state, obs, rew, *_ = env.step(state, torch.randn(
+            (n, 12), generator=gen, device=cuda))
+    torch.cuda.synchronize()
+    assert envminor.cache_builds == builds
+    per_step = env.cfg.control.decimation if route == "rough_exact" else 1
+    assert getattr(megastep, counter) == before + 3 * per_step
+    assert bool(torch.isfinite(obs["obs"]).all())
+    assert bool(torch.isfinite(state.phys.base_pos).all())
 
 
 @pytest.mark.parametrize("variant", ["P", "exact", "P_exact"])

@@ -1,14 +1,19 @@
 """The control-step and dynamics-substep kernels' sources, built for the host
 CPU, against their plain versions.
 
-`csrc/megastep.cu` and `csrc/dynamics_substep.cu` are compiled with g++
-against a stand-in for `cuda_runtime.h` (`__device__` and `__global__`
-empty, `__ldg(p)` = `*p`, each `<<<blocks, threads>>>` launch a loop over the
-grid), loaded with ctypes and called through the port's own operand packing
-(`ops/megastep.kernel_operands`, `ops/dynamics.kernel_operands`) on CPU
-tensors.  K4, K4c, K4b (rough terrain: surface normals) and K5, each with
-either torque model where it has two, are held against
-`control_step_reference`, and K3 and K3b against
+`csrc/megastep.cu`, `csrc/megastep_team.cu` and `csrc/dynamics_substep.cu`
+are compiled with g++ against a stand-in for `cuda_runtime.h` (`__device__`
+and `__global__` empty, `__ldg(p)` = `*p`, `__shared__` = `static`; a
+one-thread-per-env kernel's `<<<blocks, threads>>>` launch is a loop over
+the grid, the team kernel's runs each block's threads as `std::thread`s
+that meet at one barrier per warp for each `__syncwarp`, the blocks one
+after another), loaded with ctypes and called through the port's own
+operand packing (`ops/megastep.kernel_operands`,
+`ops/dynamics.kernel_operands`) on CPU tensors.  K4 and K4b (the team
+kernel: entry cache and heightfield samples in the launch) against
+`control_step_reference` fed the eager build of the same state; K4c,
+K4b-P and K5 (either torque model) against `control_step_reference`, and
+K3 and K3b against
 `dynamics_substep_reference`, after a reset and after some random control
 steps, with the tolerance `chip_smoke.py` holds the card to:
 |kernel - plain| <= 2e-4 + 2e-4 |plain|.  The rough cases stand on the 2 x 2
@@ -21,7 +26,7 @@ to fuse multiply-adds (-ffp-contract=off), so every product and sum rounds as
 in the plain version; what remains is the order of summation and the float32
 library functions.
 
-    PYTHONPATH=. python tests/test_torch_host_kernel.py [--num-envs 4000]
+    PYTHONPATH=. python tests/test_torch_host_kernel.py [--num-envs 512]
 
 prints one JSON line per variant and state with the largest errors at that
 width.
@@ -55,17 +60,27 @@ OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
 
 CUDA_RUNTIME_STAND_IN = r"""
 #pragma once
+#include <algorithm>
 #include <cmath>
+#include <condition_variable>
 #include <cstddef>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __constant__ static const
+#define __shared__ static
 #define __restrict__ __restrict
 struct wtw_dim3 { unsigned x = 0; };
 static thread_local wtw_dim3 blockIdx, threadIdx, blockDim;
+struct float4 { float x, y, z, w; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -74,6 +89,13 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "invalid value" : "no error";
 }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+// one thread per env: the grid as a loop
 template <class F> void wtw_host_launch(int blocks, int threads, F kernel) {
   blockDim.x = threads;
   for (int b = 0; b < blocks; ++b)
@@ -83,24 +105,75 @@ template <class F> void wtw_host_launch(int blocks, int threads, F kernel) {
       kernel();
     }
 }
+// __syncwarp: the 32 threads of a warp meet at a barrier
+class wtw_barrier {
+  std::mutex m_;
+  std::condition_variable cv_;
+  int n_, waiting_ = 0;
+  unsigned long gen_ = 0;
+ public:
+  explicit wtw_barrier(int n) : n_(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> lock(m_);
+    const unsigned long gen = gen_;
+    if (++waiting_ == n_) {
+      waiting_ = 0;
+      ++gen_;
+      cv_.notify_all();
+    } else {
+      cv_.wait(lock, [&] { return gen_ != gen; });
+    }
+  }
+};
+static thread_local wtw_barrier* wtw_warp = nullptr;
+inline void __syncwarp(unsigned = 0xffffffffu) { wtw_warp->wait(); }
+// a team kernel: each block's threads as std::threads, one barrier per
+// warp; the blocks one after another, so a __shared__ (static) array is
+// the running block's
+template <class F>
+void wtw_host_launch_threads(int blocks, int threads, F kernel) {
+  for (int b = 0; b < blocks; ++b) {
+    std::vector<std::unique_ptr<wtw_barrier>> warps;
+    for (int w = 0; w * 32 < threads; ++w)
+      warps.emplace_back(new wtw_barrier(std::min(32, threads - 32 * w)));
+    std::vector<std::thread> team;
+    for (int t = 0; t < threads; ++t)
+      team.emplace_back([&, b, t] {
+        blockIdx.x = b;
+        threadIdx.x = t;
+        blockDim.x = threads;
+        wtw_warp = warps[t / 32].get();
+        kernel();
+      });
+    for (auto& th : team) th.join();
+  }
+}
 """
 
 
 def build_host_library(model, out_dir, name="megastep"):
-    """csrc/<name>.cu (megastep or dynamics_substep) for the host, with the
-    header the card's build gets; returns the bound ctypes library."""
+    """csrc/<name>.cu (megastep, megastep_team or dynamics_substep) for the
+    host, with the header the card's build gets; returns the bound ctypes
+    library.  The team kernel's lanes run as threads (the stand-in's
+    wtw_host_launch_threads)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
     with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as fh:
         src = fh.read()
+    launcher = ("wtw_host_launch_threads" if name == "megastep_team"
+                else "wtw_host_launch")
     src, n = re.subn(rf"({name}_kernel<[\w, ]+>)<<<(\w+), (\w+), 0, \w+>>>"
                      r"\((\w+)\);",
-                     r"wtw_host_launch(\2, \3, [&] { \1(\4); });", src)
+                     launcher + r"(\2, \3, [&] { \1(\4); });", src)
     if name == "megastep":
-        assert n == 6, "expected the six launches of the kernel's variants"
+        assert n == 4, "expected the launches of K4c, K4b-P, K5 and K5-P"
         header = t_pm.topology_header(model, 32, 6)
-        counts = (39, 14, 12)
+        counts = (41, 14, 15)
+    elif name == "megastep_team":
+        assert n == 2, "expected the launches of K4 and K4b"
+        header = t_pm.topology_header(model, 32, 6)
+        counts = (41, 14, 15)
     else:
         assert n == 2, "expected the launches of K3 and K3b"
         header = t_pd.library_spec(model.anc_dof_body, model.joint_body,
@@ -113,6 +186,7 @@ def build_host_library(model, out_dir, name="megastep"):
             fh.write(text)
     lib_path = os.path.join(out_dir, f"lib{name}_host.so")
     cmd = [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-ffp-contract=off",
+           "-pthread",
            "-Wno-unknown-pragmas", "-I", out_dir, "-I", _build.CSRC_DIR,
            "-o", lib_path, os.path.join(out_dir, name + "_host.cpp")]
     p = subprocess.run(cmd, capture_output=True, text=True)
@@ -120,10 +194,14 @@ def build_host_library(model, out_dir, name="megastep"):
     return _build.bind(ctypes.CDLL(lib_path), name, *counts)
 
 
-def host_control_step(lib, args, kwargs):
-    """The kernel's outputs for one `control_step` call on CPU tensors."""
+def host_control_step(libs, args, kwargs):
+    """The kernel's outputs for one `control_step` call on CPU tensors: the
+    team kernel for the calls that build their entry cache in the launch
+    (K4, K4b), the one-thread kernel for the others."""
+    name = ("megastep_team" if kwargs["entry_inputs"] is not None
+            else "megastep")
     ptrs, outs, floats, ints, _ = t_pm.kernel_operands(*args, **kwargs)
-    _build.launch(lib, "megastep", ptrs, outs, floats, ints, 0)
+    _build.launch(libs[name], name, ptrs, outs, floats, ints, 0)
     return tuple(o for o in outs if o is not None)
 
 
@@ -159,12 +237,17 @@ def configs(n):
             "K4b": quiet(rough(mob)), "K4b_P": quiet(rough(small))}
 
 
-def kernel_call(env, state):
+def kernel_call(env, state, eager_cache=False):
+    """(args, kwargs) of the control-step call that `env.step` makes from
+    `state`; with `eager_cache`, the entry cache (and on a heightfield the
+    normals) built on the host, as the plain version of K4 and K4b is fed
+    here."""
     _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
         state.motor_strengths, env.torque_limits, ctrl,
-        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices)
+        env.cfg.control.decimation, lam_in, exact=not env.reuse_matrices,
+        eager_cache=eager_cache)
 
 
 def substep_call(env, state):
@@ -210,10 +293,13 @@ def errors(out_k, out_r, n, names=OUT_NAMES):
 
 
 def cases(n, steps, seed=0):
-    """(variant, state name, args, kwargs) for each variant in two states:
-    after a reset, and after `steps` random control steps (feet loaded).
-    The states of K4 and K4b also give the dynamics-substep kernel's cases,
-    K3 (flat) and K3b (rough)."""
+    """(variant, state name, args, kwargs, (args, kwargs) of the plain
+    version) for each variant in two states: after a reset, and after
+    `steps` random control steps (feet loaded).  K4 and K4b build their
+    entry cache (and sample the heightfield) in the kernel; their plain
+    version is fed the eager build of the same state.  The states of K4 and
+    K4b also give the dynamics-substep kernel's cases, K3 (flat) and K3b
+    (rough)."""
     out = []
     for variant, cfg in configs(n).items():
         env = t_env.LeggedRobotEnv(cfg, device="cpu")
@@ -224,10 +310,13 @@ def cases(n, steps, seed=0):
                 for _ in range(steps):
                     state, *_ = env.step(state, torch.randn(
                         (n, 12), generator=gen))
-            out.append((variant, st_name, *kernel_call(env, state)))
+            call = kernel_call(env, state)
+            out.append((variant, st_name, *call,
+                        kernel_call(env, state, eager_cache=True)))
             if variant in ("K4", "K4b"):
+                call = substep_call(env, state)
                 out.append(({"K4": "K3", "K4b": "K3b"}[variant], st_name,
-                            *substep_call(env, state)))
+                            *call, call))
     return out
 
 
@@ -236,7 +325,7 @@ def host(tmp_path_factory):
     model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu").model
     d = str(tmp_path_factory.mktemp("host"))
     libs = {name: build_host_library(model, d, name)
-            for name in ("megastep", "dynamics_substep")}
+            for name in ("megastep", "megastep_team", "dynamics_substep")}
     return libs, cases(N, STEPS)
 
 
@@ -244,12 +333,16 @@ def host(tmp_path_factory):
                                      "K4b_P"])
 def test_host_build_of_the_kernel_matches_its_plain_version(host, variant):
     libs, all_cases = host
-    for v, state_name, args, kwargs in all_cases:
+    for v, state_name, args, kwargs, (p_args, p_kwargs) in all_cases:
         if v != variant:
             continue
-        assert (args[5] is not None) == variant.startswith("K4b")   # n_t
-        out_k = host_control_step(libs["megastep"], args, kwargs)
-        out_r = t_pm.control_step_reference(*args, **kwargs)
+        # on a heightfield: the normals, or the terrain the kernel samples
+        entry = kwargs["entry_inputs"]
+        assert (p_args[5] is not None) == variant.startswith("K4b")
+        assert (entry is not None) == (variant in ("K4", "K4b"))
+        assert entry is None or (entry[2] is not None) == (variant == "K4b")
+        out_k = host_control_step(libs, args, kwargs)
+        out_r = t_pm.control_step_reference(*p_args, **p_kwargs)
         assert len(out_k) == len(out_r) == (10 if variant.endswith("P")
                                             or variant == "K4c" else 14)
         for nm, (max_abs, beyond) in errors(out_k, out_r, N).items():
@@ -264,7 +357,7 @@ def test_host_build_of_the_kernel_matches_its_plain_version(host, variant):
 def test_host_build_of_the_dynamics_substep_kernel_matches_its_plain_version(
         host, variant):
     libs, all_cases = host
-    for v, state_name, args, kwargs in all_cases:
+    for v, state_name, args, kwargs, _ in all_cases:
         if v != variant:
             continue
         assert (args[16] is not None) == (variant == "K3b")      # n_t
@@ -302,20 +395,22 @@ def main(argv):
         model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4),
                                      device="cpu").model
         libs = {name: build_host_library(model, d, name)
-                for name in ("megastep", "dynamics_substep")}
-        for variant, state_name, args, kwargs in cases(n, 24):
+                for name in ("megastep", "megastep_team",
+                             "dynamics_substep")}
+        for variant, state_name, args, kwargs, (p_args, p_kwargs) in cases(
+                n, 24):
             if variant.startswith("K3"):
-                def run(a):
+                def run(a, pa):
                     return (host_dynamics_substep(
                         libs["dynamics_substep"], a, kwargs),
-                        t_pd.dynamics_substep_reference(*a, **kwargs))
+                        t_pd.dynamics_substep_reference(*pa, **p_kwargs))
                 names, qd_index = ("gv", "pcp", "lam"), 8       # gv_t
             else:
-                def run(a):
-                    return (host_control_step(libs["megastep"], a, kwargs),
-                            t_pm.control_step_reference(*a, **kwargs))
+                def run(a, pa):
+                    return (host_control_step(libs, a, kwargs),
+                            t_pm.control_step_reference(*pa, **p_kwargs))
                 names, qd_index = OUT_NAMES, 7                  # qd_t
-            out_k, out_r = run(args)
+            out_k, out_r = run(args, p_args)
             errs = errors(out_k, out_r, n, names)
             bad = envs_beyond(out_k, out_r, n)
             row = dict(
@@ -325,9 +420,10 @@ def main(argv):
                 outputs={k: dict(max_abs=e[0], beyond_tol=e[1])
                          for k, e in errs.items()})
             if bad:
-                moved = list(args)
+                moved, p_moved = list(args), list(p_args)
                 moved[qd_index] = args[qd_index] * (1 + 1e-7)
-                out_k2, out_r2 = run(moved)
+                p_moved[qd_index] = moved[qd_index]
+                out_k2, out_r2 = run(moved, p_moved)
                 row["those_envs_max_abs_err_with_qd_scaled_by_1_plus_1e-7"] \
                     = max(float((a[..., bad] - b[..., bad]).abs().max())
                           for a, b in zip(out_k2, out_r2))

@@ -31,6 +31,7 @@ from walk_these_ways_tpu_torch.models.robot import go1 as t_go1
 from walk_these_ways_tpu_torch.ops import contact as t_pc
 from walk_these_ways_tpu_torch.ops import dynamics as t_pd
 from walk_these_ways_tpu_torch.ops import megastep as t_pm
+from walk_these_ways_tpu_torch.physics import engine as t_engine
 from walk_these_ways_tpu_torch.physics.envminor import EnvMinorCache
 
 from test_torch_util import assert_close, random_dyn_np, random_phys_np, t
@@ -74,14 +75,20 @@ def _jax_inputs(*seeds_heights, terrain=None):
     return out if terrain is None else out + (n_t,)
 
 
-def _rough_inputs():
-    """Both states of STATES side by side on an inclined (about 14 deg),
-    bumpy heightfield that covers every contact point."""
+def _slope_heights():
+    """An inclined (about 14 deg), bumpy 4 m x 4 m field, 0.1 m pitch,
+    origin (-2, -2): it covers every contact point of STATES."""
     rs = np.random.RandomState(3)
     gx, gy = np.meshgrid(np.arange(41) * 0.1 - 2.0, np.arange(41) * 0.1 - 2.0,
                          indexing="ij")
-    h = (0.25 * gx - 0.1 * gy + 0.02 * rs.randn(41, 41)).astype(np.float32)
-    terrain = j_engine.make_heightfield_terrain(h, 0.1, (-2.0, -2.0))
+    return (0.25 * gx - 0.1 * gy + 0.02 * rs.randn(41, 41)).astype(np.float32)
+
+
+def _rough_inputs():
+    """Both states of STATES side by side on the slope of
+    `_slope_heights`."""
+    terrain = j_engine.make_heightfield_terrain(_slope_heights(), 0.1,
+                                                (-2.0, -2.0))
     return _jax_inputs(*[(seed, hh) for _, seed, hh in STATES],
                        terrain=terrain)
 
@@ -215,11 +222,16 @@ def _eager_fori_loop(lower, upper, body, carry):
 
 
 def _control_step_both(inputs, control_type="actuator_net", exact=False,
-                       seeded=()):
+                       seeded=(), entry=False):
     """One control step of the JAX kernel body (eagerly) and of the port's
     wrapper on CPU tensors (= the plain version), on the same inputs
     (`_jax_inputs`; with surface normals where they end in n_t); reuse
     mode seeds the impulses of the envs in `seeded` from a previous step.
+    With `entry` the wrapper is given what K4 and K4b take on the card in
+    place of the JAX package's eager build: the state, the payload, the
+    COM shift, the point radii and (with normals) the port's heightfield
+    of `_slope_heights`, and builds the cache and samples the field
+    itself.
     Exact mode shapes the JAX inputs as engine.control_step_megakernel
     does: the batch split (8, n / 8), the mask (P, nv, 1, 1), bound columns
     (rows, 1, 1), no cross-step seed, no warm start."""
@@ -297,7 +309,14 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
         j_out = [x.reshape(x.shape[:-2] + (n,)) for x in j_out]
 
     # port: the wrapper on CPU tensors (= the plain version)
-    t_em = None if exact else EnvMinorCache(
+    t_rh, t_n, entry_inputs = t(rh_t), None if n_t is None else t(n_t), None
+    if entry:
+        terrain = None if n_t is None else t_engine.make_heightfield_terrain(
+            _slope_heights(), 0.1, (-2.0, -2.0), device="cpu")
+        entry_inputs = (t(exact_in[0]), t(exact_in[1]), terrain)
+        radius = np.asarray(model.cp_radius, np.float32)[:, None]
+        t_rh, t_n = t(np.repeat(radius, n, axis=1)), None
+    t_em = None if exact or entry else EnvMinorCache(
         Sw_t=t(em.Sw_t), Sv_t=t(em.Sv_t), Minv_t=t(em.Minv_t),
         A_t=t(em.A_t), B_t=t(em.B_t), m_t=t(em.m_t), r_t=t(em.r_t),
         p_cp_t=t(em.p_cp_t))
@@ -311,13 +330,12 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
                 "exact_launches")
     before = [getattr(t_pm, c) for c in counters]
     t_out = t_pm.control_step(
-        t_em, t(rh_t), t(mu_t), t(e_t), t(g_t),
-        None if n_t is None else t(n_t),
+        t_em, t_rh, t(mu_t), t(e_t), t(g_t), t_n,
         *[t(x) for x in state_t], t(tgt), t(strengths), ctrl,
         t(vlim), t(tlim), t(qlo), t(qhi), None if exact else t(lam_in),
         model=tmodel, control_type=control_type, decimation=D,
         exact_inputs=tuple(t(x) for x in exact_in) if exact else None,
-        **common)
+        entry_inputs=entry_inputs, **common)
     # CPU tensors launch no kernel
     assert [getattr(t_pm, c) for c in counters] == before
     return j_out, t_out
@@ -418,35 +436,113 @@ def test_control_step_with_normals_matches_jax_kernel_body(
         assert_close(a[..., envs], b[..., envs], RTOL, atol, err_msg=name)
 
 
+# The entry form builds the cache from the state on the port's side
+# (torch's sin / cos against XLA's in the JAX package's eager build): one
+# more rounding in M^-1 and the contact points, carried into the joint
+# velocities, the torques made from them and the velocity histories.
+# Measured beyond rtol 1e-5 (x86-64, one thread): flat qd 1.5e-6, tau
+# 1.0e-6, vl 1.4e-6, vll 7.5e-7; slope tau 2.5e-6, qd 1.5e-6, vl 1.2e-6;
+# every other output within the flat-ground atol.
+ATOL_ENTRY = 1e-5
+
+
+@pytest.fixture(scope="module")
+def entry_variants(rough):
+    """The wrapper's entry form (what K4 and K4b take on the card: state,
+    payload, COM shift and the heightfield in; the cache built and the field
+    sampled inside) against the JAX kernel body fed the JAX package's eager
+    build: flat ground and the slope, both states side by side."""
+    flat = _jax_inputs(*[(seed, h) for _, seed, h in STATES])
+    return {"flat": _control_step_both(flat, seeded=range(N, 2 * N),
+                                       entry=True),
+            "rough": _control_step_both(rough, seeded=range(N, 2 * N),
+                                        entry=True)}
+
+
+@pytest.mark.parametrize("which", ["reset", "stance"])
+@pytest.mark.parametrize("ground", ["flat", "rough"])
+def test_control_step_entry_inputs_match_jax_kernel_body(entry_variants,
+                                                         ground, which):
+    """K4's and K4b's arithmetic as the card runs it, from the entry state:
+    within the tolerances of the flat-ground and the normals cases."""
+    j_out, t_out = entry_variants[ground]
+    envs = slice(0, N) if which == "reset" else slice(N, 2 * N)
+    assert len(t_out) == len(OUT_NAMES)
+    if which == "stance":
+        assert float(np.abs(j_out[8][..., envs]).max()) > 1e-3
+    for name, a, b in zip(OUT_NAMES, t_out, j_out):
+        assert tuple(a.shape) == b.shape, name
+        atol = ATOL_ENTRY if name in ("qd", "tau", "vl", "vll") else ATOL
+        assert_close(a[..., envs], b[..., envs], RTOL, atol, err_msg=name)
+
+
+def test_entry_inputs_cache_matches_the_eager_build():
+    """`entry_cache_reference` (the plain form of K4's and K4b's in-launch
+    build) against physics/engine.build_pallas_env_inputs from the same
+    state on the port's slope: the same cache, heights and normals on the
+    valid lanes; the padded lanes' normals are unit vectors."""
+    tmodel = t_go1()
+    n, block = 12, 16
+    ph, dy = random_phys_np(n, 1, 0.3), random_dyn_np(n, 1)
+    terrain = t_engine.make_heightfield_terrain(_slope_heights(), 0.1,
+                                                (-2.0, -2.0), device="cpu")
+    ground, _ = terrain.lookup(t(ph["base_pos"][:, 0]),
+                               t(ph["base_pos"][:, 1]))
+    ph["base_pos"][:, 2] += ground.numpy()
+    state = t_engine.PhysicsState(**{k: t(v) for k, v in ph.items()})
+    dyn = t_engine.DynamicsParams(**{k: t(v) for k, v in dy.items()})
+    em, rh_t, _, _, _, n_t = t_engine.build_pallas_env_inputs(
+        tmodel, state, dyn, terrain, block)
+    radius = torch.tensor(np.asarray(tmodel.cp_radius, np.float32))
+    em2, rh2, n2 = t_pm.entry_cache_reference(
+        tmodel, t_pc.to_env_minor(state.q, block),
+        t_pc.to_env_minor(state.base_quat, block),
+        t_pc.to_env_minor(state.base_pos, block),
+        radius[:, None].expand(28, block).contiguous(),
+        (t_pc.to_env_minor(dyn.payload[:, None], block),
+         t_pc.to_env_minor(dyn.com_displacement, block), terrain))
+    for a, b in list(zip(em2, em)) + [(rh2, rh_t), (n2, n_t)]:
+        assert tuple(a.shape) == tuple(b.shape)
+        assert_close(a[..., :n], b[..., :n].numpy(), 1e-6, 1e-6)
+    assert float(n_t[:, 2, :n].min()) < 0.99                # the slope
+    norm = (n2 * n2).sum(dim=1).sqrt()
+    assert_close(norm, np.ones((28, block), np.float32), 1e-6, 1e-6)
+
+
 def test_control_step_on_cuda_has_no_plain_path():
     """The wrapper's CUDA branch never reaches the plain version, for any
-    variant (K4, K4c P control, K4b surface normals, K5 exact mode): it
-    launches the kernel or raises for what the kernel does not cover; its
-    source does not name control_step_reference, the exact-mode cache
-    rebuild or a library product after the CPU return, and a tensor on
-    neither the CPU nor a CUDA device raises.  Exact mode with normals
-    raises on every device."""
+    variant (K4 and K4b in the team kernel, K4c P control, K4b-P, K5 exact
+    mode): it launches a kernel or raises for what the kernels do not
+    cover; its source does not name control_step_reference, the eager
+    entry-cache build, the exact-mode cache rebuild or a library product
+    after the CPU return, and a tensor on neither the CPU nor a CUDA device
+    raises.  Exact mode with normals raises on every device."""
     import inspect
     src = inspect.getsource(t_pm.control_step)
     head, tail = src.split('if dev.type != "cuda"', 1)
     assert "control_step_reference" in head
-    for banned in ("control_step_reference", "_cache_arrays", "envminor",
-                   "cache_columns", "torch.matmul", "F.linear",
-                   "torch.compile", " @ "):
+    banned_names = ("control_step_reference", "entry_cache_reference",
+                    "_cache_arrays", "envminor", "cache_columns", "lookup",
+                    "torch.matmul", "F.linear", "torch.compile", " @ ")
+    for banned in banned_names:
         assert banned not in tail, banned
-    # the variants each pass their own flags to the one launch, packed by
-    # kernel_operands, which names no plain path either
+    # the variants each pass their own flags to a launch, packed by
+    # kernel_operands, which names no plain path either: the entry form
+    # (K4, K4b) to the team kernel, the others to the one-thread kernel
     assert "kernel_operands(" in tail
     assert "exact_inputs is not None and n_t is not None" in tail
+    assert '"megastep_team" if team else "megastep"' in tail
     packing = inspect.getsource(t_pm.kernel_operands)
-    assert "pctrl, exact, n_t is None)" in packing
+    assert ("TEAM_THREADS if entry else KERNEL_THREADS, pctrl, exact,\n"
+            "            n_t is None and terrain is None, entry") in packing
     assert 'given["n_t"] = (n_t, (P, 3, Npad))' in packing
-    for banned in ("control_step_reference", "_cache_arrays", "envminor",
-                   "cache_columns", "torch.matmul", "F.linear",
-                   "torch.compile", " @ "):
+    assert 'given["corners"] = (terrain.corners, (c_rows, c_cols, 4))' \
+        in packing
+    for banned in banned_names:
         assert banned not in packing, banned
     for counter in ("exact_launches += 1", "p_launches += 1",
-                    "normal_launches += 1", "launches += 1"):
+                    "normal_launches += 1", "p_normal_launches += 1",
+                    "launches += 1"):
         assert counter in tail
     m = t_go1()
     meta = torch.zeros(12, 8, device="meta")

@@ -1,14 +1,13 @@
-// Whole-control-step kernel for Hopper (sm_90a): one launch runs all
-// `decimation` physics substeps of one control step.
+// Whole-control-step kernel for Hopper (sm_90a), one thread per env: one
+// launch runs all `decimation` physics substeps of one control step.
 //
 // Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
 // TPU kernel reached through control_step_pallas), in the compile-time
-// variants of the template flags PCTRL, EXACT and FLAT:
-//   K4   reuse mode, flat ground (n = +z), actuator-network torque model,
-//        contact impulses warm-started (from `lam_in` and across substeps);
-//   K4c  as K4 with P control: tau = kp (tgt - q) - kd qd in place of the
-//        network; no actuator histories in or out;
-//   K4b  reuse mode on a heightfield (FLAT false, either torque model): the
+// variants of the template flags PCTRL, EXACT and FLAT that run here:
+//   K4c  reuse mode, flat ground (n = +z), P control: tau = kp (tgt - q)
+//        - kd qd; contact impulses warm-started (from `lam_in` and across
+//        substeps); the cache an input, built on the host;
+//   K4b-P  reuse mode on a heightfield (FLAT false) with P control: the
 //        per-point surface normals n (sampled once per control step at the
 //        entry contact points) enter the contact solve through its
 //        general-normal rows (wtw_device.cuh normal_row_update);
@@ -17,6 +16,9 @@
 //        the kernel (csrc/wtw_cache.cuh); every substep's contact solve
 //        starts cold.  Exact mode on a heightfield is not a variant: the env
 //        runs it as `decimation` K4b launches of one substep each.
+// The actuator network in reuse mode (K4 flat, K4b on a heightfield) runs
+// in csrc/megastep_team.cu, one warp per env, with the entry cache built
+// in its launch; this launcher refuses it.
 //
 // What it computes, per env (envs are independent):
 //   reuse, once: r = p_cp - pos;  leg-joint Jacobian columns
@@ -52,17 +54,17 @@
 // entry and once on exit.
 //
 // Bound on this card (ops/megastep.work_per_env): per env a few KB in and
-// out and 0.12 (K4c) to 0.55 (K5) MFLOP of fp32 on the CUDA cores (K4b:
-// 0.28, K4's 0.26 and about 50 more operations per point and sweep for the
+// out and 0.12 (K4c) to 0.55 (K5) MFLOP of fp32 on the CUDA cores (K4b-P:
+// about 50 more operations per point and sweep than K4c for the
 // general-normal rows), so at 4000 envs the least time is set by
 // arithmetic, not by memory.  One thread per env gives about one warp per
 // SM at 4000 envs, so the kernel as written is bound by instruction
 // latency, far above that least time; exact mode adds about 4 KB of
-// thread-local arrays per env, in local memory.  K4b reads a point's normal
-// from global memory where it needs it (read-only for the launch, so
-// through __ldg) rather than holding 84 more floats per thread, and keeps
-// W_p's extra entries W02, W12, W22 in thread-local memory beside K4's.
-// The measured numbers are kept in PERF.md.
+// thread-local arrays per env, in local memory.  K4b-P reads a point's
+// normal from global memory where it needs it (read-only for the launch,
+// so through __ldg) rather than holding 84 more floats per thread, and
+// keeps W_p's extra entries W02, W12, W22 in thread-local memory beside
+// K4c's.  The measured numbers are kept in PERF.md.
 //
 // Reuse mode: rows 0..5 of Sw/Sv must be the unit root twists (rows 0..2:
 // unit angular, rows 3..5: unit linear), as physics/envminor makes them.  The
@@ -71,37 +73,13 @@
 // The topology header is generated by ops/_build.py from the RobotModel into
 // the build directory; the device helpers shared with the other kernels
 // (cross3, m3v, m3tv, row accessors, minv_mul, dyn_core) live in
-// wtw_device.cuh, the exact-mode cache rebuild in wtw_cache.cuh.
+// wtw_device.cuh, the argument lists and the per-point arithmetic shared
+// with the team kernel in wtw_megastep.cuh, the exact-mode cache rebuild in
+// wtw_cache.cuh.
 #include <cuda_runtime.h>
 #include "wtw_topology.h"
-#include "wtw_device.cuh"
+#include "wtw_megastep.cuh"
 #include "wtw_cache.cuh"
-
-#define GM MS_GMAX
-#define NH MS_H
-#define NF MS_F
-
-enum InIdx {
-  I_SW = 0, I_SV, I_A, I_B, I_M, I_MINV, I_PCP, I_RH, I_MU, I_E, I_G,
-  I_LAM, I_Q, I_QD, I_POS, I_QUAT, I_LIN, I_ANG, I_TGT, I_STR,
-  I_W0, I_B0, I_W1, I_B1, I_W2, I_B2, I_EL, I_ELL, I_VL, I_VLL,
-  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP, I_N, N_IN
-};
-enum OutIdx {
-  O_Q = 0, O_QD, O_POS, O_QUAT, O_LIN, O_ANG, O_PCP, O_PCPPREV, O_LAM,
-  O_TAU, O_EL, O_ELL, O_VL, O_VLL, N_OUT
-};
-enum FIdx {
-  F_DT = 0, F_RELAX, F_BAUM_DT, F_SLOP, F_MAXDEPEN, F_BOUNCE, F_KLIM,
-  F_DLIM, F_MAXANG, F_MAXLIN, F_EPS, F_HALFDT, N_F
-};
-
-struct MegastepArgs {
-  const float* in[N_IN];
-  float* out[N_OUT];
-  float f[N_F];
-  int npad, D, num_iters, warm_iters, contact;
-};
 
 // Where the dynamics and the solve read M^-1, the inertia blocks and the
 // masses: the launch's input cache (reuse) or the kernel's own (exact).
@@ -109,19 +87,11 @@ template <bool EXACT> struct RowsOf { using type = EnvRows; };
 template <> struct RowsOf<true> { using type = ThreadRows; };
 
 
-// Velocity of contact point p: base part from r (unit root twists), leg part
-// from the kept Jacobian columns.
+// Velocity of contact point p (wtw_megastep.cuh point_velocity).
 __device__ __forceinline__ void jdot_p(int p, const float* gv,
                                        const float (*r)[3],
                                        const float (*Jl)[GM][3], float* v) {
-  float c[3];
-  cross3(gv, r[p], c);
-  v[0] = gv[3] + c[0]; v[1] = gv[4] + c[1]; v[2] = gv[5] + c[2];
-  const int lo = MS_PT_LO[p], n = MS_PT_N[p];
-  for (int k = 0; k < n; ++k) {
-    const float s = gv[lo + k];
-    v[0] += Jl[p][k][0] * s; v[1] += Jl[p][k][1] * s; v[2] += Jl[p][k][2] * s;
-  }
+  point_velocity(gv, r[p], Jl[p], MS_PT_LO[p], MS_PT_N[p], v);
 }
 
 // jta += J_p^T f
@@ -139,70 +109,23 @@ __device__ __forceinline__ void jt_acc_p(int p, const float* f,
                  + Jl[p][k][2] * f[2];
 }
 
-// Per contact point: the leg-joint Jacobian columns Jl and the entries of
-// W_p = J_p M^-1 J_p^T + eps I that the solve reads.  Flat ground: W00,
-// W01, W11 and the normal row's relax / W22.  With surface normals `nrm`
-// (FLAT false; env-minor (P, 3, npad)): also W02, W12, W22 — W_p is
-// symmetric — and relax / n^T W_p n.
+// Every contact point's Jacobian columns and effective-mass entries
+// (wtw_megastep.cuh point_cache); with surface normals `nrm` (FLAT false;
+// env-minor (P, 3, npad), read-only for the launch) the general-normal
+// entries too.
 template <bool FLAT, class Rows>
-__device__ __forceinline__ void point_cache(
+__device__ __forceinline__ void points_cache(
     const Rows& Minv, const float (*sw)[3], const float (*sv)[3],
     const float (*r)[3], float (*Jl)[GM][3], float* W00, float* W01,
     float* W11, float* W02, float* W12, float* W22, float* inv_wnn,
     const float* nrm, size_t npad, int env, float eps, float relax) {
 #pragma unroll 1
   for (int p = 0; p < NP; ++p) {
-    const int lo = MS_PT_LO[p], n = MS_PT_N[p];
-    // J rows of this point over its dofs: 6 base + n leg joints
-    float Jp[6 + GM][3];
-    Jp[0][0] = 0.0f;     Jp[0][1] = -r[p][2]; Jp[0][2] = r[p][1];
-    Jp[1][0] = r[p][2];  Jp[1][1] = 0.0f;     Jp[1][2] = -r[p][0];
-    Jp[2][0] = -r[p][1]; Jp[2][1] = r[p][0];  Jp[2][2] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-#pragma unroll
-      for (int i = 0; i < 3; ++i) Jp[3 + k][i] = (k == i) ? 1.0f : 0.0f;
-    for (int k = 0; k < GM; ++k) {
-      float c[3] = {0.0f, 0.0f, 0.0f};
-      float mask = 0.0f;
-      if (k < n) {
-        cross3(sw[lo + k], r[p], c);
-        mask = MS_PT_ANC[p * GM + k];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) c[i] = mask * (sv[lo + k][i] + c[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) { Jl[p][k][i] = c[i]; Jp[6 + k][i] = c[i]; }
-    }
-    // W[i][j] = sum_v J[j][v] * t_i[v],  t_i[v] = sum_w J[i][w] Minv[w][v]
-    const int nd = 6 + n;
-    float w00 = 0.0f, w01 = 0.0f, w11 = 0.0f, w22 = 0.0f;
-    float w02 = 0.0f, w12 = 0.0f;
-    for (int kv = 0; kv < nd; ++kv) {
-      const int dv = kv < 6 ? kv : lo + kv - 6;
-      float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
-      for (int kw = 0; kw < nd; ++kw) {
-        const int dw = kw < 6 ? kw : lo + kw - 6;
-        const float mi = Minv[dw * NV + dv];
-        t0 += Jp[kw][0] * mi; t1 += Jp[kw][1] * mi; t2 += Jp[kw][2] * mi;
-      }
-      w00 += Jp[kv][0] * t0; w01 += Jp[kv][1] * t0;
-      w11 += Jp[kv][1] * t1; w22 += Jp[kv][2] * t2;
-      if constexpr (!FLAT) {
-        w02 += Jp[kv][2] * t0; w12 += Jp[kv][2] * t1;
-      }
-    }
-    W00[p] = w00 + eps; W01[p] = w01; W11[p] = w11 + eps;
-    if constexpr (FLAT) {
-      inv_wnn[p] = relax / (w22 + eps);
-    } else {
-      W02[p] = w02; W12[p] = w12; W22[p] = w22 + eps;
-      const float Wp[9] = {W00[p], w01, w02, w01, W11[p], w12,
-                           w02, w12, W22[p]};
-      float nv[3];
-      load_normal(nrm, p, npad, env, nv);
-      inv_wnn[p] = relax / quad3(Wp, nv);
-    }
+    float nv[3] = {0.0f, 0.0f, 1.0f};
+    if constexpr (!FLAT) load_normal(nrm, p, npad, env, nv);
+    point_cache<FLAT>(p, Minv, sw, sv, r[p], Jl[p], W00[p], W01[p], W11[p],
+                      W02[FLAT ? 0 : p], W12[FLAT ? 0 : p],
+                      W22[FLAT ? 0 : p], inv_wnn[p], nv, eps, relax);
   }
 }
 
@@ -281,8 +204,8 @@ megastep_kernel(const MegastepArgs a) {
         pcp[p][i] = LD(I_PCP, p * 3 + i);
         r[p][i] = pcp[p][i] - pos[i];
       }
-    point_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12, W22,
-                      inv_wnn, a.in[I_N], npad, env, eps, relax);
+    points_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12, W22,
+                       inv_wnn, a.in[I_N], npad, env, eps, relax);
   }
 #pragma unroll 1
   for (int p = 0; p < NP; ++p)
@@ -354,8 +277,8 @@ megastep_kernel(const MegastepArgs a) {
       for (int p = 0; p < NP; ++p)
 #pragma unroll
         for (int i = 0; i < 3; ++i) r[p][i] = pcp[p][i] - pos[i];
-      point_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12, W22,
-                        inv_wnn, a.in[I_N], npad, env, eps, relax);
+      points_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12,
+                         W22, inv_wnn, a.in[I_N], npad, env, eps, relax);
 #pragma unroll
       for (int i = 0; i < 3; ++i) ref[i] = pos[i];
     }
@@ -431,24 +354,8 @@ megastep_kernel(const MegastepArgs a) {
           jdot_p(p, gv, r, Jl, v);
           float l[3] = {lam[p][0], lam[p][1], lam[p][2]};
           if constexpr (FLAT) {
-            const float vn = v[2], vtx = v[0], vty = v[1];
-            const float vtn = sqrtf(vtx * vtx + vty * vty + 1e-18f);
-            const float itn = 1.0f / vtn;
-            const float tx = vtx * itn, ty = vty * itn;
-            const float w_tt = fmaxf(
-                tx * tx * W00[p] + 2.0f * tx * ty * W01[p] + ty * ty * W11[p],
-                1e-6f);
-            const float dln = (target[p] - vn) * inv_wnn[p];
-            const float dlt = -relax * vtn / w_tt;
-            const float ln = fmaxf(lam[p][2] + dln, 0.0f);
-            float lx = lam[p][0] + dlt * tx;
-            float ly = lam[p][1] + dlt * ty;
-            const float ltn = sqrtf(lx * lx + ly * ly + 1e-18f);
-            const float max_t = mu * ln;
-            const float scale = ltn > max_t ? max_t / ltn : 1.0f;
-            l[0] = lx * scale * active[p];
-            l[1] = ly * scale * active[p];
-            l[2] = ln * active[p];
+            flat_row_update(v, W00[p], W01[p], W11[p], target[p], inv_wnn[p],
+                            relax, mu, active[p], lam[p], l);
           } else {
             float nv[3];
             load_normal(a.in[I_N], p, npad, env, nv);
@@ -551,26 +458,24 @@ megastep_kernel(const MegastepArgs a) {
 }
 
 // Plain C interface for ctypes.  `in` / `out` are host arrays of device
-// pointers in InIdx / OutIdx order, `f` the FIdx scalars, `ip` = {npad, D,
-// num_iters, warm_iters, contact, threads per block, P control, exact,
-// flat}.  A variant leaves the slots it does not read null: in[I_LAM]
-// without a cross-step seed; the actuator weights and histories (in and
-// out) with P control; kp, kd without it; the reuse cache (Sw .. p_cp) and
-// the seed in exact mode; payload and COM shift outside it; the normals
-// in[I_N] on flat ground.  Exact mode with normals is refused.  Launches on
-// `stream`, does not synchronise, returns the launch's cudaError_t (0 =
-// launched).
+// pointers in InIdx / OutIdx order, `f` the FIdx scalars, `ip` the IntIdx
+// ints (npad, D, num_iters, warm_iters, contact, threads per block, P
+// control, exact, flat, ...).  A variant leaves the slots it does not read
+// null: in[I_LAM] without a cross-step seed; the actuator weights and
+// histories (in and out) with P control; kp, kd without it; the reuse cache
+// (Sw .. p_cp) and the seed in exact mode; payload and COM shift outside
+// it; the normals in[I_N] on flat ground.  Exact mode with normals, and the
+// actuator network in reuse mode (csrc/megastep_team.cu), are refused.
+// Launches on `stream`, does not synchronise, returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int megastep_launch(const void* const* in, void* const* out,
                                const float* f, const int* ip, void* stream) {
-  MegastepArgs a;
-  for (int i = 0; i < N_IN; ++i) a.in[i] = static_cast<const float*>(in[i]);
-  for (int i = 0; i < N_OUT; ++i) a.out[i] = static_cast<float*>(out[i]);
-  for (int i = 0; i < N_F; ++i) a.f[i] = f[i];
-  a.npad = ip[0]; a.D = ip[1]; a.num_iters = ip[2]; a.warm_iters = ip[3];
-  a.contact = ip[4];
-  const int threads = ip[5], pctrl = ip[6], exact = ip[7], flat = ip[8];
+  const MegastepArgs a = megastep_args(in, out, f, ip);
+  const int threads = ip[P_THREADS], pctrl = ip[P_PCTRL],
+            exact = ip[P_EXACT], flat = ip[P_FLAT];
   if (threads < 1 || threads > 128 || a.npad < 1 || a.D < 1
-      || (exact && !flat) || (!flat && a.in[I_N] == nullptr))
+      || (exact && !flat) || (!pctrl && !exact) || ip[P_ENTRY]
+      || (!flat && a.in[I_N] == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (a.npad + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -578,14 +483,10 @@ extern "C" int megastep_launch(const void* const* in, void* const* out,
     megastep_kernel<true, true, true><<<blocks, threads, 0, st>>>(a);
   else if (exact)
     megastep_kernel<false, true, true><<<blocks, threads, 0, st>>>(a);
-  else if (pctrl && !flat)
-    megastep_kernel<true, false, false><<<blocks, threads, 0, st>>>(a);
   else if (!flat)
-    megastep_kernel<false, false, false><<<blocks, threads, 0, st>>>(a);
-  else if (pctrl)
-    megastep_kernel<true, false, true><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<true, false, false><<<blocks, threads, 0, st>>>(a);
   else
-    megastep_kernel<false, false, true><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<true, false, true><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,10 @@
 // library functions (sinf, cosf) only: the kernels are built without fused
 // multiply-adds (ops/_build.py).
 //
+// csrc/megastep_team.cu team_entry_cache runs the same statements spread
+// over a warp's lanes, once per launch, for K4 and K4b: a change here is
+// made there too (the two are held against the same plain version).
+//
 // Needs the generated header's model tables (MS_HAVE_MODEL: ops/_build.py
 // model_tables).  Quadruped topology: a floating base and legs of three
 // revolute joints each, dofs of one leg contiguous.

@@ -106,6 +106,33 @@ __device__ __forceinline__ void load_normal(const float* __restrict__ n,
     out[i] = __ldg(n + (size_t)(p * 3 + i) * npad + env);
 }
 
+// Bilinear height h and unit surface normal n of a heightfield at world
+// (x, y): physics/engine.Terrain.lookup statement by statement, on its
+// corner-packed table `corners` ((rows, cols, 4) = the field's (H - 1,
+// W - 1) cells, (h[i,j], h[i+1,j], h[i,j+1], h[i+1,j+1]) each; read-only
+// for the launch), grid pitch `hs` and grid origin (ox, oy).  Queries
+// outside the field take the border cell's plane clamped to its edge.
+__device__ __forceinline__ void heightfield_sample(
+    const float* __restrict__ corners, int rows, int cols, float hs,
+    float ox, float oy, float x, float y, float& h, float* n) {
+  const float gx = (x - ox) / hs;
+  const float gy = (y - oy) / hs;
+  const int i0 = min(max((int)floorf(gx), 0), rows - 1);
+  const int j0 = min(max((int)floorf(gy), 0), cols - 1);
+  const float fx = fminf(fmaxf(gx - (float)i0, 0.0f), 1.0f);
+  const float fy = fminf(fmaxf(gy - (float)j0, 0.0f), 1.0f);
+  const float* c = corners + 4 * ((size_t)i0 * cols + j0);
+  const float h00 = __ldg(c), h10 = __ldg(c + 1), h01 = __ldg(c + 2),
+              h11 = __ldg(c + 3);
+  h = h00 * (1.0f - fx) * (1.0f - fy) + h10 * fx * (1.0f - fy)
+    + h01 * (1.0f - fx) * fy + h11 * fx * fy;
+  const float dhdx = ((h10 - h00) * (1.0f - fy) + (h11 - h01) * fy) / hs;
+  const float dhdy = ((h01 - h00) * (1.0f - fx) + (h11 - h10) * fx) / hs;
+  const float nx = -dhdx, ny = -dhdy, nz = 1.0f;
+  const float s = sqrtf(nx * nx + ny * ny + nz * nz);
+  n[0] = nx / s; n[1] = ny / s; n[2] = nz / s;
+}
+
 // One contact point's row update in a projected-Jacobi sweep on a surface of
 // unit normal n: the general-normal branch of the JAX package's
 // ops/pallas_contact.py::contact_core.  The normal row drives n.v to

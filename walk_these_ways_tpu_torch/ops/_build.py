@@ -153,10 +153,10 @@ def _f32(v) -> str:
 def model_tables(model) -> str:
     """Header lines with the robot's constants for the in-kernel cache
     rebuild (csrc/wtw_cache.cuh, physics/envminor.cache_columns): the parent
-    of each body, the joints in FK order, joint axes (with the static K and
-    K^2 of each axis' rotation), anchors, body masses, COMs and inertias, the
-    contact points' bodies and offsets, and the joint pairs whose mass-matrix
-    entry is nonzero.  Defines MS_HAVE_MODEL."""
+    of each body, the joints in FK order and their depths, joint axes (with
+    the static K and K^2 of each axis' rotation), anchors, body masses, COMs
+    and inertias, the contact points' bodies and offsets, and the joint
+    pairs whose mass-matrix entry is nonzero.  Defines MS_HAVE_MODEL."""
     nb, nj = model.nb, model.nj
     parent = np.asarray(model.parent)
 
@@ -166,8 +166,8 @@ def model_tables(model) -> str:
             b, d = int(parent[b]), d + 1
         return d
 
-    order = np.argsort([depth(int(model.joint_body[j])) for j in range(nj)],
-                       kind="stable")
+    depths = [depth(int(model.joint_body[j])) for j in range(nj)]
+    order = np.argsort(depths, kind="stable")
     K = np.zeros((nj, 3, 3))
     for j, a in enumerate(np.asarray(model.joint_axis, np.float64)):
         K[j] = [[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]
@@ -189,6 +189,9 @@ def model_tables(model) -> str:
     lines = [
         "#define MS_HAVE_MODEL 1",
         ints("MS_PARENT", parent), ints("MS_FK_ORDER", order),
+        # a joint's depth in the tree: the team kernel's FK runs the joints
+        # of one depth at a time
+        ints("MS_JOINT_DEPTH", depths), f"#define MS_FK_DEPTHS {max(depths)}",
         floats("MS_JOINT_AXIS", model.joint_axis),
         floats("MS_JOINT_K", K), floats("MS_JOINT_KK", KK),
         floats("MS_JOINT_ANCHOR", model.joint_anchor),

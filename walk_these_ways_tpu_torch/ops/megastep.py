@@ -10,30 +10,33 @@ here:
   `physics/envminor.cache_columns` before every substep.  It runs anywhere
   and is what the kernel is held against.
 - `control_step`: the wrapper.  CPU tensors go to the plain version; CUDA
-  tensors go to the hand-written kernel `csrc/megastep.cu` (replaces
+  tensors go to a hand-written kernel (both replace
   `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.  There
-  is no fallback from the kernel to the plain version.  The kernel's
-  variants: K4 (reuse mode, flat ground, actuator network), K4c (reuse
-  mode, flat ground, P control), K4b (reuse mode on a heightfield: surface
-  normals `n_t`, either torque model) and K5 (exact mode, flat ground,
-  either torque model).
+  is no fallback from a kernel to the plain version.  The actuator network
+  in reuse mode, K4 (flat ground) and K4b (on a heightfield), runs one warp
+  per env in `csrc/megastep_team.cu`, with the entry cache built and the
+  heightfield sampled inside its launch (`entry_inputs`); K4c (reuse mode,
+  flat ground, P control), K4b-P (P control on a heightfield: surface
+  normals `n_t`, cache built on the host) and K5 (exact mode, flat ground,
+  either torque model) run one thread per env in `csrc/megastep.cu`.
 - `blockdiag_actuator_weights`: host helper that lays the 12 per-joint
   actuator MLPs (6 -> 32 -> 32 -> 1, softsign) out as block-diagonal
   matrices, with features stacked as X[12 f + j] = feature f of joint j.
   The plain version evaluates them as three dense products; the kernel
   reads only the nonzero blocks.
 
-The kernel is built at first use with `nvcc` for sm_90a into `build/` at the
-repo root (or `$WTW_TORCH_BUILD_DIR`), from `csrc/megastep.cu` and a topology
-header generated from the RobotModel, and is bound through `ctypes`
+The kernels are built at first use with `nvcc` for sm_90a into `build/` at
+the repo root (or `$WTW_TORCH_BUILD_DIR`), from their sources and a topology
+header generated from the RobotModel, and are bound through `ctypes`
 (ops/_build.py, shared by all the port's kernels).
 
-Bound of the kernel on an H100 (see csrc/megastep.cu and `work_per_env`):
+Bound of the kernels on an H100 (see their sources and `work_per_env`):
 a few KB moved and 0.1-0.6 MFLOP fp32 per env and control step; at 4000 envs
 the least time is tens of microseconds and is set by arithmetic.
 
-`launches` (K4), `p_launches` (K4c), `normal_launches` (K4b, either torque
-model) and `exact_launches` (K5) count kernel launches (and nothing else).
+`launches` (K4), `p_launches` (K4c), `normal_launches` (K4b),
+`p_normal_launches` (K4b-P) and `exact_launches` (K5) count kernel launches
+(and nothing else).
 """
 from __future__ import annotations
 
@@ -45,17 +48,23 @@ from . import _build
 from . import contact as pc
 from . import dynamics as pd
 
-# number of times `control_step` launched each variant of the CUDA kernel:
-# K4 (reuse, actuator network), K4c (reuse, P control), K4b (reuse on a
-# heightfield, either torque model), K5 (exact mode)
+# number of times `control_step` launched each kernel variant: K4 (reuse,
+# actuator network), K4c (reuse, P control), K4b (reuse on a heightfield,
+# actuator network), K4b-P (the same with P control), K5 (exact mode)
 launches = 0
 p_launches = 0
 normal_launches = 0
+p_normal_launches = 0
 exact_launches = 0
 
-# threads per block of the CUDA kernel: one env per thread; at 4000 envs a
-# 32-thread block spreads the batch over the most SMs
+# threads per block of csrc/megastep.cu (K4c, K4b-P, K5): one env per
+# thread; at 4000 envs a 32-thread block spreads the batch over the most SMs
 KERNEL_THREADS = 32
+# csrc/megastep_team.cu (K4, K4b): one warp of 32 lanes per env, TEAM_ENVS
+# envs (TEAM_THREADS threads) per block; the env axis is padded to
+# engine.MEGASTEP_BLOCK, which TEAM_ENVS divides
+TEAM_ENVS = 8
+TEAM_THREADS = 32 * TEAM_ENVS
 
 
 def blockdiag_actuator_weights(params, device="cuda"):
@@ -87,6 +96,38 @@ def blockdiag_actuator_weights(params, device="cuda"):
     b2b = np.full((J, 1), float(b2[0]), np.float32)
     return tuple(torch.tensor(x, dtype=torch.float32, device=device)
                  for x in (W0b, b0b, W1b, b1b, W2b, b2b))
+
+
+# packed actuator weights of the team kernel, by the block-diagonal
+# matrices' storage and version (the env makes them once); each entry holds
+# its source tensors, so that no other tensor takes their storage while the
+# entry lives
+_team_weights = {}
+
+
+def team_actuator_weights(W0b, b0b, W1b, b1b, W2b, b2b):
+    """The nonzero blocks of `blockdiag_actuator_weights`' matrices in the
+    layout csrc/megastep_team.cu reads (its NET_* offsets), one contiguous
+    float32 vector: per joint j, W0[j][f][o], then b0[j][o], W1[j][i][o],
+    b1[j][o], W2[o][j], b2[j] — hidden unit o innermost, so that the 32
+    lanes of an env (one per unit) read consecutive floats.  Made once per
+    weight set and kept."""
+    key = tuple((x.data_ptr(), x._version, str(x.device))
+                for x in (W0b, b0b, W1b, b1b, W2b, b2b))
+    if key not in _team_weights:
+        nj = W2b.shape[0]
+        H, F = W1b.shape[0] // nj, W0b.shape[1] // nj
+        j = torch.arange(nj, device=W0b.device)
+        w0 = W0b.reshape(nj, H, F, nj)[j, :, :, j].permute(0, 2, 1)
+        w1 = W1b.reshape(nj, H, nj, H)[j, :, j, :].permute(0, 2, 1)
+        w2 = W2b.reshape(nj, nj, H)[j, j, :].t()
+        if len(_team_weights) > 8:
+            _team_weights.clear()
+        _team_weights[key] = ((W0b, b0b, W1b, b1b, W2b, b2b), torch.cat(
+            [x.reshape(-1) for x in (w0, b0b.reshape(nj, H), w1,
+                                     b1b.reshape(nj, H), w2,
+                                     b2b.reshape(nj))]).contiguous())
+    return _team_weights[key][1]
 
 
 def _softsign(x):
@@ -154,6 +195,29 @@ def _cache_arrays(model, q, quat, pos, payload, comdisp):
     return Sw_a, Sv_a, A9, B9, m_a, Minv_a, r_a, pcp_a
 
 
+def entry_cache_reference(model, q_t, quat_t, pos_t, rh_t, entry_inputs):
+    """The entry cache that K4 and K4b build inside their launch, eagerly:
+    `_cache_arrays` (physics/envminor.cache_columns, the eager build's
+    arithmetic) about the entry base position, and on a heightfield the
+    height and the unit normal under each entry contact point
+    (`Terrain.lookup`), rh = h + radius.  `rh_t` (P, Npad) holds the point
+    radii.  Returns (EnvMinorCache, rh_t, n_t (P, 3, Npad) or None).  The
+    padded env lanes are built from their zero state like the valid ones:
+    their normals are unit vectors with a positive z, as the lookup gives
+    everywhere."""
+    payload_t, comdisp_t, terrain = entry_inputs
+    Sw, Sv, A9, B9, m_a, Minv, r, pcp = _cache_arrays(
+        model, q_t, quat_t, pos_t, payload_t, comdisp_t)
+    em = envminor.EnvMinorCache(Sw_t=Sw, Sv_t=Sv, Minv_t=Minv, A_t=A9,
+                                B_t=B9, m_t=m_a, r_t=r, p_cp_t=pcp)
+    n_t = None
+    if terrain is not None:
+        h, n = terrain.lookup(pcp[:, 0], pcp[:, 1])     # (P, Npad) (+ 3)
+        rh_t = h + rh_t
+        n_t = n.permute(0, 2, 1).contiguous()
+    return em, rh_t, n_t
+
+
 def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
                            q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
                            tgt_t, strengths_t, ctrl_inputs,
@@ -166,7 +230,7 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
                            limit_stiffness: float, limit_damping: float,
                            max_base_ang_vel: float, max_base_lin_vel: float,
                            decimation: int, eps: float = 1e-6,
-                           exact_inputs=None):
+                           exact_inputs=None, entry_inputs=None):
     """One whole control step (`decimation` physics substeps), env-minor,
     in plain PyTorch.
 
@@ -184,6 +248,13 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
     substep and every contact solve starts cold (flat ground only: `n_t`,
     `em` and `lam_in_t` must be None).
 
+    `entry_inputs`: None, or (payload_t (1, Npad), comdisp_t (3, Npad),
+    terrain) for reuse mode with the entry cache built here from the entry
+    state (`entry_cache_reference`: the eager build, and on a heightfield
+    `terrain` (physics/engine.Terrain) sampled at the entry contact
+    points; None on flat ground), as K4 and K4b build it in their launch;
+    `em` and `n_t` must then be None.
+
     Returns (q, qd, pos, quat, lin, ang, pcp, pcp_prev, lam, tau_last
     [, el, ell, vl, vll]) — all env-minor."""
     nv, nb = model.nv, model.nb
@@ -197,6 +268,13 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
     if exact and (n_t is not None or lam_in_t is not None):
         raise ValueError("exact mode is flat-ground only and starts every "
                          "contact solve cold (no n_t, no lam_in_t)")
+    if entry_inputs is not None:
+        if exact or em is not None or n_t is not None:
+            raise ValueError("entry_inputs: reuse mode, the cache and the "
+                             "normals built from the entry state (no em, "
+                             "no n_t)")
+        em, rh_t, n_t = entry_cache_reference(model, q_t, quat_t, pos_t,
+                                              rh_t, entry_inputs)
 
     anc, anc_p, groups = _topology(model)
     joint_body = np.asarray(model.joint_body)
@@ -326,21 +404,24 @@ def topology_header(model, hidden: int, features: int) -> str:
             + _build.model_tables(model))
 
 
-_N_IN, _N_OUT, _N_F = 39, 14, 12
+_N_IN, _N_OUT, _N_F = 41, 14, 15
 
 
-def library_spec(model, hidden: int = 32, features: int = 6):
-    """What `_build.build_libraries` needs to build csrc/megastep.cu (all
-    its variants: K4, K4c, K4b with either torque model, K5 with either
-    torque model)."""
-    return ("megastep", topology_header(model, hidden, features),
-            (_N_IN, _N_OUT, _N_F))
+def library_spec(model, hidden: int = 32, features: int = 6,
+                 team: bool = False):
+    """What `_build.build_libraries` needs to build csrc/megastep.cu (K4c,
+    K4b-P, K5 with either torque model) or, with `team`,
+    csrc/megastep_team.cu (K4, K4b).  Both take one argument list."""
+    return ("megastep_team" if team else "megastep",
+            topology_header(model, hidden, features), (_N_IN, _N_OUT, _N_F))
 
 
-def build_library(model, hidden: int = 32, features: int = 6):
-    """Compile csrc/megastep.cu for sm_90a (once per topology and source)
-    and load it.  Returns the ctypes library.  Raises on any failure."""
-    return _build.build_library(*library_spec(model, hidden, features))
+def build_library(model, hidden: int = 32, features: int = 6,
+                  team: bool = False):
+    """Compile the kernel's source for sm_90a (once per topology and
+    source) and load it.  Returns the ctypes library.  Raises on any
+    failure."""
+    return _build.build_library(*library_spec(model, hidden, features, team))
 
 
 def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
@@ -354,18 +435,24 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
                  bounce_thresh: float, contact: bool,
                  limit_stiffness: float, limit_damping: float,
                  max_base_ang_vel: float, max_base_lin_vel: float,
-                 decimation: int, eps: float = 1e-6, exact_inputs=None):
+                 decimation: int, eps: float = 1e-6, exact_inputs=None,
+                 entry_inputs=None):
     """One whole control step, env-minor; arguments and results as
     `control_step_reference`.
 
-    Tensors on the CPU: the plain version.  Tensors on a CUDA device: the
-    kernel of csrc/megastep.cu, launched on the current stream without
-    synchronising, outputs allocated here.  The kernel covers either torque
-    model in reuse mode on flat ground and on a heightfield (`n_t`), and in
-    exact mode on flat ground; exact mode with `n_t` raises on every device,
-    as does anything else the kernel does not take on a CUDA device and a
-    failed build or launch."""
-    global launches, p_launches, normal_launches, exact_launches
+    Tensors on the CPU: the plain version, with `entry_inputs` the eager
+    build of the entry cache (`entry_cache_reference`) first.  Tensors on a
+    CUDA device: a kernel, launched on the current stream without
+    synchronising, outputs allocated here: the actuator network in reuse
+    mode takes `entry_inputs` (no `em`, no `n_t`) and runs
+    csrc/megastep_team.cu, which builds the entry cache and samples the
+    heightfield in its launch (K4, K4b); P control in reuse mode takes the
+    host-built cache `em` (and `n_t` on a heightfield) and exact mode
+    `exact_inputs`, and both run csrc/megastep.cu (K4c, K4b-P, K5).  Exact
+    mode with `n_t` raises on every device, as does anything else the
+    kernels do not take on a CUDA device and a failed build or launch."""
+    global launches, p_launches, normal_launches, p_normal_launches
+    global exact_launches
     kw = dict(model=model, control_type=control_type, dt=dt,
               num_iters=num_iters, warm_iters=warm_iters,
               relaxation=relaxation, baumgarte=baumgarte, slop=slop,
@@ -374,7 +461,7 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
               limit_damping=limit_damping,
               max_base_ang_vel=max_base_ang_vel,
               max_base_lin_vel=max_base_lin_vel, decimation=decimation,
-              eps=eps, exact_inputs=exact_inputs)
+              eps=eps, exact_inputs=exact_inputs, entry_inputs=entry_inputs)
     dev = q_t.device
     if dev.type == "cpu":
         return control_step_reference(
@@ -391,19 +478,31 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     if exact_inputs is not None and lam_in_t is not None:
         raise ValueError("exact mode starts every contact solve cold: "
                          "lam_in_t must be None")
+    if (entry_inputs is None) == (control_type == "actuator_net"
+                                  and exact_inputs is None):
+        raise ValueError("on a CUDA device the actuator network in reuse "
+                         "mode (K4, K4b) takes entry_inputs and builds its "
+                         "cache in the launch; the other variants take none")
+    if entry_inputs is not None and (em is not None or n_t is not None):
+        raise ValueError("entry_inputs: the kernel builds the cache and "
+                         "samples the normals itself (no em, no n_t)")
     ptrs, outs, floats, ints, (H, F) = kernel_operands(
         em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
         tgt_t, strengths_t, ctrl_inputs, vlim, tlim, qlo, qhi, lam_in_t, **kw)
-    lib = build_library(model, H, F)
+    team = entry_inputs is not None
+    lib = build_library(model, H, F, team)
     with torch.cuda.device(dev):
-        _build.launch(lib, "megastep", ptrs, outs, floats, ints,
+        _build.launch(lib, "megastep_team" if team else "megastep", ptrs,
+                      outs, floats, ints,
                       torch.cuda.current_stream(dev).cuda_stream)
     if exact_inputs is not None:
         exact_launches += 1
-    elif n_t is not None:
-        normal_launches += 1
+    elif n_t is not None and control_type == "P":
+        p_normal_launches += 1
     elif control_type == "P":
         p_launches += 1
+    elif entry_inputs[2] is not None:
+        normal_launches += 1
     else:
         launches += 1
     return tuple(o for o in outs if o is not None)
@@ -418,17 +517,20 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
                     contact: bool, limit_stiffness: float,
                     limit_damping: float, max_base_ang_vel: float,
                     max_base_lin_vel: float, decimation: int,
-                    eps: float = 1e-6, exact_inputs=None):
-    """The arguments of csrc/megastep.cu's `megastep_launch` for one control
-    step: input pointers in its InIdx order (null where the
-    variant reads nothing), the output tensors, allocated on the inputs'
-    device, in OutIdx order (None where the variant writes nothing), the
-    FIdx floats, the int scalars and the actuator network's (hidden,
-    features).  Checks every operand's device, dtype, shape and
+                    eps: float = 1e-6, exact_inputs=None, entry_inputs=None):
+    """The arguments of `megastep_launch` (csrc/megastep.cu) or, with
+    `entry_inputs`, `megastep_team_launch` (csrc/megastep_team.cu) for one
+    control step (csrc/wtw_megastep.cuh): input pointers in InIdx order
+    (null where the variant reads nothing), the output tensors, allocated
+    on the inputs' device, in OutIdx order (None where the variant writes
+    nothing), the FIdx floats, the IntIdx ints and the actuator network's
+    (hidden, features).  Checks every operand's device, dtype, shape and
     contiguity."""
     dev = q_t.device
     pctrl = control_type == "P"
     exact = exact_inputs is not None
+    entry = entry_inputs is not None
+    terrain = entry_inputs[2] if entry else None
 
     nv, nb = model.nv, model.nb
     nj = nv - 6
@@ -446,12 +548,18 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
         if F != 6:
             raise NotImplementedError(
                 "actuator network with 6 inputs per joint")
-        net = (("W0b", W0b, (nj * H, nj * F)), ("b0b", b0b, (nj * H, 1)),
-               ("W1b", W1b, (nj * H, nj * H)), ("b1b", b1b, (nj * H, 1)),
-               ("W2b", W2b, (nj, nj * H)), ("b2b", b2b, (nj, 1)),
-               ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
-               ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)))
-    cache = () if exact else (
+        blocks = (("W0b", W0b, (nj * H, nj * F)), ("b0b", b0b, (nj * H, 1)),
+                  ("W1b", W1b, (nj * H, nj * H)), ("b1b", b1b, (nj * H, 1)),
+                  ("W2b", W2b, (nj, nj * H)), ("b2b", b2b, (nj, 1)))
+        for name, x, shape in blocks:
+            _build.check(name, x, shape, dev)
+        if entry:       # the team kernel reads the packed nonzero blocks
+            blocks = (("net_t", team_actuator_weights(*ctrl_inputs[:6]),
+                       (nj * (F * H + H * H + 3 * H + 1),)),)
+        net = blocks + (
+            ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
+            ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)))
+    cache = () if exact or entry else (
         ("Sw_t", em.Sw_t, (nv, 3, Npad)), ("Sv_t", em.Sv_t, (nv, 3, Npad)),
         ("A_t", em.A_t, (nb, 9, Npad)), ("B_t", em.B_t, (nb, 9, Npad)),
         ("m_t", em.m_t, (nb, Npad)), ("Minv_t", em.Minv_t, (nv, nv, Npad)),
@@ -473,17 +581,24 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
     if pctrl:
         given["kp_t"] = (kp_t, (nj, Npad))
         given["kd_t"] = (kd_t, (nj, Npad))
-    if exact:
-        given["payload_t"] = (exact_inputs[0], (1, Npad))
-        given["comdisp_t"] = (exact_inputs[1], (3, Npad))
-    # the kernel's input slots, in csrc/megastep.cu's InIdx order; a slot
-    # the variant does not read stays null
+    if exact or entry:
+        payload_t, comdisp_t = (exact_inputs if exact else entry_inputs)[:2]
+        given["payload_t"] = (payload_t, (1, Npad))
+        given["comdisp_t"] = (comdisp_t, (3, Npad))
+    hs, ox, oy, c_rows, c_cols = 1.0, 0.0, 0.0, 0, 0
+    if terrain is not None:
+        c_rows, c_cols = (int(x) for x in terrain.corners.shape[:2])
+        given["corners"] = (terrain.corners, (c_rows, c_cols, 4))
+        hs = terrain.horizontal_scale
+        ox, oy = terrain.origin_xy
+    # the kernels' input slots, in csrc/wtw_megastep.cuh's InIdx order; a
+    # slot the variant does not read stays null
     slots = ("Sw_t", "Sv_t", "A_t", "B_t", "m_t", "Minv_t", "p_cp_t", "rh_t",
              "mu_t", "e_t", "g_t", "lam_in_t", "q_t", "qd_t", "pos_t",
              "quat_t", "lin_t", "ang_t", "tgt_t", "strengths_t", "W0b", "b0b",
              "W1b", "b1b", "W2b", "b2b", "el_t", "ell_t", "vl_t", "vll_t",
              "vlim", "tlim", "qlo", "qhi", "kp_t", "kd_t", "payload_t",
-             "comdisp_t", "n_t")
+             "comdisp_t", "n_t", "corners", "net_t")
     assert len(slots) == _N_IN and set(given) <= set(slots)
     ptrs = [None if name not in given else
             _build.check(name, given[name][0], given[name][1], dev).data_ptr()
@@ -497,9 +612,10 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
             for s in out_shapes[:n_out]] + [None] * (_N_OUT - n_out)
     floats = (dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
               limit_stiffness, limit_damping, max_base_ang_vel,
-              max_base_lin_vel, eps, 0.5 * dt)
-    ints = (Npad, D, num_iters, warm_iters, bool(contact), KERNEL_THREADS,
-            pctrl, exact, n_t is None)
+              max_base_lin_vel, eps, 0.5 * dt, hs, ox, oy)
+    ints = (Npad, D, num_iters, warm_iters, bool(contact),
+            TEAM_THREADS if entry else KERNEL_THREADS, pctrl, exact,
+            n_t is None and terrain is None, entry, c_rows, c_cols)
     return ptrs, outs, floats, ints, (H, F)
 
 
@@ -545,9 +661,17 @@ def cache_rebuild_ops(model) -> int:
     return int(ops)
 
 
+# fp32 operations of one heightfield sample (csrc/wtw_device.cuh
+# heightfield_sample): grid coordinates 4, floors 2, fractions and their
+# clamps 6, bilinear height 13, two slopes 12, the normal's length and
+# division 9, h + radius 1
+HEIGHTFIELD_SAMPLE_OPS = 47
+
+
 def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
                  features: int = 6, control_type: str = "actuator_net",
-                 exact: bool = False, num_iters: int = 16, flat: bool = True):
+                 exact: bool = False, num_iters: int = 16, flat: bool = True,
+                 entry: bool = False):
     """(bytes moved, fp32 operations) per env for one control step of the
     kernel variant: each input read once and each output written once, and
     the arithmetic the algorithm needs with its static sparsity (a
@@ -558,8 +682,14 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
     distinct entries and n^T W n, and runs the general-normal rows.  Exact
     mode (K5): payload and COM shift in place of the cache, which is
     rebuilt (`cache_rebuild_ops`) and formed into J and W before every
-    substep, and every solve runs `num_iters` sweeps from a cold start.  The actuator weights and the bound columns
-    are shared by all envs and are not counted per env."""
+    substep, and every solve runs `num_iters` sweeps from a cold start.
+    With `entry` (K4, K4b as they run now): reuse mode with the cache built
+    in the launch from the entry state, once (`cache_rebuild_ops`): the
+    payload and COM shift are read in place of the cache and, on a
+    heightfield, one cell of four corner heights per contact point in place
+    of the normals, sampled once (`HEIGHTFIELD_SAMPLE_OPS`).  The actuator
+    weights and the bound columns are shared by all envs and are not
+    counted per env."""
     nv, nb = model.nv, model.nb
     nj = nv - 6
     P = model.cp_body.shape[0]
@@ -567,10 +697,15 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
     anc, anc_p, groups = _topology(model)
     pctrl = control_type == "P"
     hist = 0 if pctrl else 4 * nj
-    cache_in = (1 + 3) if exact else (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv
-                                      + P * 3 + P * 3)   # + the lam seed
+    if exact:
+        cache_in = 1 + 3
+    elif entry:
+        cache_in = 1 + 3 + P * 3                           # + the lam seed
+    else:
+        cache_in = (2 * nv * 3 + 2 * nb * 9 + nb + nv * nv
+                    + P * 3 + P * 3)                       # + the lam seed
     if not flat:
-        cache_in += P * 3                                  # the normals
+        cache_in += P * 4 if entry else P * 3   # corner heights | normals
     floats_in = (cache_in + P + 1 + 1 + 3 + 2 * nj + 3 + 4 + 3 + 3 + D * nj
                  + nj + (2 * nj if pctrl else hist))
     floats_out = 2 * nj + 3 + 4 + 3 + 3 + 3 * P * 3 + nj + hist
@@ -595,4 +730,8 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
         ops = D * (cache_rebuild_ops(model) + cache + per_substep)
     else:
         ops = cache + D * per_substep
+    if entry:
+        ops += cache_rebuild_ops(model)
+        if not flat:
+            ops += P * HEIGHTFIELD_SAMPLE_OPS
     return 4 * (floats_in + floats_out), ops

@@ -4,9 +4,10 @@ Counterpart of the JAX package's physics/engine.py, restricted to what runs
 through the hand-written kernels:
 
 - the control-step route (default training path): one control step = one
-  launch of the whole-control-step kernel (ops/megastep.py), in reuse mode
-  (cache built here once per control step) or in exact mode (cache rebuilt
-  inside the kernel before every substep);
+  launch of a whole-control-step kernel (ops/megastep.py), in reuse mode
+  (the cache of the entry state built inside the launch with the actuator
+  network, here on the host with P control) or in exact mode (cache
+  rebuilt inside the kernel before every substep);
 - the per-substep route: per control step one `build_dynamics_cache`
   (env-minor cache + the contact-cache kernel, ops/contact.py) and per
   physics substep one `physics_substep_cached` (the dynamics-substep kernel,
@@ -139,7 +140,13 @@ class Terrain(NamedTuple):
             n = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype,
                              device=x.device).expand(tuple(x.shape) + (3,))
             return h, n
-        hs = self.horizontal_scale
+        # the pitch as a tensor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its float32 reciprocal, which moves a query one
+        # rounding off the true quotient and, at a cell's edge, into the
+        # neighbouring cell (another normal); a tensor divisor divides on
+        # every device, as the CPU and K4b's heightfield_sample do
+        hs = torch.full((), self.horizontal_scale, dtype=x.dtype,
+                        device=x.device)
         gx = (x - self.origin_xy[0]) / hs
         gy = (y - self.origin_xy[1]) / hs
         H, W = self.height.shape
@@ -408,35 +415,53 @@ def megakernel_args(
     decimation: int,
     lam_in_t=None,                  # (P, 3, Npad) cross-step warm seed
     exact: bool = False,
+    eager_cache: bool = False,
 ):
     """The (args, kwargs) of the `ops/megastep.control_step` call for one
-    control step: the env-minor cache of the entry state (reuse mode) or
-    the payload and COM shift the kernel rebuilds it from (exact mode), the
-    state and the control inputs transposed to env-minor and padded to
-    MEGASTEP_BLOCK, the per-dof bound columns, and the solver's static
-    parameters."""
+    control step: the state and the control inputs transposed to env-minor
+    and padded to MEGASTEP_BLOCK, the per-dof bound columns, the solver's
+    static parameters, and where the dynamics cache comes from:
+
+    - the actuator network in reuse mode (K4, K4b): `entry_inputs` =
+      (payload, COM shift, the terrain on a heightfield or None), from
+      which the control step builds the cache of the entry state and
+      samples the heightfield under the entry contact points itself (the
+      kernel inside its launch, the plain version eagerly);
+    - P control in reuse mode (K4c, K4b-P), or any reuse-mode call with
+      `eager_cache`: the env-minor cache of the entry state built here on
+      the host (`build_pallas_env_inputs`), with the surface normals on a
+      heightfield;
+    - exact mode (K5): the payload and COM shift the kernel rebuilds the
+      cache from before every substep (`exact_inputs`)."""
     f32 = state.base_pos.dtype
     dev = state.base_pos.device
     block = MEGASTEP_BLOCK
+    N = state.base_pos.shape[0]
+    heightfield = (terrain is not None
+                   and tuple(terrain.height.shape) != (2, 2))
+    exact_inputs = entry_inputs = None
 
     if exact:
         # no cache here: the kernel rebuilds it before every substep.
         # Flat ground only; every contact solve starts cold.
-        if terrain is not None and tuple(terrain.height.shape) != (2, 2):
+        if heightfield:
             raise ValueError(
                 "exact mode in the control-step kernel is flat-ground only; "
                 "on a heightfield the env runs exact mode as `decimation` "
                 "reuse-mode launches of one substep each")
-        N = state.base_pos.shape[0]
+    if exact or (ctrl[0] != "P" and not eager_cache):
         em, n_t = None, None
         rh_t, mu_t, e_t, g_t = _contact_inputs(
             model, dyn, -(-N // block) * block, block)
-        exact_inputs = (pc.to_env_minor(dyn.payload[:, None], block),
-                        pc.to_env_minor(dyn.com_displacement, block))
+        randomised = (pc.to_env_minor(dyn.payload[:, None], block),
+                      pc.to_env_minor(dyn.com_displacement, block))
+        if exact:
+            exact_inputs = randomised
+        else:
+            entry_inputs = randomised + (terrain if heightfield else None,)
     else:
         em, rh_t, mu_t, e_t, g_t, n_t = build_pallas_env_inputs(
             model, state, dyn, terrain, block)
-        exact_inputs = None
     q_t = pc.to_env_minor(state.q, block)
     qd_t = pc.to_env_minor(state.qd, block)
     pos_t = pc.to_env_minor(state.base_pos, block)
@@ -481,7 +506,8 @@ def megakernel_args(
         limit_damping=params.joint_limit_damping,
         max_base_ang_vel=params.max_base_ang_vel,
         max_base_lin_vel=params.max_base_lin_vel,
-        decimation=decimation, exact_inputs=exact_inputs)
+        decimation=decimation, exact_inputs=exact_inputs,
+        entry_inputs=entry_inputs)
     return args, kwargs
 
 
@@ -499,17 +525,21 @@ def control_step_megakernel(
     lam_in_t=None,
     exact: bool = False,
 ):
-    """One whole control step through the control-step kernel
+    """One whole control step through a control-step kernel
     (ops/megastep.control_step): `decimation` substeps of torque model +
     cached dynamics + contact + integration in a single launch, with the
     J/W cache built in-kernel.  Reuse-mode semantics (cache anchored at
     the entry state, contact points advanced at velocity level; on a
     heightfield the surface normals sampled at the entry contact points
-    go to the kernel's general-normal variant) — or, with
+    enter the general-normal contact rows): with the actuator network
+    (K4, K4b) the kernel builds the entry cache and samples the
+    heightfield itself in its launch; with P control (K4c, K4b-P) the
+    cache and the normals are built here on the host first.  With
     `exact=True`, exact per-substep semantics: the kernel rebuilds the whole
     cache (FK/twists/inertia/CRBA/M^-1/J/W) from the current state before
     every substep (flat ground only; every contact solve starts cold, as in
-    the per-substep exact route).  Arguments as `megakernel_args`.
+    the per-substep exact route).  On CPU tensors the plain version runs
+    the same steps eagerly.  Arguments as `megakernel_args`.
 
     Returns (new_state, lam_t, pcp_t, pcp_prev_t, torques (N, 12),
     hist (dict of (N, 12) actuator histories, empty for P control))."""

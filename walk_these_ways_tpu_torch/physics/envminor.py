@@ -10,9 +10,11 @@ body lists, and the joint-joint mass-matrix block is built only for the
 (ancestor, descendant) dof pairs that are nonzero on a quadruped.
 
 Outputs are stacked directly into the env-minor `(..., Npad)` layouts the
-control-step kernel consumes (ops/megastep.py).  Run eagerly this is a few
-thousand small tensor ops per control step; it feeds the kernel and is not
-part of it.
+kernels consume (ops/megastep.py, ops/contact.py, ops/dynamics.py).  Run
+eagerly this is a few thousand small tensor ops per control step; it feeds
+the per-substep route and the P-control kernels, and it is the plain
+version of the build that K4, K4b and K5 run in their launch
+(csrc/wtw_cache.cuh).
 """
 from __future__ import annotations
 
@@ -319,8 +321,10 @@ def cache_columns(model, q_cols, base_quat_cols, ref, payload,
     return Sw, Sv, Minv, A_blk, B_blk, m, r_cp, p_cp
 
 
-# number of eager cache builds (`build_cache_envminor` calls); exact mode
-# on the control-step route makes none
+# number of eager cache builds (`build_cache_envminor` calls); the
+# control-step route makes none with the actuator network (K4, K4b build the
+# entry cache in their launch, K5 before every substep) and one per control
+# step with P control
 cache_builds = 0
 
 
