@@ -58,10 +58,16 @@ MUTANTS = (
     ("contact_cache_does_not_compile", "contact_cache.cu",
      "const size_t npad = (size_t)a.npad;", "const size_t npad = (size_t)a.npad",
      "build"),
+    # P control's damping term with the wrong sign: in the team kernel
+    # (K4c, K4b-P; K4c is checked first) and in the one-thread kernel (K5-P)
+    ("team_p_control_damping_sign", "megastep_team.cu",
+     "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q) - LD(I_KD, j) * qd;",
+     "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q) + LD(I_KD, j) * qd;",
+     "control_step_p"),
     ("p_control_damping_sign", "megastep.cu",
      "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) - LD(I_KD, j) * qd[j];",
      "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) + LD(I_KD, j) * qd[j];",
-     "control_step_p"),
+     "control_step_exact_p"),
     ("cache_rebuild_drops_payload_scale", "wtw_cache.cuh",
      "const float scale0 = mass[0] / MS_MASS[0];",
      "const float scale0 = 1.0f;", "control_step_exact"),
@@ -74,11 +80,11 @@ MUTANTS = (
     # cache through a path that is not coherent with the kernel's own stores
     # (__ldg) may return them
     ("exact_minv_stale_after_first_substep", "megastep.cu",
-     "      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, "
-     "ex_B,\n                        ex_m, ex_minv, pcp);",
-     "      float stale[NV * NV];\n"
-     "      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, "
-     "ex_B,\n                        ex_m, si == 0 ? ex_minv : stale, pcp);",
+     "    cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, A9, B9, "
+     "mb,\n                      Minv, pcp);",
+     "    float stale[NV * NV];\n"
+     "    cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, A9, B9, "
+     "mb,\n                      si == 0 ? Minv : stale, pcp);",
      "control_step_exact"),
     # the general-normal rows (K4b's and K3b's) take the normal part of the
     # impulse as if n were +z

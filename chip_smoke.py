@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's four kernel sources from csrc/*.cu with nvcc (one nvcc
-each, all started together; csrc/megastep.cu holds the variants of the
-control-step kernel: K4, K4c with P control, K4b on a heightfield with
-either torque model, K5 in exact mode; csrc/dynamics_substep.cu K3 and K3b
-on a heightfield), holds each kernel against its plain PyTorch version on
-the card at the shapes the paths below give it (4000 envs), then drives the
-port's paths through the entry points a user calls and checks what comes
-out:
+Builds the port's five kernel sources from csrc/*.cu with nvcc (one nvcc
+each, all started together; csrc/megastep_team.cu holds the control-step
+kernel in reuse mode, one warp per env with the entry cache built in the
+launch: K4, K4c with P control, K4b and K4b-P on a heightfield;
+csrc/megastep.cu K5 in exact mode with either torque model;
+csrc/dynamics_substep.cu K3 and K3b on a heightfield; csrc/contact_cache.cu
+K1; csrc/contact_substep.cu K2), holds each kernel against its plain
+PyTorch version on the card at the shapes the paths below give it (4000
+envs), then drives the port's paths through the entry points a user calls
+and checks what comes out:
 
 - the policy rollout of `mob_train_cfg(4000)` on the default route (one
   control-step kernel launch per step),
@@ -23,15 +25,17 @@ out:
 - exact mode on the control-step route (`sim.reuse_matrices=False`: one K5
   launch per step, no eager cache build), and one control step of it held
   against the per-substep exact route,
-- P control on the control-step route (`small_train_cfg(4000)`, K4c),
+- P control on the control-step route (`small_train_cfg(4000)`, K4c, no
+  eager cache build),
 - the training entry point: `learn/runner.Runner` (log, checkpoint, resume,
   export), then four commands as subprocesses started together:
   `python -m walk_these_ways_tpu_torch.scripts.train --exact` and
   `... --terrain rough`, `scripts.play` (on the policy the runner exported)
   and `scripts.test`; the bench's `main`,
 - rough terrain (`rough_train_cfg(4000)`): the default route (one K4b launch
-  per step), the exact route (`decimation` K4b launches of one substep per
-  step) and the per-substep route (K1 + 4 K3b per step), the exact route
+  per step), the P-control route (one K4b-P launch per step), the exact
+  route (`decimation` K4b launches of one substep per step) and the
+  per-substep route (K1 + 4 K3b per step), the exact route
   held against the per-substep exact route, a PPO iteration and the bench
   on rough terrain,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
@@ -183,8 +187,9 @@ def bound(nbytes, nops, n):
 def kernel_call_of(env, state, eager_cache=False):
     """(args, kwargs) of the control-step call that `env.step` makes from
     `state`; with `eager_cache` the entry cache (and on a heightfield the
-    normals) built on the host, as the plain version of K4 and K4b is fed
-    here: their kernel builds it inside its launch."""
+    normals) built on the host, as the plain version of the team kernel's
+    variants (K4, K4b, K4c, K4b-P) is fed here: the kernel builds it inside
+    its launch."""
     _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
@@ -584,9 +589,10 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
                 ("control_step_normals_p", env_rp, OUT_NAMES[:10])):
             args, kw = kernel_call_of(env_x, state)
             p_args, p_kw = kernel_call_of(env_x, state, eager_cache=True)
-            # the normals (K4b-P), or the terrain K4b samples in its launch
+            # the normals for the plain version, the terrain for the kernel
+            # to sample in its launch
             assert p_args[5] is not None
-            assert (args[5] is None) == (key == "control_step_normals")
+            assert args[5] is None and kw["entry_inputs"][2] is not None
             worst[key] = max(worst.get(key, 0.0), compare(
                 key, st_name, names,
                 lambda: megastep.control_step(*args, **kw),
@@ -603,7 +609,7 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
                 lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
                 N))
         calls.append((k3, k3_kw))
-    n_t = calls[1][0][5]
+    n_t = calls[2][0][16]                               # K3b's normals
     say(phase="rough_normals", state="24_random_steps_in",
         normal_z_min=float(n_t[:, 2, :N].min()),
         padded_lanes_plus_z=bool((n_t[:, 2, N:] == 1).all()))
@@ -633,27 +639,29 @@ def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi,
 
 
 def team_occupancy(lib):
-    """Launch shape of the team kernel (K4, K4b) and its resident blocks
-    and warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    vals = [ctypes.c_int() for _ in range(4)]
+    """Launch shape of the team kernel and the resident blocks and warps
+    per SM of its four instantiations, K4, K4b, K4c and K4b-P
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = (ctypes.c_int * 4)()
+    threads, smem = ctypes.c_int(), ctypes.c_int()
     fn = lib.megastep_team_occupancy
-    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    rc = fn(*[ctypes.byref(v) for v in vals])
-    blocks_flat, blocks_rough, threads, smem = (v.value for v in vals)
+    rc = fn(blocks, ctypes.byref(threads), ctypes.byref(smem))
+    threads, smem = threads.value, smem.value
+    per_sm = dict(zip(("K4", "K4b", "K4c", "K4b-P"), blocks))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     envs_per_block = threads // 32
-    say(phase="team_occupancy", kernel="megastep_team (K4, K4b)",
+    say(phase="team_occupancy",
+        kernel="megastep_team (K4, K4b, K4c, K4b-P)",
         threads_per_block=threads, envs_per_block=envs_per_block,
         static_shared_bytes_per_block=smem, multiprocessors=sms,
-        blocks_per_sm=dict(flat=blocks_flat, heightfield=blocks_rough),
-        warps_per_sm=dict(flat=blocks_flat * envs_per_block,
-                          heightfield=blocks_rough * envs_per_block),
-        waves_at_n_envs=dict(
-            n_envs=N_ENVS,
-            flat=N_ENVS / max(1, blocks_flat * envs_per_block * sms),
-            heightfield=N_ENVS / max(1, blocks_rough * envs_per_block * sms)),
-        ok=rc == 0)
+        blocks_per_sm=per_sm,
+        warps_per_sm={k: b * envs_per_block for k, b in per_sm.items()},
+        waves_at_n_envs=dict(n_envs=N_ENVS, **{
+            k: N_ENVS / max(1, b * envs_per_block * sms)
+            for k, b in per_sm.items()}),
+        ok=rc == 0 and min(per_sm.values()) > 0)
     if rc != 0:
         raise SystemExit(f"megastep_team_occupancy failed: {rc}")
 
@@ -750,6 +758,8 @@ def main():
     env_exact = LeggedRobotEnv(cfg_exact, device=DEV)
     env_sub_exact = LeggedRobotEnv(cfg_sub_exact, device=DEV)
     env_p = LeggedRobotEnv(cfg_p, device=DEV)
+    env_px = LeggedRobotEnv(dataclasses.replace(cfg_p, sim=dataclasses.replace(
+        cfg_p.sim, reuse_matrices=False)), device=DEV)    # K5-P
     env_r = LeggedRobotEnv(cfg_r, device=DEV)           # K4b
     env_rp = LeggedRobotEnv(cfg_rp, device=DEV)         # K4b with P control
     env_rs = LeggedRobotEnv(rough(megastep=False), device=DEV)   # K1 + K3b
@@ -814,19 +824,24 @@ def main():
     k1, k2, k3, k3_kw, x = compare_substep_kernels(
         env_sub, state, "24_random_steps_in", worst)
 
-    # ---- K4c (P control, small_train_cfg) and K5 (exact mode) -------------
+    # ---- K4c (P control, small_train_cfg; the team kernel, against the ---
+    # plain version fed the eager build), then K5 and K5-P (exact mode) ----
     state_p, _ = env_p.reset(gen)
+    p_states = []
     for st_name in ("after_reset", "24_random_steps_in"):
         if st_name != "after_reset":
             for _ in range(24):
                 a = torch.randn((N, 12), generator=gen, device=DEV)
                 state_p, *_ = env_p.step(state_p, a)
         args_p, kw_p = kernel_call_of(env_p, state_p)
+        pp_args, pp_kw = kernel_call_of(env_p, state_p, eager_cache=True)
+        assert args_p[0] is None and kw_p["entry_inputs"] is not None
         worst["control_step_p"] = max(worst.get("control_step_p", 0.0),
                                       compare(
             "control_step_p", st_name, OUT_NAMES[:10],
             lambda: megastep.control_step(*args_p, **kw_p),
-            lambda: megastep.control_step_reference(*args_p, **kw_p), N))
+            lambda: megastep.control_step_reference(*pp_args, **pp_kw), N))
+        p_states.append((st_name, state_p))
     for st_name, st in (("after_reset", state0),
                         ("24_random_steps_in", state)):
         args_x, kw_x = kernel_call_of(env_exact, st)
@@ -835,15 +850,24 @@ def main():
                 "control_step_exact", st_name, OUT_NAMES,
                 lambda: megastep.control_step(*args_x, **kw_x),
                 lambda: megastep.control_step_reference(*args_x, **kw_x), N))
+    for st_name, st in p_states:
+        args_px, kw_px = kernel_call_of(env_px, st)
+        worst["control_step_exact_p"] = max(
+            worst.get("control_step_exact_p", 0.0), compare(
+                "control_step_exact_p", st_name, OUT_NAMES[:10],
+                lambda: megastep.control_step(*args_px, **kw_px),
+                lambda: megastep.control_step_reference(*args_px, **kw_px),
+                N))
 
     # ---- K4b (both torque models) and K3b on rough_train_cfg states -------
     state_r, ((args_b, kw_b), (args_bp, kw_bp), (k3b, k3b_kw)) = \
         rough_kernel_checks(env_r, env_rp, env_rs, gen, worst)
 
     # ---- kernel timing, bounds, plain versions' times ---------------------
-    # K4 and K4b build their entry cache in the launch: the kernel's time
-    # and its plain version's (eager build + plain step) include it; the
-    # eager build alone, which the routes no longer make, is timed beside
+    # K4, K4b, K4c and K4b-P build their entry cache in the launch: the
+    # kernel's time and its plain version's (eager build + plain step)
+    # include it; the eager build alone, which the control-step routes no
+    # longer make, is timed beside
     timed = {}
     t0 = time.time()
     engine.build_pallas_env_inputs(env.model, state.phys,
@@ -882,9 +906,11 @@ def main():
     timed["control_step_p"] = timing(
         "control_step_p", lambda: megastep.control_step(*args_p, **kw_p),
         lambda: megastep.control_step_reference(*args_p, **kw_p),
-        megastep.work_per_env(m, D, kw_p["warm_iters"], control_type="P"),
+        megastep.work_per_env(m, D, kw_p["warm_iters"], control_type="P",
+                              entry=True),
         N, launch=megastep_launch(m, args_p, kw_p),
-        threads_per_block=megastep.KERNEL_THREADS,
+        eager_entry_cache_build_ms=cache_ms,
+        threads_per_block=megastep.TEAM_THREADS,
         max_abs_err_vs_plain=worst["control_step_p"])
     timed["control_step_exact"] = timing(
         "control_step_exact", lambda: megastep.control_step(*args_x, **kw_x),
@@ -914,9 +940,10 @@ def main():
         lambda: megastep.control_step(*args_bp, **kw_bp),
         lambda: megastep.control_step_reference(*args_bp, **kw_bp),
         megastep.work_per_env(m, D, kw_bp["warm_iters"], control_type="P",
-                              flat=False), N,
+                              flat=False, entry=True), N,
         launch=megastep_launch(m, args_bp, kw_bp),
-        threads_per_block=megastep.KERNEL_THREADS,
+        eager_entry_cache_build_ms=rough_cache_ms,
+        threads_per_block=megastep.TEAM_THREADS,
         max_abs_err_vs_plain=worst["control_step_normals_p"])
     timed["dynamics_substep_normals"] = timing(
         "dynamics_substep_normals",
@@ -1088,8 +1115,7 @@ def main():
     torch.cuda.synchronize()
     p_counts = check_rollout(
         "p_control_route", env_p, state_p, obs_p, ro_p, steps,
-        time.time() - t0,
-        expect(control_step_p=steps, eager_cache_builds=steps), smi,
+        time.time() - t0, expect(control_step_p=steps), smi,
         config="small_train_cfg", need_resets=False)
 
     # ---- the training entry point ---------------------------------------
@@ -1105,13 +1131,11 @@ def main():
     rough_counts = rough_route(
         "rough_route", "rough_train_cfg", env_r, policy, steps, gen,
         expect(control_step_normals=steps), smi)
-    rough_steps_exact = 4
     rough_p_counts = rough_route(
         "rough_p_control_route", "rough_train_cfg, control.control_type=P",
-        env_rp, policy, rough_steps_exact, gen,
-        expect(control_step_normals_p=rough_steps_exact,
-               eager_cache_builds=rough_steps_exact), smi,
-        engine.MEGASTEP_BLOCK)
+        env_rp, policy, steps, gen, expect(control_step_normals_p=steps),
+        smi)
+    rough_steps_exact = 4
     rough_route(
         "rough_exact_route", "rough_train_cfg, sim.reuse_matrices=False",
         env_rx, policy, rough_steps_exact, gen,
@@ -1189,12 +1213,13 @@ def main():
          "in the launch, one warp per env)", "megastep_team.cu",
          "/ops/pallas_megastep.py:185"),
         ("control_step_normals_p", "control_step with surface normals, P "
-         "control (K4b-P: as K4b with tau = kp (tgt - q) - kd qd, cache "
-         "and normals built on the host, one thread per env)", "megastep.cu",
-         "/ops/pallas_megastep.py:185"),
+         "control (K4b-P: as K4b with tau = kp (tgt - q) - kd qd, entry "
+         "cache and heightfield samples in the launch, one warp per env)",
+         "megastep_team.cu", "/ops/pallas_megastep.py:185"),
         ("control_step_p", "control_step, P control (K4c: whole control "
-         "step, flat ground, reuse mode, tau = kp (tgt - q) - kd qd)",
-         "megastep.cu", "/ops/pallas_megastep.py:154"),
+         "step, flat ground, reuse mode, tau = kp (tgt - q) - kd qd, entry "
+         "cache built in the launch, one warp per env)",
+         "megastep_team.cu", "/ops/pallas_megastep.py:154"),
         ("control_step_exact", "control_step, exact mode (K5: whole control "
          "step, FK/CRBA/M^-1/J/W rebuilt in-kernel before every substep, "
          "cold solves)", "megastep.cu", "/ops/pallas_megastep.py:154"))

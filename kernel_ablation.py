@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of the team control-step kernel (K4) goes, on one NVIDIA
-GPU.
+"""Where the time of the team control-step kernel goes, on one NVIDIA GPU.
 
     python3 kernel_ablation.py
 
 Builds `csrc/megastep_team.cu` as it is and in copies with one part of its
 work cut out or one launch setting changed (one text edit each, under
 `build/ablation/`, one nvcc each, all started together), times every copy
-with CUDA events over 20 launches on one input (`mob_train_cfg(4000)`, 24
-random control steps in, the default route's arguments) and prints one JSON
-line per variant with its time beside the unchanged kernel's, then the
-card's name and power limit.  The cut copies compute wrong results: they
+with CUDA events over 20 launches on three inputs, each 24 random control
+steps in at 4000 envs: the default route's arguments (K4,
+`mob_train_cfg`), the P-control route's (K4c, `small_train_cfg`) and the
+rough P-control route's (K4b-P, `rough_train_cfg` with P control).  Prints
+one JSON line per input and variant with its time beside the unchanged
+kernel's, then the card's name and power limit.  The cut copies compute wrong results: they
 are timed, never checked (`chip_smoke.py` checks the kernel).  Runs
 nothing else; needs one CUDA device.
 """
 import ctypes
+import dataclasses
 import json
 import os
 import shutil
@@ -29,7 +31,8 @@ if not torch.cuda.is_available():
 
 from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
     LeggedRobotEnv, make_generator)
-from walk_these_ways_tpu_torch.go1_config import mob_train_cfg  # noqa: E402
+from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
+    mob_train_cfg, rough_train_cfg, small_train_cfg)
 from walk_these_ways_tpu_torch.ops import _build, megastep  # noqa: E402
 from walk_these_ways_tpu_torch.physics import engine  # noqa: E402
 
@@ -93,29 +96,41 @@ def build(model, root):
     return libs, logs
 
 
+def operands(dev, n):
+    """Per input (name, cfg): the packed launch operands of the control step
+    that `env.step` makes 24 random control steps after a reset."""
+    rough_p = rough_train_cfg(n)
+    rough_p = dataclasses.replace(rough_p, control=dataclasses.replace(
+        rough_p.control, control_type="P"))
+    out, model = {}, None
+    for name, cfg in (("K4", mob_train_cfg(n)), ("K4c", small_train_cfg(n)),
+                      ("K4b-P", rough_p)):
+        env = LeggedRobotEnv(cfg, device=dev)
+        model = env.model
+        gen = make_generator(0, dev)
+        state, _ = env.reset(gen)
+        for _ in range(24):
+            state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
+                                                    device=dev))
+        _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
+        args, kwargs = engine.megakernel_args(
+            env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
+            state.motor_strengths, env.torque_limits, ctrl,
+            env.cfg.control.decimation, lam_in)
+        out[name] = megastep.kernel_operands(*args, **kwargs)[:4]
+    return model, out
+
+
 def main():
     dev = torch.device("cuda", 0)
     n = 4000
-    env = LeggedRobotEnv(mob_train_cfg(n), device=dev)
-    gen = make_generator(0, dev)
-    state, _ = env.reset(gen)
-    for _ in range(24):
-        state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
-                                                device=dev))
-    _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
-    args, kwargs = engine.megakernel_args(
-        env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
-        state.motor_strengths, env.torque_limits, ctrl,
-        env.cfg.control.decimation, lam_in)
-    ptrs, outs, floats, ints, _ = megastep.kernel_operands(*args, **kwargs)
-    libs, logs = build(env.model, os.path.join(_build.build_dir(),
-                                                "ablation"))
+    model, inputs = operands(dev, n)
+    libs, logs = build(model, os.path.join(_build.build_dir(), "ablation"))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def time_ms(lib):
+    def time_ms(lib, ops):
         def once():
-            _build.launch(lib, "megastep_team", ptrs, outs, floats, ints,
-                          stream)
+            _build.launch(lib, "megastep_team", *ops, stream)
         for _ in range(3):
             once()
         torch.cuda.synchronize()
@@ -128,19 +143,20 @@ def main():
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / 20
 
-    # in turns: kernel, each variant, kernel
-    base = [time_ms(libs["kernel"])]
-    rows = []
-    for name, what, _ in VARIANTS[1:]:
-        rows.append((name, what, time_ms(libs[name])))
-    base.append(time_ms(libs["kernel"]))
-    print(json.dumps(dict(variant="kernel", what=VARIANTS[0][1],
-                          ms=base, n_envs=n, ptxas=logs["kernel"])),
-          flush=True)
-    for name, what, ms in rows:
-        print(json.dumps(dict(variant=name, what=what, ms=ms,
-                              kernel_ms=sum(base) / 2, n_envs=n,
-                              ptxas=logs[name])), flush=True)
+    for inp, ops in inputs.items():
+        # in turns: kernel, each variant, kernel
+        base = [time_ms(libs["kernel"], ops)]
+        rows = []
+        for name, what, _ in VARIANTS[1:]:
+            rows.append((name, what, time_ms(libs[name], ops)))
+        base.append(time_ms(libs["kernel"], ops))
+        print(json.dumps(dict(input=inp, variant="kernel",
+                              what=VARIANTS[0][1], ms=base, n_envs=n,
+                              ptxas=logs["kernel"])), flush=True)
+        for name, what, ms in rows:
+            print(json.dumps(dict(input=inp, variant=name, what=what, ms=ms,
+                                  kernel_ms=sum(base) / 2, n_envs=n,
+                                  ptxas=logs[name])), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Env-steps per second of the port's control-step routes on one NVIDIA GPU.
+
+    python3 route_rates.py
+
+For each route, at 4000 envs: a seeded random policy rolls 24 control steps
+out (`learn/rollout.rollout`, the rollout of a PPO iteration) three times
+after one warm-up rollout (kernels built, caches warm), host clock around
+each rollout ending in a synchronise.  Routes: `flat` (`mob_train_cfg`, the
+default route), `p` (`small_train_cfg`, P control) and `rough_p`
+(`rough_train_cfg` with P control).  Prints one JSON line per route with
+every rollout's env-steps/s, the eager cache builds and control-step
+kernel launches of the timed rollouts, then the card's name and power
+limit, and as the last line the directory of the package it measured.
+
+It uses only entry points that every slice of the port has, so a copy of
+it runs against an older tree: put it at that tree's root and run it there
+(the package is imported from the script's directory).  Compare two trees
+only within one machine's run, in turns (old, new, new, old).  Needs one
+CUDA device.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    sys.stderr.write("route_rates.py needs a CUDA device\n")
+    sys.exit(2)
+
+import walk_these_ways_tpu_torch  # noqa: E402
+from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
+    LeggedRobotEnv, make_generator)
+from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
+    mob_train_cfg, rough_train_cfg, small_train_cfg)
+from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
+from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
+from walk_these_ways_tpu_torch.ops import megastep  # noqa: E402
+from walk_these_ways_tpu_torch.physics import envminor  # noqa: E402
+
+COUNTERS = ("launches", "p_launches", "normal_launches", "p_normal_launches",
+            "exact_launches")
+N_ENVS, STEPS, REPS = 4000, 24, 3
+
+
+def route_cfg(route, n):
+    if route == "flat":
+        return mob_train_cfg(n)
+    if route == "p":
+        return small_train_cfg(n)
+    if route == "rough_p":
+        cfg = rough_train_cfg(n)
+        return dataclasses.replace(cfg, control=dataclasses.replace(
+            cfg.control, control_type="P"))
+    raise ValueError(f"unknown route {route!r}: flat, p or rough_p")
+
+
+def measure(route, n, steps, reps, dev):
+    env = LeggedRobotEnv(route_cfg(route, n), device=dev)
+    gen = make_generator(0, dev)
+    policy = ActorCritic(env.num_obs, env.num_privileged_obs,
+                         env.num_obs_history, env.num_actions,
+                         generator=gen, device=dev)
+    state, obs = env.reset(gen)
+    state, obs, _ = rollout(env, policy, steps, gen, state=state, obs=obs)
+    torch.cuda.synchronize()
+    builds = envminor.cache_builds
+    launches = [getattr(megastep, c) for c in COUNTERS]
+    rates = []
+    for _ in range(reps):
+        t0 = time.time()
+        state, obs, _ = rollout(env, policy, steps, gen, state=state,
+                                obs=obs)
+        torch.cuda.synchronize()
+        rates.append(n * steps / (time.time() - t0))
+    return dict(
+        route=route, n_envs=n, steps=steps, env_steps_per_s=rates,
+        eager_cache_builds=envminor.cache_builds - builds,
+        kernel_launches={c: getattr(megastep, c) - b
+                         for c, b in zip(COUNTERS, launches)},
+        finite=bool(torch.isfinite(state.phys.base_pos).all()))
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    for route in ("flat", "p", "rough_p"):
+        row = measure(route, N_ENVS, STEPS, REPS, dev)
+        print(json.dumps(row), flush=True)
+        if not row["finite"]:
+            raise SystemExit(f"{route}: non-finite state")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    print(json.dumps(dict(package=os.path.dirname(os.path.abspath(
+        walk_these_ways_tpu_torch.__file__)))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -30,7 +30,8 @@ def cuda():
 def _call(env, state, eager_cache=False):
     """(args, kwargs) of the control-step call of `env.step`; with
     `eager_cache` the entry cache built on the host, as the plain version of
-    K4 and K4b is fed (their kernel builds it in its launch)."""
+    the team kernel's variants (K4, K4b, K4c, K4b-P) is fed (the kernel
+    builds it in its launch)."""
     _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
@@ -94,16 +95,29 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
     with pytest.raises(ValueError):
         megastep.control_step(None, *args[1:5], normals, *args[6:19], None,
                               **exact_kw)
+    # reuse mode builds its cache in the launch, with either torque model:
+    # a host-built cache is refused, and nothing is launched
+    env_p = LeggedRobotEnv(small_train_cfg(n), device=cuda)
+    state_p, _ = env_p.reset(make_generator(0, cuda))
+    for e, st in ((env, state), (env_p, state_p)):
+        p_args, p_kwargs = _call(e, st, eager_cache=True)
+        assert p_args[0] is not None and p_kwargs["entry_inputs"] is None
+        before = (megastep.launches, megastep.p_launches)
+        with pytest.raises(ValueError, match="em and n_t must be None"):
+            megastep.control_step(*p_args, **dict(
+                p_kwargs, entry_inputs=_call(e, st)[1]["entry_inputs"]))
+        with pytest.raises(ValueError, match="entry_inputs"):
+            megastep.control_step(*p_args, **p_kwargs)
+        assert (megastep.launches, megastep.p_launches) == before
 
 
 @pytest.mark.parametrize("control_type", ["actuator_net", "P"])
 def test_normals_kernel_matches_plain_version_on_the_card(cuda,
                                                           control_type):
-    """K4b (the team kernel: entry cache and heightfield samples in its
-    launch) and K4b-P (cache and normals built on the host) on
-    rough_train_cfg, 10 random steps in, against the plain version fed the
-    eager build: |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane
-    finite, padded ones included."""
+    """K4b and K4b-P (the team kernel: entry cache and heightfield
+    samples in its launch) on rough_train_cfg, 10 random steps in, against
+    the plain version fed the eager build: |kernel - plain| <= 2e-4 + 2e-4
+    |plain|; every lane finite, padded ones included."""
     n = 250                          # 6 padded lanes
     cfg = rough_train_cfg(n)
     cfg = dataclasses.replace(cfg, control=dataclasses.replace(
@@ -117,15 +131,14 @@ def test_normals_kernel_matches_plain_version_on_the_card(cuda,
     args, kwargs = _call(env, state)
     p_args, p_kwargs = _call(env, state, eager_cache=True)
     assert p_args[5] is not None                 # the normals
-    team = control_type == "actuator_net"
-    assert (kwargs["entry_inputs"] is not None) == team
+    assert args[5] is None and kwargs["entry_inputs"][2] is not None
     counters = ("launches", "p_launches", "normal_launches",
                 "p_normal_launches")
     before = [getattr(megastep, c) for c in counters]
     out_k = megastep.control_step(*args, **kwargs)
     torch.cuda.synchronize()
     assert [getattr(megastep, c) - b for c, b in zip(counters, before)] == (
-        [0, 0, 1, 0] if team else [0, 0, 0, 1])
+        [0, 0, 1, 0] if control_type == "actuator_net" else [0, 0, 0, 1])
     out_r = megastep.control_step_reference(*p_args, **p_kwargs)
     for a, b in zip(out_k, out_r):
         assert bool(torch.isfinite(a).all())
@@ -134,21 +147,29 @@ def test_normals_kernel_matches_plain_version_on_the_card(cuda,
                                    rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("route", ["flat", "rough", "rough_exact"])
+@pytest.mark.parametrize("route", ["flat", "rough", "rough_exact", "p",
+                                   "rough_p"])
 def test_team_kernel_routes_make_no_eager_cache_build_on_the_card(cuda,
                                                                   route):
-    """The default route (K4), the rough default route (K4b) and the rough
-    exact route (`decimation` K4b launches of one substep) build their
-    entry cache in the launch: no eager build; every output finite."""
+    """The default route (K4), the rough default route (K4b), the rough
+    exact route (`decimation` K4b launches of one substep), the P-control
+    route (K4c, small_train_cfg) and the rough P-control route (K4b-P)
+    build their entry cache in the launch: no eager build; every output
+    finite."""
     n = 256
-    cfg = mob_train_cfg(n) if route == "flat" else rough_train_cfg(n)
+    cfg = {"flat": mob_train_cfg, "p": small_train_cfg}.get(
+        route, rough_train_cfg)(n)
     if route == "rough_exact":
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, reuse_matrices=False))
+    if route == "rough_p":
+        cfg = dataclasses.replace(cfg, control=dataclasses.replace(
+            cfg.control, control_type="P"))
     env = LeggedRobotEnv(cfg, device=cuda)
     gen = make_generator(0, cuda)
     state, _ = env.reset(gen)
-    counter = "launches" if route == "flat" else "normal_launches"
+    counter = {"flat": "launches", "p": "p_launches",
+               "rough_p": "p_normal_launches"}.get(route, "normal_launches")
     builds, before = envminor.cache_builds, getattr(megastep, counter)
     for _ in range(3):
         state, obs, rew, *_ = env.step(state, torch.randn(
@@ -164,7 +185,8 @@ def test_team_kernel_routes_make_no_eager_cache_build_on_the_card(cuda,
 @pytest.mark.parametrize("variant", ["P", "exact", "P_exact"])
 def test_p_and_exact_kernels_match_plain_versions_on_the_card(cuda,
                                                               variant):
-    """K4c and K5 (either torque model) against their plain versions, 10
+    """K4c (the team kernel, against its plain version fed the eager
+    build) and K5 (either torque model) against their plain versions, 10
     random steps in: |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane
     finite, padded ones included."""
     n = 256
@@ -179,13 +201,16 @@ def test_p_and_exact_kernels_match_plain_versions_on_the_card(cuda,
         state, *_ = env.step(state, torch.randn((n, 12), generator=gen,
                                                 device=cuda))
     args, kwargs = _call(env, state)
-    count = "exact_launches" if variant.endswith("exact") else "p_launches"
+    p_args, p_kwargs = _call(env, state, eager_cache=True)
+    exact = variant.endswith("exact")
+    assert (kwargs["entry_inputs"] is None) == exact
+    count = "exact_launches" if exact else "p_launches"
     before = getattr(megastep, count)
     out_k = megastep.control_step(*args, **kwargs)
     torch.cuda.synchronize()
     assert getattr(megastep, count) == before + 1
     assert len(out_k) == (10 if variant.startswith("P") else 14)
-    out_r = megastep.control_step_reference(*args, **kwargs)
+    out_r = megastep.control_step_reference(*p_args, **p_kwargs)
     for a, b in zip(out_k, out_r):
         assert bool(torch.isfinite(a).all())
         np.testing.assert_allclose(a[..., :n].cpu().numpy(),

@@ -9,13 +9,12 @@ the grid, the team kernel's runs each block's threads as `std::thread`s
 that meet at one barrier per warp for each `__syncwarp`, the blocks one
 after another), loaded with ctypes and called through the port's own
 operand packing (`ops/megastep.kernel_operands`,
-`ops/dynamics.kernel_operands`) on CPU tensors.  K4 and K4b (the team
-kernel: entry cache and heightfield samples in the launch) against
-`control_step_reference` fed the eager build of the same state; K4c,
-K4b-P and K5 (either torque model) against `control_step_reference`, and
-K3 and K3b against
-`dynamics_substep_reference`, after a reset and after some random control
-steps, with the tolerance `chip_smoke.py` holds the card to:
+`ops/dynamics.kernel_operands`) on CPU tensors.  K4, K4b, K4c and K4b-P
+(the team kernel: entry cache and heightfield samples in the launch)
+against `control_step_reference` fed the eager build of the same state; K5
+(either torque model) against `control_step_reference`, and K3 and K3b
+against `dynamics_substep_reference`, after a reset and after some random
+control steps, with the tolerance `chip_smoke.py` holds the card to:
 |kernel - plain| <= 2e-4 + 2e-4 |plain|.  The rough cases stand on the 2 x 2
 rough-slope tiles of tests/test_torch_terrain.py.
 
@@ -167,13 +166,13 @@ def build_host_library(model, out_dir, name="megastep"):
                      r"\((\w+)\);",
                      launcher + r"(\2, \3, [&] { \1(\4); });", src)
     if name == "megastep":
-        assert n == 4, "expected the launches of K4c, K4b-P, K5 and K5-P"
+        assert n == 2, "expected the launches of K5 and K5-P"
         header = t_pm.topology_header(model, 32, 6)
-        counts = (41, 14, 15)
+        counts = t_pm.library_spec(model)[2]
     elif name == "megastep_team":
-        assert n == 2, "expected the launches of K4 and K4b"
+        assert n == 4, "expected the launches of K4, K4b, K4c and K4b-P"
         header = t_pm.topology_header(model, 32, 6)
-        counts = (41, 14, 15)
+        counts = t_pm.library_spec(model, team=True)[2]
     else:
         assert n == 2, "expected the launches of K3 and K3b"
         header = t_pd.library_spec(model.anc_dof_body, model.joint_body,
@@ -197,7 +196,8 @@ def build_host_library(model, out_dir, name="megastep"):
 def host_control_step(libs, args, kwargs):
     """The kernel's outputs for one `control_step` call on CPU tensors: the
     team kernel for the calls that build their entry cache in the launch
-    (K4, K4b), the one-thread kernel for the others."""
+    (reuse mode: K4, K4b, K4c, K4b-P), the one-thread kernel for exact mode
+    (K5)."""
     name = ("megastep_team" if kwargs["entry_inputs"] is not None
             else "megastep")
     ptrs, outs, floats, ints, _ = t_pm.kernel_operands(*args, **kwargs)
@@ -240,8 +240,8 @@ def configs(n):
 def kernel_call(env, state, eager_cache=False):
     """(args, kwargs) of the control-step call that `env.step` makes from
     `state`; with `eager_cache`, the entry cache (and on a heightfield the
-    normals) built on the host, as the plain version of K4 and K4b is fed
-    here."""
+    normals) built on the host, as the plain version of the team kernel's
+    variants is fed here."""
     _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
     return engine.megakernel_args(
         env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
@@ -295,11 +295,11 @@ def errors(out_k, out_r, n, names=OUT_NAMES):
 def cases(n, steps, seed=0):
     """(variant, state name, args, kwargs, (args, kwargs) of the plain
     version) for each variant in two states: after a reset, and after
-    `steps` random control steps (feet loaded).  K4 and K4b build their
-    entry cache (and sample the heightfield) in the kernel; their plain
-    version is fed the eager build of the same state.  The states of K4 and
-    K4b also give the dynamics-substep kernel's cases, K3 (flat) and K3b
-    (rough)."""
+    `steps` random control steps (feet loaded).  K4, K4b, K4c and K4b-P
+    build their entry cache (and sample the heightfield) in the kernel;
+    their plain version is fed the eager build of the same state.  The
+    states of K4 and K4b also give the dynamics-substep kernel's cases, K3
+    (flat) and K3b (rough)."""
     out = []
     for variant, cfg in configs(n).items():
         env = t_env.LeggedRobotEnv(cfg, device="cpu")
@@ -339,8 +339,10 @@ def test_host_build_of_the_kernel_matches_its_plain_version(host, variant):
         # on a heightfield: the normals, or the terrain the kernel samples
         entry = kwargs["entry_inputs"]
         assert (p_args[5] is not None) == variant.startswith("K4b")
-        assert (entry is not None) == (variant in ("K4", "K4b"))
-        assert entry is None or (entry[2] is not None) == (variant == "K4b")
+        assert (entry is not None) == variant.startswith("K4")
+        assert args[0] is None and args[5] is None      # no em, no n_t
+        assert entry is None or (entry[2] is not None) == (
+            variant.startswith("K4b"))
         out_k = host_control_step(libs, args, kwargs)
         out_r = t_pm.control_step_reference(*p_args, **p_kwargs)
         assert len(out_k) == len(out_r) == (10 if variant.endswith("P")

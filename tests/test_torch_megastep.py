@@ -14,6 +14,8 @@ Heightfield cases (surface normals: the general-normal rows of
 `contact_core`, K4b's arithmetic) put the same seeded states on an inclined,
 bumpy field (`_rough_inputs`), so that the normals are far from +z.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from walk_these_ways_tpu.physics import engine as j_engine
 
 from walk_these_ways_tpu_torch.models import actuator_net as t_act
 from walk_these_ways_tpu_torch.models.robot import go1 as t_go1
+from walk_these_ways_tpu_torch.ops import _build
 from walk_these_ways_tpu_torch.ops import contact as t_pc
 from walk_these_ways_tpu_torch.ops import dynamics as t_pd
 from walk_these_ways_tpu_torch.ops import megastep as t_pm
@@ -327,7 +330,7 @@ def _control_step_both(inputs, control_type="actuator_net", exact=False,
     ctrl = ((t(kp), t(kd)) if pctrl
             else tuple(wt) + tuple(t(h) for h in hist))
     counters = ("launches", "p_launches", "normal_launches",
-                "exact_launches")
+                "p_normal_launches", "exact_launches")
     before = [getattr(t_pm, c) for c in counters]
     t_out = t_pm.control_step(
         t_em, t_rh, t(mu_t), t(e_t), t(g_t), t_n,
@@ -442,32 +445,36 @@ def test_control_step_with_normals_matches_jax_kernel_body(
 # velocities, the torques made from them and the velocity histories.
 # Measured beyond rtol 1e-5 (x86-64, one thread): flat qd 1.5e-6, tau
 # 1.0e-6, vl 1.4e-6, vll 7.5e-7; slope tau 2.5e-6, qd 1.5e-6, vl 1.2e-6;
+# with P control flat qd 6.1e-7, tau 6.3e-7, slope qd 1.3e-6, tau 6.8e-7;
 # every other output within the flat-ground atol.
 ATOL_ENTRY = 1e-5
 
 
 @pytest.fixture(scope="module")
 def entry_variants(rough):
-    """The wrapper's entry form (what K4 and K4b take on the card: state,
-    payload, COM shift and the heightfield in; the cache built and the field
-    sampled inside) against the JAX kernel body fed the JAX package's eager
-    build: flat ground and the slope, both states side by side."""
+    """The wrapper's entry form (what the team kernel takes on the card:
+    state, payload, COM shift and the heightfield in; the cache built and
+    the field sampled inside) against the JAX kernel body fed the JAX
+    package's eager build: flat ground and the slope, with the actuator
+    network (K4, K4b) and with P control (K4c, K4b-P, keys ending in
+    "_P"), both states side by side."""
     flat = _jax_inputs(*[(seed, h) for _, seed, h in STATES])
-    return {"flat": _control_step_both(flat, seeded=range(N, 2 * N),
-                                       entry=True),
-            "rough": _control_step_both(rough, seeded=range(N, 2 * N),
-                                        entry=True)}
+    return {ground + suffix: _control_step_both(
+                inputs, control_type, seeded=range(N, 2 * N), entry=True)
+            for ground, inputs in (("flat", flat), ("rough", rough))
+            for suffix, control_type in (("", "actuator_net"), ("_P", "P"))}
 
 
 @pytest.mark.parametrize("which", ["reset", "stance"])
-@pytest.mark.parametrize("ground", ["flat", "rough"])
+@pytest.mark.parametrize("ground", ["flat", "rough", "flat_P", "rough_P"])
 def test_control_step_entry_inputs_match_jax_kernel_body(entry_variants,
                                                          ground, which):
-    """K4's and K4b's arithmetic as the card runs it, from the entry state:
-    within the tolerances of the flat-ground and the normals cases."""
+    """The team kernel's arithmetic as the card runs it, from the entry
+    state (K4, K4b; K4c, K4b-P with P control): within the tolerances of
+    the flat-ground and the normals cases."""
     j_out, t_out = entry_variants[ground]
     envs = slice(0, N) if which == "reset" else slice(N, 2 * N)
-    assert len(t_out) == len(OUT_NAMES)
+    assert len(t_out) == (10 if ground.endswith("_P") else len(OUT_NAMES))
     if which == "stance":
         assert float(np.abs(j_out[8][..., envs]).max()) > 1e-3
     for name, a, b in zip(OUT_NAMES, t_out, j_out):
@@ -511,12 +518,16 @@ def test_entry_inputs_cache_matches_the_eager_build():
 
 def test_control_step_on_cuda_has_no_plain_path():
     """The wrapper's CUDA branch never reaches the plain version, for any
-    variant (K4 and K4b in the team kernel, K4c P control, K4b-P, K5 exact
-    mode): it launches a kernel or raises for what the kernels do not
+    variant (K4, K4b, K4c with P control and K4b-P in the team kernel, K5
+    exact mode): it launches a kernel or raises for what the kernels do not
     cover; its source does not name control_step_reference, the eager
     entry-cache build, the exact-mode cache rebuild or a library product
     after the CPU return, and a tensor on neither the CPU nor a CUDA device
-    raises.  Exact mode with normals raises on every device."""
+    raises.  Exact mode with normals raises on every device.  The operand
+    packing, which runs before any launch, refuses a host-built cache or
+    normals (reuse mode builds them in the launch) and a call that is
+    neither reuse mode with entry_inputs nor exact mode; the one-thread
+    kernel's launcher refuses reuse mode."""
     import inspect
     src = inspect.getsource(t_pm.control_step)
     head, tail = src.split('if dev.type != "cuda"', 1)
@@ -528,14 +539,17 @@ def test_control_step_on_cuda_has_no_plain_path():
         assert banned not in tail, banned
     # the variants each pass their own flags to a launch, packed by
     # kernel_operands, which names no plain path either: the entry form
-    # (K4, K4b) to the team kernel, the others to the one-thread kernel
+    # (reuse mode, either torque model) to the team kernel, exact mode to
+    # the one-thread kernel
     assert "kernel_operands(" in tail
+    assert tail.index("kernel_operands(") < tail.index("_build.launch(")
     assert "exact_inputs is not None and n_t is not None" in tail
+    assert "team = entry_inputs is not None" in tail
     assert '"megastep_team" if team else "megastep"' in tail
     packing = inspect.getsource(t_pm.kernel_operands)
     assert ("TEAM_THREADS if entry else KERNEL_THREADS, pctrl, exact,\n"
-            "            n_t is None and terrain is None, entry") in packing
-    assert 'given["n_t"] = (n_t, (P, 3, Npad))' in packing
+            "            terrain is None, entry") in packing
+    assert '"n_t"' not in packing and "em." not in packing
     assert 'given["corners"] = (terrain.corners, (c_rows, c_cols, 4))' \
         in packing
     for banned in banned_names:
@@ -566,3 +580,23 @@ def test_control_step_on_cuda_has_no_plain_path():
             None, *[None] * 4, cpu, cpu, cpu, cpu, cpu, cpu, cpu, cpu, cpu,
             (cpu, cpu), None, None, None, None, control_type="P",
             exact_inputs=(cpu, cpu), **kw)
+    # the packing: a host-built cache or normals in reuse mode, either
+    # torque model, and a call with neither entry_inputs nor exact_inputs
+    em = EnvMinorCache(*[cpu] * 8)
+    entry = (cpu, cpu, None)
+    for ctrl in ("P", "actuator_net"):
+        for given_em, n_t, entry_in, match in (
+                (em, None, entry, "em and n_t must be None"),
+                (None, cpu, entry, "em and n_t must be None"),
+                (em, None, None, "entry_inputs"),
+                (None, None, None, "entry_inputs")):
+            with pytest.raises(ValueError, match=match):
+                t_pm.kernel_operands(
+                    given_em, *[None] * 4, n_t, cpu, cpu, cpu, cpu, cpu,
+                    cpu, cpu, cpu, (cpu, cpu), None, None, None, None,
+                    control_type=ctrl, entry_inputs=entry_in, **kw)
+    with open(os.path.join(_build.CSRC_DIR, "megastep.cu")) as fh:
+        one_thread = fh.read()
+    launcher = one_thread[one_thread.index('extern "C" int megastep_launch'):]
+    assert "|| !ip[P_EXACT]" in launcher
+    assert launcher.count("megastep_kernel<") == 2

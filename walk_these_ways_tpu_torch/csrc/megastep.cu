@@ -1,91 +1,63 @@
-// Whole-control-step kernel for Hopper (sm_90a), one thread per env: one
-// launch runs all `decimation` physics substeps of one control step.
+// Whole-control-step kernel for Hopper (sm_90a) in exact mode, one thread
+// per env: one launch runs all `decimation` physics substeps of one control
+// step, rebuilding the dynamics cache before every substep.
 //
 // Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
-// TPU kernel reached through control_step_pallas), in the compile-time
-// variants of the template flags PCTRL, EXACT and FLAT that run here:
-//   K4c  reuse mode, flat ground (n = +z), P control: tau = kp (tgt - q)
-//        - kd qd; contact impulses warm-started (from `lam_in` and across
-//        substeps); the cache an input, built on the host;
-//   K4b-P  reuse mode on a heightfield (FLAT false) with P control: the
-//        per-point surface normals n (sampled once per control step at the
-//        entry contact points) enter the contact solve through its
-//        general-normal rows (wtw_device.cuh normal_row_update);
-//   K5   exact mode, flat ground (either torque model): the whole dynamics
-//        cache is rebuilt from the current state before every substep, in
-//        the kernel (csrc/wtw_cache.cuh); every substep's contact solve
-//        starts cold.  Exact mode on a heightfield is not a variant: the env
-//        runs it as `decimation` K4b launches of one substep each.
-// The actuator network in reuse mode (K4 flat, K4b on a heightfield) runs
-// in csrc/megastep_team.cu, one warp per env, with the entry cache built
-// in its launch; this launcher refuses it.
+// TPU kernel reached through control_step_pallas) with exact=True, and its
+// cache rebuild _cache_arrays, on flat ground (n = +z):
+//   K5    the actuator network;
+//   K5-P  P control (PCTRL true): tau = kp (tgt - q) - kd qd, no actuator
+//         histories.
+// Exact mode on a heightfield is not a variant: the env runs it as
+// `decimation` reuse-mode launches of one substep each.  Reuse mode (K4,
+// K4b, K4c, K4b-P) runs one warp per env in csrc/megastep_team.cu, with the
+// entry cache built in its launch; this launcher refuses it.
 //
-// What it computes, per env (envs are independent):
-//   reuse, once: r = p_cp - pos;  leg-joint Jacobian columns
-//            J[p,:,v] = anc[p,v] * (Sv[v] + Sw[v] x r[p]);  the entries
-//            W00, W01, W11, W22 of W_p = J_p M^-1 J_p^T + eps I (K4b: the
-//            six distinct entries of the symmetric W_p, and n^T W_p n)
-//   D times: torque model (actuator MLP 6 -> H -> H -> 1, softsign, per joint;
-//            or P control) -> x motor strength -> torque clip -> joint-limit
-//            torque -> [exact: FK, twists, inertia, CRBA, M^-1 and contact
-//            points from the current q, quat, pos; then J and W as above,
-//            about the current base position] -> unconstrained dynamics twice
-//            (midpoint rule) -> row-decoupled projected-Jacobi contact solve on
-//            the total impulse (friction cone saturating exactly) with lazy
-//            gv += M^-1 J^T dlam -> contact point advance -> velocity clips ->
-//            integrate pos / quaternion exp map / q
+// What it computes, per env (envs are independent), D times: torque model
+// (actuator MLP 6 -> H -> H -> 1, softsign, per joint; or P control) -> x
+// motor strength -> torque clip -> joint-limit torque -> the whole cache
+// from the current q, quat, pos (csrc/wtw_cache.cuh: FK, twists, inertia,
+// CRBA, M^-1 and contact points) about the current base position; r = p_cp
+// - pos; leg-joint Jacobian columns J[p,:,v] = anc[p,v] * (Sv[v] + Sw[v] x
+// r[p]) and the entries W00, W01, W11, W22 of W_p = J_p M^-1 J_p^T + eps I
+// -> unconstrained dynamics twice (midpoint rule) -> row-decoupled
+// projected-Jacobi contact solve from a cold start with `num_iters` sweeps
+// on the total impulse (friction cone saturating exactly), lazy gv += M^-1
+// J^T dlam -> contact point advance -> velocity clips -> integrate pos /
+// quaternion exp map / q.
 //
 // Design for this card.  One thread owns one env and runs the whole scalar
 // program; parallelism is across envs only.  Every operand is env-minor
 // (env is the last, contiguous axis), so the 32 threads of a warp read 32
 // neighbouring floats: each load is one coalesced 128-byte line.  The dense
 // point Jacobian (P*3*nv floats per env) never exists: the base-dof columns
-// are the unit root twists, so J gv = v_lin + w x r and J^T f = (r x f, f) are
-// taken from r directly, and only the leg-joint columns (P * GMAX * 3 floats)
-// are kept, in thread-local memory.  In reuse mode M^-1, the inertia blocks
-// and the actuator weights stay in global memory and are re-read through the
-// read-only path (EnvRows): the cache is not written during the launch, a
-// warp's working set of it fits L1, and the weights are read at one address
-// by the whole warp (a broadcast).  In exact mode the kernel writes its cache
-// itself every substep, so it lives in thread-local arrays read with ordinary
-// loads (ThreadRows): the read-only path is not coherent with the kernel's own
-// stores.  The dynamics and the solve are the same code for both, templated
-// on the accessor (wtw_device.cuh).  The state touches global memory once on
-// entry and once on exit.
+// are the unit root twists, so J gv = v_lin + w x r and J^T f = (r x f, f)
+// are taken from r directly, and only the leg-joint columns (P * GMAX * 3
+// floats) are kept, in thread-local memory.  The kernel writes its cache
+// itself every substep, so the cache lives in thread-local arrays read with
+// ordinary loads (ThreadRows): the read-only path is not coherent with the
+// kernel's own stores.  The actuator weights are read at one address by the
+// whole warp (a broadcast).  The state touches global memory once on entry
+// and once on exit.
 //
-// Bound on this card (ops/megastep.work_per_env): per env a few KB in and
-// out and 0.12 (K4c) to 0.55 (K5) MFLOP of fp32 on the CUDA cores (K4b-P:
-// about 50 more operations per point and sweep than K4c for the
-// general-normal rows), so at 4000 envs the least time is set by
-// arithmetic, not by memory.  One thread per env gives about one warp per
-// SM at 4000 envs, so the kernel as written is bound by instruction
-// latency, far above that least time; exact mode adds about 4 KB of
-// thread-local arrays per env, in local memory.  K4b-P reads a point's
-// normal from global memory where it needs it (read-only for the launch,
-// so through __ldg) rather than holding 84 more floats per thread, and
-// keeps W_p's extra entries W02, W12, W22 in thread-local memory beside
-// K4c's.  The measured numbers are kept in PERF.md.
-//
-// Reuse mode: rows 0..5 of Sw/Sv must be the unit root twists (rows 0..2:
-// unit angular, rows 3..5: unit linear), as physics/envminor makes them.  The
-// dynamics read them as data; the contact Jacobian relies on it.
+// Bound on this card (ops/megastep.work_per_env, `exact`): per env a few
+// hundred bytes in and out and 0.55 MFLOP of fp32 on the CUDA cores, so at
+// 4000 envs the least time is set by arithmetic.  One thread per env gives
+// about one warp per SM at 4000 envs and about 4 KB of thread-local arrays
+// per env in local memory, so the kernel as written is bound by
+// instruction latency, far above that least time.  The measured numbers
+// are kept in PERF.md.
 //
 // The topology header is generated by ops/_build.py from the RobotModel into
 // the build directory; the device helpers shared with the other kernels
 // (cross3, m3v, m3tv, row accessors, minv_mul, dyn_core) live in
 // wtw_device.cuh, the argument lists and the per-point arithmetic shared
-// with the team kernel in wtw_megastep.cuh, the exact-mode cache rebuild in
+// with the team kernel in wtw_megastep.cuh, the cache rebuild in
 // wtw_cache.cuh.
 #include <cuda_runtime.h>
 #include "wtw_topology.h"
 #include "wtw_megastep.cuh"
 #include "wtw_cache.cuh"
-
-// Where the dynamics and the solve read M^-1, the inertia blocks and the
-// masses: the launch's input cache (reuse) or the kernel's own (exact).
-template <bool EXACT> struct RowsOf { using type = EnvRows; };
-template <> struct RowsOf<true> { using type = ThreadRows; };
-
 
 // Velocity of contact point p (wtw_megastep.cuh point_velocity).
 __device__ __forceinline__ void jdot_p(int p, const float* gv,
@@ -109,30 +81,9 @@ __device__ __forceinline__ void jt_acc_p(int p, const float* f,
                  + Jl[p][k][2] * f[2];
 }
 
-// Every contact point's Jacobian columns and effective-mass entries
-// (wtw_megastep.cuh point_cache); with surface normals `nrm` (FLAT false;
-// env-minor (P, 3, npad), read-only for the launch) the general-normal
-// entries too.
-template <bool FLAT, class Rows>
-__device__ __forceinline__ void points_cache(
-    const Rows& Minv, const float (*sw)[3], const float (*sv)[3],
-    const float (*r)[3], float (*Jl)[GM][3], float* W00, float* W01,
-    float* W11, float* W02, float* W12, float* W22, float* inv_wnn,
-    const float* nrm, size_t npad, int env, float eps, float relax) {
-#pragma unroll 1
-  for (int p = 0; p < NP; ++p) {
-    float nv[3] = {0.0f, 0.0f, 1.0f};
-    if constexpr (!FLAT) load_normal(nrm, p, npad, env, nv);
-    point_cache<FLAT>(p, Minv, sw, sv, r[p], Jl[p], W00[p], W01[p], W11[p],
-                      W02[FLAT ? 0 : p], W12[FLAT ? 0 : p],
-                      W22[FLAT ? 0 : p], inv_wnn[p], nv, eps, relax);
-  }
-}
-
-template <bool PCTRL, bool EXACT, bool FLAT>
+template <bool PCTRL>
 __global__ void __launch_bounds__(128)
 megastep_kernel(const MegastepArgs a) {
-  static_assert(FLAT || !EXACT, "exact mode is flat-ground only");
   const int env = blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= a.npad) return;          // ragged edge of the last block
   const size_t npad = (size_t)a.npad;
@@ -164,54 +115,25 @@ megastep_kernel(const MegastepArgs a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) quat[i] = LD(I_QUAT, i);
   const float mu = LD(I_MU, 0), rest = LD(I_E, 0);
+  const float payload = LD(I_PAYLOAD, 0);
+  float comdisp[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) comdisp[i] = LD(I_COMDISP, i);
 
-  // ---- the dynamics cache: the launch's (reuse) or the kernel's (exact) ----
+  // ---- the dynamics cache, rebuilt by the kernel before every substep ----
   float sw[NV][3], sv[NV][3];
   float pcp[NP][3], r[NP][3], lam[NP][3], Jl[NP][GM][3];
   float W00[NP], W01[NP], W11[NP], inv_wnn[NP];
-  // the extra entries of W_p that the general-normal rows read
-  float W02[FLAT ? 1 : NP], W12[FLAT ? 1 : NP], W22[FLAT ? 1 : NP];
-  float ex_A[EXACT ? NB * 9 : 1], ex_B[EXACT ? NB * 9 : 1];
-  float ex_m[EXACT ? NB : 1], ex_minv[EXACT ? NV * NV : 1];
-  float payload = 0.0f, comdisp[3] = {0.0f, 0.0f, 0.0f};
-  using Rows = typename RowsOf<EXACT>::type;
-  const Rows rA{EXACT ? ex_A : a.in[I_A], npad, env};
-  const Rows rB{EXACT ? ex_B : a.in[I_B], npad, env};
-  const Rows rM{EXACT ? ex_m : a.in[I_M], npad, env};
-  const Rows rMinv{EXACT ? ex_minv : a.in[I_MINV], npad, env};
-  const bool have_seed = !EXACT && a.in[I_LAM] != nullptr;
-  if constexpr (EXACT) {
-    payload = LD(I_PAYLOAD, 0);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) comdisp[i] = LD(I_COMDISP, i);
-    // replaced by fresh FK before the first substep
-#pragma unroll 1
-    for (int p = 0; p < NP; ++p)
-      pcp[p][0] = pcp[p][1] = pcp[p][2] = 0.0f;
-  } else {
-#pragma unroll 1
-    for (int d = 0; d < NV; ++d)
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        sw[d][i] = LD(I_SW, d * 3 + i);
-        sv[d][i] = LD(I_SV, d * 3 + i);
-      }
-    // contact cache once per control step, about the entry base position
-#pragma unroll 1
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        pcp[p][i] = LD(I_PCP, p * 3 + i);
-        r[p][i] = pcp[p][i] - pos[i];
-      }
-    points_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12, W22,
-                       inv_wnn, a.in[I_N], npad, env, eps, relax);
-  }
+  float A9[NB * 9], B9[NB * 9], mb[NB], Minv[NV * NV];
+  const ThreadRows rA{A9, npad, env}, rB{B9, npad, env}, rM{mb, npad, env};
+  const ThreadRows rMinv{Minv, npad, env};
 #pragma unroll 1
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      lam[p][i] = have_seed ? LD(I_LAM, p * 3 + i) : 0.0f;
+    for (int i = 0; i < 3; ++i) {
+      pcp[p][i] = 0.0f;               // replaced by fresh FK below
+      lam[p][i] = 0.0f;
+    }
 
   // ---- D substeps ----
 #pragma unroll 1
@@ -268,20 +190,24 @@ megastep_kernel(const MegastepArgs a) {
       tau_full[6 + j] = t + tau_lim;
     }
 
-    if constexpr (EXACT) {
-      // the whole cache from the current state, re-anchored at the current
-      // base position (delta = 0); fresh FK contact points
-      cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, ex_A, ex_B,
-                        ex_m, ex_minv, pcp);
+    // the whole cache from the current state, re-anchored at the current
+    // base position (delta = 0); fresh FK contact points; then every
+    // point's Jacobian columns and effective-mass entries
+    // (wtw_megastep.cuh point_cache)
+    cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, A9, B9, mb,
+                      Minv, pcp);
 #pragma unroll 1
-      for (int p = 0; p < NP; ++p)
+    for (int p = 0; p < NP; ++p) {
 #pragma unroll
-        for (int i = 0; i < 3; ++i) r[p][i] = pcp[p][i] - pos[i];
-      points_cache<FLAT>(rMinv, sw, sv, r, Jl, W00, W01, W11, W02, W12,
-                         W22, inv_wnn, a.in[I_N], npad, env, eps, relax);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) ref[i] = pos[i];
+      for (int i = 0; i < 3; ++i) r[p][i] = pcp[p][i] - pos[i];
+      const float up[3] = {0.0f, 0.0f, 1.0f};
+      float unused;
+      point_cache<true>(p, rMinv, sw, sv, r[p], Jl[p], W00[p], W01[p],
+                        W11[p], unused, unused, unused, inv_wnn[p], up, eps,
+                        relax);
     }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ref[i] = pos[i];
 
     // unconstrained dynamics at the anchor point, midpoint rule
     float delta[3], cd[3], gv[NV], qdd[NV], gvm[NV];
@@ -307,8 +233,6 @@ megastep_kernel(const MegastepArgs a) {
     }
 
     if (a.contact) {
-      const bool warm = !EXACT && a.warm_iters > 0 && (si > 0 || have_seed);
-      const int iters = warm ? a.warm_iters : a.num_iters;
       // gaps and velocity targets from the free velocity
       float target[NP], active[NP];
 #pragma unroll 1
@@ -317,53 +241,28 @@ megastep_kernel(const MegastepArgs a) {
         active[p] = phi > 0.0f ? 1.0f : 0.0f;
         float v0[3];
         jdot_p(p, gv, r, Jl, v0);
-        float vn0 = v0[2];
-        if constexpr (!FLAT) {
-          float nv[3];
-          load_normal(a.in[I_N], p, npad, env, nv);
-          vn0 = nv[0] * v0[0] + nv[1] * v0[1] + nv[2] * v0[2];
-        }
+        const float vn0 = v0[2];
         const float bounce = vn0 < -a.f[F_BOUNCE] ? -rest * vn0 : 0.0f;
         const float bias = fminf(
             a.f[F_BAUM_DT] * fmaxf(phi - a.f[F_SLOP], 0.0f),
             a.f[F_MAXDEPEN]);
         target[p] = fmaxf(bounce, bias);
       }
+      // every solve starts cold
       float jta[NV], dgv[NV];
-      if (warm) {
-        // pre-apply the seed impulse: gv = gv0 + M^-1 J^T lam0
-#pragma unroll
-        for (int v = 0; v < NV; ++v) jta[v] = 0.0f;
 #pragma unroll 1
-        for (int p = 0; p < NP; ++p) jt_acc_p(p, lam[p], r, Jl, jta);
-        minv_mul(rMinv, jta, dgv);
-#pragma unroll
-        for (int v = 0; v < NV; ++v) gv[v] += dgv[v];
-      } else {
+      for (int p = 0; p < NP; ++p) lam[p][0] = lam[p][1] = lam[p][2] = 0.0f;
 #pragma unroll 1
-        for (int p = 0; p < NP; ++p)
-          lam[p][0] = lam[p][1] = lam[p][2] = 0.0f;
-      }
-#pragma unroll 1
-      for (int it = 0; it < iters; ++it) {
+      for (int it = 0; it < a.num_iters; ++it) {
 #pragma unroll
         for (int v = 0; v < NV; ++v) jta[v] = 0.0f;
 #pragma unroll 1
         for (int p = 0; p < NP; ++p) {
           float v[3];
           jdot_p(p, gv, r, Jl, v);
-          float l[3] = {lam[p][0], lam[p][1], lam[p][2]};
-          if constexpr (FLAT) {
-            flat_row_update(v, W00[p], W01[p], W11[p], target[p], inv_wnn[p],
-                            relax, mu, active[p], lam[p], l);
-          } else {
-            float nv[3];
-            load_normal(a.in[I_N], p, npad, env, nv);
-            const float Wp[9] = {W00[p], W01[p], W02[p], W01[p], W11[p],
-                                 W12[p], W02[p], W12[p], W22[p]};
-            normal_row_update(v, nv, Wp, target[p], inv_wnn[p], relax, mu,
-                              active[p], l);
-          }
+          float l[3];
+          flat_row_update(v, W00[p], W01[p], W11[p], target[p], inv_wnn[p],
+                          relax, mu, active[p], lam[p], l);
           const float ap[3] = {l[0] - lam[p][0], l[1] - lam[p][1],
                                l[2] - lam[p][2]};
           lam[p][0] = l[0]; lam[p][1] = l[1]; lam[p][2] = l[2];
@@ -457,36 +356,31 @@ megastep_kernel(const MegastepArgs a) {
 #undef LDC
 }
 
-// Plain C interface for ctypes.  `in` / `out` are host arrays of device
-// pointers in InIdx / OutIdx order, `f` the FIdx scalars, `ip` the IntIdx
-// ints (npad, D, num_iters, warm_iters, contact, threads per block, P
-// control, exact, flat, ...).  A variant leaves the slots it does not read
-// null: in[I_LAM] without a cross-step seed; the actuator weights and
-// histories (in and out) with P control; kp, kd without it; the reuse cache
-// (Sw .. p_cp) and the seed in exact mode; payload and COM shift outside
-// it; the normals in[I_N] on flat ground.  Exact mode with normals, and the
-// actuator network in reuse mode (csrc/megastep_team.cu), are refused.
+// Plain C interface for ctypes, the argument list of wtw_megastep.cuh.
+// Takes exact mode (ip[P_EXACT]) on flat ground only: the payload and COM
+// shift in[I_PAYLOAD], in[I_COMDISP] and no cross-step seed (in[I_LAM]
+// null); the block-diagonal actuator weights in[I_W0] .. in[I_B2] and the
+// histories, or with P control (ip[P_PCTRL]) the gains in[I_KP], in[I_KD]
+// and no histories.  Reuse mode (csrc/megastep_team.cu) is refused.
 // Launches on `stream`, does not synchronise, returns the launch's
 // cudaError_t (0 = launched).
 extern "C" int megastep_launch(const void* const* in, void* const* out,
                                const float* f, const int* ip, void* stream) {
   const MegastepArgs a = megastep_args(in, out, f, ip);
-  const int threads = ip[P_THREADS], pctrl = ip[P_PCTRL],
-            exact = ip[P_EXACT], flat = ip[P_FLAT];
+  const int threads = ip[P_THREADS], pctrl = ip[P_PCTRL];
   if (threads < 1 || threads > 128 || a.npad < 1 || a.D < 1
-      || (exact && !flat) || (!pctrl && !exact) || ip[P_ENTRY]
-      || (!flat && a.in[I_N] == nullptr))
+      || !ip[P_EXACT] || !ip[P_FLAT] || ip[P_ENTRY]
+      || a.in[I_LAM] != nullptr || a.in[I_PAYLOAD] == nullptr
+      || a.in[I_COMDISP] == nullptr
+      || (pctrl ? (a.in[I_KP] == nullptr || a.in[I_KD] == nullptr)
+                : a.in[I_W0] == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (a.npad + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pctrl && exact)
-    megastep_kernel<true, true, true><<<blocks, threads, 0, st>>>(a);
-  else if (exact)
-    megastep_kernel<false, true, true><<<blocks, threads, 0, st>>>(a);
-  else if (!flat)
-    megastep_kernel<true, false, false><<<blocks, threads, 0, st>>>(a);
+  if (pctrl)
+    megastep_kernel<true><<<blocks, threads, 0, st>>>(a);
   else
-    megastep_kernel<true, false, true><<<blocks, threads, 0, st>>>(a);
+    megastep_kernel<false><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

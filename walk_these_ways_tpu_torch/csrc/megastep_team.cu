@@ -1,40 +1,44 @@
 // Whole-control-step kernel for Hopper (sm_90a), one warp per env: one
-// launch runs all `decimation` physics substeps of one control step for the
-// actuator-network torque model in reuse mode, with the entry cache built
-// inside the launch.
+// launch runs all `decimation` physics substeps of one control step in
+// reuse mode, with the entry cache built inside the launch.
 //
 // Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
-// TPU kernel reached through control_step_pallas) in reuse mode with the
-// actuator network:
-//   K4   flat ground (FLAT true, n = +z);
-//   K4b  on a heightfield (FLAT false): the height and the surface normal
-//        under each contact point are sampled once, at the entry contact
-//        points, from the corner-packed heightfield (heightfield_sample,
-//        Terrain.lookup's arithmetic), and the normals enter the contact
-//        solve through its general-normal rows (normal_row_update).
-// The other variants (P control, exact mode) run one thread per env in
-// csrc/megastep.cu.
+// TPU kernel reached through control_step_pallas) in reuse mode, in the
+// compile-time variants of the template flags FLAT and PCTRL:
+//   K4     flat ground (FLAT true, n = +z), actuator network;
+//   K4b    on a heightfield (FLAT false), actuator network: the height and
+//          the surface normal under each contact point are sampled once, at
+//          the entry contact points, from the corner-packed heightfield
+//          (heightfield_sample, Terrain.lookup's arithmetic), and the
+//          normals enter the contact solve through its general-normal rows
+//          (normal_row_update);
+//   K4c    flat ground, P control (PCTRL true): tau = kp (tgt - q) - kd qd,
+//          no actuator histories;
+//   K4b-P  on a heightfield, P control.
+// Exact mode (K5) runs one thread per env in csrc/megastep.cu.
 //
 // What it computes, per env (envs are independent), as the JAX kernel in
 // reuse mode with the cache of the entry state:
 //   once:    the dynamics cache of the entry state (the statements of
 //            wtw_cache.cuh cache_columns_dev: FK, twist bases, inertia
 //            blocks, CRBA, closed-form M^-1, contact points p_cp) about the
-//            entry base position; r = p_cp - pos; per point the leg-joint Jacobian
-//            columns and W_p = J_p M^-1 J_p^T + eps I (K4b: its six distinct
-//            entries and n^T W_p n); K4b: rh = h + radius and n at p_cp;
-//   D times: actuator MLP (6 -> H -> H -> 1, softsign, per joint) -> x motor
-//            strength -> torque clip -> joint-limit torque -> unconstrained
-//            dynamics twice (midpoint rule) -> row-decoupled projected-Jacobi
-//            contact solve on the total impulse, the first substep seeded
+//            entry base position; r = p_cp - pos; per point the leg-joint
+//            Jacobian columns and W_p = J_p M^-1 J_p^T + eps I (on a
+//            heightfield its six distinct entries and n^T W_p n, with rh =
+//            h + radius and n sampled at p_cp);
+//   D times: torque model (actuator MLP 6 -> H -> H -> 1, softsign, per
+//            joint; or P control) -> x motor strength -> torque clip ->
+//            joint-limit torque -> unconstrained dynamics twice (midpoint
+//            rule) -> row-decoupled projected-Jacobi contact solve on the
+//            total impulse, the first substep seeded
 //            from `lam_in` (or cold with `num_iters` sweeps without it), the
 //            later ones warm-started from the previous substep's impulses
 //            with `warm_iters` sweeps, gv += M^-1 J^T dlam after each sweep
 //            -> contact points advanced at velocity level -> velocity clips
 //            -> integrate pos / quaternion exp map / q.
-// The iteration counts and the arithmetic are the one-thread kernel's (and
-// the plain version's, ops/megastep.control_step_reference fed the eager
-// build of the same cache): the same statements in the same order, now
+// The iteration counts and the arithmetic are the plain version's
+// (ops/megastep.control_step_reference fed the eager build of the same
+// cache) and csrc/megastep.cu's: the same statements in the same order,
 // spread over the lanes of a warp.
 //
 // Design for this card.  The one-thread kernel ran about one warp per SM at
@@ -47,7 +51,8 @@
 //     contact points over the body and point lanes, the CRBA's sums over
 //     the body and joint lanes, the closed-form M^-1's entries over all
 //     lanes (its 6 x 6 Schur inverse on lane 0), into shared memory;
-//   - actuator network: lane o is hidden unit o of every joint (H = 32);
+//   - torque model: P control on the joint lanes; the actuator network
+//     with lane o as hidden unit o of every joint (H = 32);
 //     the weights come packed (ops/megastep.team_actuator_weights) so that
 //     the warp's loads are 32 consecutive floats, one 128-byte line, read
 //     through the read-only path; the output layer is a serial sum by joint
@@ -87,12 +92,13 @@
 // most of them) and in L2.
 //
 // Bound on this card (ops/megastep.work_per_env, `entry`): per env 2.5 KB
-// (K4b 2.9 KB) in and out and 0.26 MFLOP (K4b 0.29) of fp32 on the CUDA
-// cores, the cache build once included, so at 4000 envs the least time is
-// set by arithmetic (about 0.016 ms).  No tensor cores: TF32's 10-bit
-// mantissa cannot hold the kernel-vs-plain tolerance, and the kernels are
-// built without fused multiply-adds (ops/_build.py).  The measured numbers
-// are kept in PERF.md.
+// (K4b 2.9 KB; K4c 2.2 KB, K4b-P 2.6 KB) in and out and 0.26 MFLOP (K4b
+// 0.29; K4c 0.13, K4b-P 0.15) of fp32 on the CUDA cores, the cache build
+// once included, so at 4000 envs the least time is set by arithmetic
+// (about 0.016 ms; P control about 0.008 ms).  No tensor cores: TF32's
+// 10-bit mantissa cannot hold the kernel-vs-plain tolerance, and the
+// kernels are built without fused multiply-adds (ops/_build.py).  The
+// measured numbers are kept in PERF.md.
 #include <cuda_runtime.h>
 #include "wtw_topology.h"
 #include "wtw_megastep.cuh"
@@ -586,7 +592,7 @@ __device__ __forceinline__ void point_jt(const float* f, const float* r,
     row[6 + k] = Jl[k][0] * f[0] + Jl[k][1] * f[1] + Jl[k][2] * f[2];
 }
 
-template <bool FLAT>
+template <bool FLAT, bool PCTRL>
 __global__ void __launch_bounds__(TEAM * TEAM_ENVS, TEAM_MIN_BLOCKS)
 megastep_team_kernel(const MegastepArgs a) {
   __shared__ TeamEnv team_envs[TEAM_ENVS];
@@ -609,11 +615,14 @@ megastep_team_kernel(const MegastepArgs a) {
 
   // ---- entry state: joint lanes own their joint, lanes 0..3 the base ----
   float q = 0.0f, qd = 0.0f, tau_m = 0.0f;
+  // actuator-network histories (none with P control)
   float el = 0.0f, ell = 0.0f, vl = 0.0f, vll = 0.0f;
   if (is_joint) {
     q = LD(I_Q, j); qd = LD(I_QD, j);
-    el = LD(I_EL, j); ell = LD(I_ELL, j);
-    vl = LD(I_VL, j); vll = LD(I_VLL, j);
+    if constexpr (!PCTRL) {
+      el = LD(I_EL, j); ell = LD(I_ELL, j);
+      vl = LD(I_VL, j); vll = LD(I_VLL, j);
+    }
   }
   if (lane < 3) {
     s.pos[lane] = LD(I_POS, lane); s.lin[lane] = LD(I_LIN, lane);
@@ -661,17 +670,22 @@ megastep_team_kernel(const MegastepArgs a) {
   // ---- D substeps ----
 #pragma unroll 1
   for (int si = 0; si < a.D; ++si) {
-    // torque model: the per-joint MLP on [err, el, ell, qd, vl, vll] whose
-    // weights are the nonzero blocks of the block-diagonal matrices
-    float err = 0.0f;
-    if (is_joint) {
-      err = q - LD(I_TGT, si * NJ + j);
-      const float x[NF] = {err, el, ell, qd, vl, vll};
+    // torque model: P control on the joint lanes, or the per-joint MLP on
+    // [err, el, ell, qd, vl, vll] whose weights are the nonzero blocks of
+    // the block-diagonal matrices
+    float t = 0.0f;
+    if constexpr (PCTRL) {
+      if (is_joint)
+        t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q) - LD(I_KD, j) * qd;
+    } else {
+      float err = 0.0f;
+      if (is_joint) {
+        err = q - LD(I_TGT, si * NJ + j);
+        const float x[NF] = {err, el, ell, qd, vl, vll};
 #pragma unroll
-      for (int f = 0; f < NF; ++f) s.u.net.in[j][f] = x[f];
-    }
-    __syncwarp();
-    {
+        for (int f = 0; f < NF; ++f) s.u.net.in[j][f] = x[f];
+      }
+      __syncwarp();
       // hidden unit o of every joint, two joints at a time: two
       // independent sums, each in the one-thread kernel's order
       const int o = lane;
@@ -702,15 +716,16 @@ megastep_team_kernel(const MegastepArgs a) {
         s.u.net.h1[jj + 1][o] =
             softsign(acc1 + LDC(I_NET, NET_B1 + (jj + 1) * NH + o));
       }
-    }
-    __syncwarp();
-    if (is_joint) {
-      float t = 0.0f;
+      __syncwarp();
+      if (is_joint) {
 #pragma unroll 4
-      for (int o = 0; o < NH; ++o)
-        t += LDC(I_NET, NET_W2 + o * NJ + j) * s.u.net.h1[j][o];
-      t += LDC(I_NET, NET_B2 + j);
-      ell = el; el = err; vll = vl; vl = qd;
+        for (int o = 0; o < NH; ++o)
+          t += LDC(I_NET, NET_W2 + o * NJ + j) * s.u.net.h1[j][o];
+        t += LDC(I_NET, NET_B2 + j);
+        ell = el; el = err; vll = vl; vl = qd;
+      }
+    }
+    if (is_joint) {
       t = t * LD(I_STR, j);
       t = clampf(t, LDC(I_TLIM, j));
       tau_m = t;
@@ -855,7 +870,9 @@ megastep_team_kernel(const MegastepArgs a) {
   // ---- exit state ----
   if (is_joint) {
     ST(O_Q, j, q); ST(O_QD, j, qd); ST(O_TAU, j, tau_m);
-    ST(O_EL, j, el); ST(O_ELL, j, ell); ST(O_VL, j, vl); ST(O_VLL, j, vll);
+    if constexpr (!PCTRL) {
+      ST(O_EL, j, el); ST(O_ELL, j, ell); ST(O_VL, j, vl); ST(O_VLL, j, vll);
+    }
   }
   if (lane < 3) {
     ST(O_POS, lane, s.pos[lane]); ST(O_LIN, lane, s.lin[lane]);
@@ -874,32 +891,39 @@ megastep_team_kernel(const MegastepArgs a) {
 #undef LDC
 }
 
-// Plain C interface for ctypes, the arguments of csrc/megastep.cu's
-// megastep_launch (wtw_megastep.cuh).  Takes the actuator network in reuse
-// mode with the entry cache built here: in[I_PAYLOAD], in[I_COMDISP] in
-// place of the cache (Sw .. p_cp null), on a heightfield (flat 0) the
-// corner-packed field in[I_CORNERS] of ip[P_CROWS] x ip[P_CCOLS] cells and
-// its pitch and origin f[F_HS], f[F_OX], f[F_OY] in place of the normals
-// (in[I_N] null).  `threads` must be TEAM * TEAM_ENVS and npad a multiple
-// of TEAM_ENVS.  Launches on `stream`, does not synchronise, returns the
-// launch's cudaError_t (0 = launched).
+// Plain C interface for ctypes, the argument list of wtw_megastep.cuh.
+// Takes reuse mode with the entry cache built here: in[I_PAYLOAD],
+// in[I_COMDISP]; on a heightfield (flat 0) the corner-packed field
+// in[I_CORNERS] of ip[P_CROWS] x ip[P_CCOLS] cells and its pitch and origin
+// f[F_HS], f[F_OX], f[F_OY]; the packed actuator weights in[I_NET] and the
+// histories, or with P control (ip[P_PCTRL]) the gains in[I_KP], in[I_KD]
+// and no histories.  Exact mode (csrc/megastep.cu) is refused.  `threads`
+// must be TEAM * TEAM_ENVS and npad a multiple of TEAM_ENVS.  Launches on
+// `stream`, does not synchronise, returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int megastep_team_launch(const void* const* in, void* const* out,
                                     const float* f, const int* ip,
                                     void* stream) {
   const MegastepArgs a = megastep_args(in, out, f, ip);
-  const int threads = ip[P_THREADS], flat = ip[P_FLAT];
+  const int threads = ip[P_THREADS], flat = ip[P_FLAT], pctrl = ip[P_PCTRL];
   if (threads != TEAM * TEAM_ENVS || a.npad < 1 || a.npad % TEAM_ENVS
-      || a.D < 1 || ip[P_PCTRL] || ip[P_EXACT] || !ip[P_ENTRY]
-      || a.in[I_N] != nullptr || a.in[I_PAYLOAD] == nullptr
+      || a.D < 1 || ip[P_EXACT] || !ip[P_ENTRY]
+      || a.in[I_PAYLOAD] == nullptr || a.in[I_COMDISP] == nullptr
+      || (pctrl ? (a.in[I_KP] == nullptr || a.in[I_KD] == nullptr)
+                : a.in[I_NET] == nullptr)
       || (!flat && (a.in[I_CORNERS] == nullptr || a.c_rows < 1
                     || a.c_cols < 1)))
     return (int)cudaErrorInvalidValue;
   const int blocks = a.npad / TEAM_ENVS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (flat)
-    megastep_team_kernel<true><<<blocks, threads, 0, st>>>(a);
+  if (flat && pctrl)
+    megastep_team_kernel<true, true><<<blocks, threads, 0, st>>>(a);
+  else if (flat)
+    megastep_team_kernel<true, false><<<blocks, threads, 0, st>>>(a);
+  else if (pctrl)
+    megastep_team_kernel<false, true><<<blocks, threads, 0, st>>>(a);
   else
-    megastep_team_kernel<false><<<blocks, threads, 0, st>>>(a);
+    megastep_team_kernel<false, false><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -912,16 +936,23 @@ extern "C" int megastep_team_counts(int* n_in, int* n_out, int* n_f) {
   return 0;
 }
 
-// Resident blocks of the team kernel per SM (flat, heightfield), and its
-// threads and static shared memory per block; returns the cudaError_t.
-extern "C" int megastep_team_occupancy(int* blocks_flat, int* blocks_rough,
-                                       int* threads, int* smem_bytes) {
+// Resident blocks per SM of the four instantiations, into blocks[0..3] in
+// the order K4, K4b, K4c, K4b-P, and the threads and static shared memory
+// per block (the same for all four); returns the cudaError_t.
+extern "C" int megastep_team_occupancy(int* blocks, int* threads,
+                                       int* smem_bytes) {
   *threads = TEAM * TEAM_ENVS;
   *smem_bytes = (int)(sizeof(TeamEnv) * TEAM_ENVS);
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_flat, megastep_team_kernel<true>, *threads, 0);
+      &blocks[0], megastep_team_kernel<true, false>, *threads, 0);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_rough, megastep_team_kernel<false>, *threads, 0);
+        &blocks[1], megastep_team_kernel<false, false>, *threads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[2], megastep_team_kernel<true, true>, *threads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[3], megastep_team_kernel<false, true>, *threads, 0);
   return (int)e;
 }

@@ -1,7 +1,7 @@
-// What the two control-step kernels share: csrc/megastep.cu (one thread per
-// env: K4c, K4b with P control, K5) and csrc/megastep_team.cu (one warp per
-// env: K4, K4b with the actuator network).  Both take one argument list,
-// packed by ops/megastep.kernel_operands, and both run the per-contact-point
+// What the two control-step kernels share: csrc/megastep_team.cu (one warp
+// per env, reuse mode: K4, K4b, K4c, K4b-P) and csrc/megastep.cu (one thread
+// per env, exact mode: K5, K5-P).  Both take one argument list, packed by
+// ops/megastep.kernel_operands, and both run the per-contact-point
 // arithmetic below: a point's velocity from the kept Jacobian columns, its
 // columns and effective-mass entries, and the flat-ground row update.
 //
@@ -13,11 +13,12 @@
 #define NH MS_H
 #define NF MS_F
 
+// Both kernels build the dynamics cache themselves, so no slot holds it.
 enum InIdx {
-  I_SW = 0, I_SV, I_A, I_B, I_M, I_MINV, I_PCP, I_RH, I_MU, I_E, I_G,
+  I_RH = 0, I_MU, I_E, I_G,
   I_LAM, I_Q, I_QD, I_POS, I_QUAT, I_LIN, I_ANG, I_TGT, I_STR,
   I_W0, I_B0, I_W1, I_B1, I_W2, I_B2, I_EL, I_ELL, I_VL, I_VLL,
-  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP, I_N,
+  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP,
   I_CORNERS, I_NET, N_IN
 };
 enum OutIdx {

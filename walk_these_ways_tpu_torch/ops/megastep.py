@@ -12,13 +12,12 @@ here:
 - `control_step`: the wrapper.  CPU tensors go to the plain version; CUDA
   tensors go to a hand-written kernel (both replace
   `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.  There
-  is no fallback from a kernel to the plain version.  The actuator network
-  in reuse mode, K4 (flat ground) and K4b (on a heightfield), runs one warp
-  per env in `csrc/megastep_team.cu`, with the entry cache built and the
-  heightfield sampled inside its launch (`entry_inputs`); K4c (reuse mode,
-  flat ground, P control), K4b-P (P control on a heightfield: surface
-  normals `n_t`, cache built on the host) and K5 (exact mode, flat ground,
-  either torque model) run one thread per env in `csrc/megastep.cu`.
+  is no fallback from a kernel to the plain version.  Reuse mode runs one
+  warp per env in `csrc/megastep_team.cu`, with the entry cache built and
+  the heightfield sampled inside its launch (`entry_inputs`): K4 (flat
+  ground) and K4b (on a heightfield) with the actuator network, K4c and
+  K4b-P with P control.  K5 (exact mode, flat ground, either torque model)
+  runs one thread per env in `csrc/megastep.cu`.
 - `blockdiag_actuator_weights`: host helper that lays the 12 per-joint
   actuator MLPs (6 -> 32 -> 32 -> 1, softsign) out as block-diagonal
   matrices, with features stacked as X[12 f + j] = feature f of joint j.
@@ -57,12 +56,12 @@ normal_launches = 0
 p_normal_launches = 0
 exact_launches = 0
 
-# threads per block of csrc/megastep.cu (K4c, K4b-P, K5): one env per
-# thread; at 4000 envs a 32-thread block spreads the batch over the most SMs
+# threads per block of csrc/megastep.cu (K5): one env per thread; at 4000
+# envs a 32-thread block spreads the batch over the most SMs
 KERNEL_THREADS = 32
-# csrc/megastep_team.cu (K4, K4b): one warp of 32 lanes per env, TEAM_ENVS
-# envs (TEAM_THREADS threads) per block; the env axis is padded to
-# engine.MEGASTEP_BLOCK, which TEAM_ENVS divides
+# csrc/megastep_team.cu (K4, K4b, K4c, K4b-P): one warp of 32 lanes per
+# env, TEAM_ENVS envs (TEAM_THREADS threads) per block; the env axis is
+# padded to engine.MEGASTEP_BLOCK, which TEAM_ENVS divides
 TEAM_ENVS = 8
 TEAM_THREADS = 32 * TEAM_ENVS
 
@@ -196,7 +195,8 @@ def _cache_arrays(model, q, quat, pos, payload, comdisp):
 
 
 def entry_cache_reference(model, q_t, quat_t, pos_t, rh_t, entry_inputs):
-    """The entry cache that K4 and K4b build inside their launch, eagerly:
+    """The entry cache that the team kernel (K4, K4b, K4c, K4b-P) builds
+    inside its launch, eagerly:
     `_cache_arrays` (physics/envminor.cache_columns, the eager build's
     arithmetic) about the entry base position, and on a heightfield the
     height and the unit normal under each entry contact point
@@ -252,8 +252,8 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
     terrain) for reuse mode with the entry cache built here from the entry
     state (`entry_cache_reference`: the eager build, and on a heightfield
     `terrain` (physics/engine.Terrain) sampled at the entry contact
-    points; None on flat ground), as K4 and K4b build it in their launch;
-    `em` and `n_t` must then be None.
+    points; None on flat ground), as the team kernel builds it in its
+    launch; `em` and `n_t` must then be None.
 
     Returns (q, qd, pos, quat, lin, ang, pcp, pcp_prev, lam, tau_last
     [, el, ell, vl, vll]) — all env-minor."""
@@ -397,21 +397,22 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
 
 
 def topology_header(model, hidden: int, features: int) -> str:
-    """C header with the robot's static tables for csrc/megastep.cu: the
-    topology, and the model constants of the exact-mode cache rebuild."""
+    """C header with the robot's static tables for csrc/megastep.cu and
+    csrc/megastep_team.cu: the topology, and the model constants of the
+    cache build."""
     return (_build.topology_header(model.anc_dof_body, model.joint_body,
                                    model.cp_body, hidden, features)
             + _build.model_tables(model))
 
 
-_N_IN, _N_OUT, _N_F = 41, 14, 15
+_N_IN, _N_OUT, _N_F = 33, 14, 15
 
 
 def library_spec(model, hidden: int = 32, features: int = 6,
                  team: bool = False):
-    """What `_build.build_libraries` needs to build csrc/megastep.cu (K4c,
-    K4b-P, K5 with either torque model) or, with `team`,
-    csrc/megastep_team.cu (K4, K4b).  Both take one argument list."""
+    """What `_build.build_libraries` needs to build csrc/megastep.cu (K5
+    with either torque model) or, with `team`, csrc/megastep_team.cu (K4,
+    K4b, K4c, K4b-P).  Both take one argument list."""
     return ("megastep_team" if team else "megastep",
             topology_header(model, hidden, features), (_N_IN, _N_OUT, _N_F))
 
@@ -443,14 +444,14 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     Tensors on the CPU: the plain version, with `entry_inputs` the eager
     build of the entry cache (`entry_cache_reference`) first.  Tensors on a
     CUDA device: a kernel, launched on the current stream without
-    synchronising, outputs allocated here: the actuator network in reuse
-    mode takes `entry_inputs` (no `em`, no `n_t`) and runs
-    csrc/megastep_team.cu, which builds the entry cache and samples the
-    heightfield in its launch (K4, K4b); P control in reuse mode takes the
-    host-built cache `em` (and `n_t` on a heightfield) and exact mode
-    `exact_inputs`, and both run csrc/megastep.cu (K4c, K4b-P, K5).  Exact
-    mode with `n_t` raises on every device, as does anything else the
-    kernels do not take on a CUDA device and a failed build or launch."""
+    synchronising, outputs allocated here: reuse mode takes `entry_inputs`
+    and runs csrc/megastep_team.cu, which builds the entry cache and
+    samples the heightfield in its launch (K4, K4b with the actuator
+    network, K4c, K4b-P with P control); exact mode takes `exact_inputs`
+    and runs csrc/megastep.cu (K5).  Neither takes a host-built cache `em`
+    or normals `n_t` there.  Exact mode with `n_t` raises on every device,
+    as does anything else the kernels do not take on a CUDA device and a
+    failed build or launch."""
     global launches, p_launches, normal_launches, p_normal_launches
     global exact_launches
     kw = dict(model=model, control_type=control_type, dt=dt,
@@ -478,14 +479,6 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     if exact_inputs is not None and lam_in_t is not None:
         raise ValueError("exact mode starts every contact solve cold: "
                          "lam_in_t must be None")
-    if (entry_inputs is None) == (control_type == "actuator_net"
-                                  and exact_inputs is None):
-        raise ValueError("on a CUDA device the actuator network in reuse "
-                         "mode (K4, K4b) takes entry_inputs and builds its "
-                         "cache in the launch; the other variants take none")
-    if entry_inputs is not None and (em is not None or n_t is not None):
-        raise ValueError("entry_inputs: the kernel builds the cache and "
-                         "samples the normals itself (no em, no n_t)")
     ptrs, outs, floats, ints, (H, F) = kernel_operands(
         em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
         tgt_t, strengths_t, ctrl_inputs, vlim, tlim, qlo, qhi, lam_in_t, **kw)
@@ -497,7 +490,7 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
                       torch.cuda.current_stream(dev).cuda_stream)
     if exact_inputs is not None:
         exact_launches += 1
-    elif n_t is not None and control_type == "P":
+    elif control_type == "P" and entry_inputs[2] is not None:
         p_normal_launches += 1
     elif control_type == "P":
         p_launches += 1
@@ -518,21 +511,30 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
                     limit_damping: float, max_base_ang_vel: float,
                     max_base_lin_vel: float, decimation: int,
                     eps: float = 1e-6, exact_inputs=None, entry_inputs=None):
-    """The arguments of `megastep_launch` (csrc/megastep.cu) or, with
-    `entry_inputs`, `megastep_team_launch` (csrc/megastep_team.cu) for one
-    control step (csrc/wtw_megastep.cuh): input pointers in InIdx order
-    (null where the variant reads nothing), the output tensors, allocated
-    on the inputs' device, in OutIdx order (None where the variant writes
-    nothing), the FIdx floats, the IntIdx ints and the actuator network's
-    (hidden, features).  Checks every operand's device, dtype, shape and
-    contiguity."""
+    """The arguments of `megastep_team_launch` (csrc/megastep_team.cu,
+    reuse mode: `entry_inputs`) or `megastep_launch` (csrc/megastep.cu,
+    exact mode: `exact_inputs`) for one control step
+    (csrc/wtw_megastep.cuh): input pointers in InIdx order (null where the
+    variant reads nothing), the output tensors, allocated on the inputs'
+    device, in OutIdx order (None where the variant writes nothing), the
+    FIdx floats, the IntIdx ints and the actuator network's (hidden,
+    features).  Both kernels build the dynamics cache themselves: a
+    host-built cache `em` or normals `n_t` raise, as does a call with
+    neither or both of `entry_inputs` and `exact_inputs`.  Checks every
+    operand's device, dtype, shape and contiguity."""
     dev = q_t.device
     pctrl = control_type == "P"
     exact = exact_inputs is not None
     entry = entry_inputs is not None
+    if exact == entry:
+        raise ValueError("the kernels take reuse mode with entry_inputs "
+                         "(the team kernel) or exact mode with exact_inputs")
+    if em is not None or n_t is not None:
+        raise ValueError("the kernels build the cache and sample the "
+                         "normals themselves: em and n_t must be None")
     terrain = entry_inputs[2] if entry else None
 
-    nv, nb = model.nv, model.nb
+    nv = model.nv
     nj = nv - 6
     P = model.cp_body.shape[0]
     D = int(decimation)
@@ -559,12 +561,7 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
         net = blocks + (
             ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
             ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)))
-    cache = () if exact or entry else (
-        ("Sw_t", em.Sw_t, (nv, 3, Npad)), ("Sv_t", em.Sv_t, (nv, 3, Npad)),
-        ("A_t", em.A_t, (nb, 9, Npad)), ("B_t", em.B_t, (nb, 9, Npad)),
-        ("m_t", em.m_t, (nb, Npad)), ("Minv_t", em.Minv_t, (nv, nv, Npad)),
-        ("p_cp_t", em.p_cp_t, (P, 3, Npad)))
-    given = dict((name, (x, shape)) for name, x, shape in cache + net + (
+    given = dict((name, (x, shape)) for name, x, shape in net + (
         ("rh_t", rh_t, (P, Npad)), ("mu_t", mu_t, (1, Npad)),
         ("e_t", e_t, (1, Npad)), ("g_t", g_t, (3, Npad)),
         ("q_t", q_t, (nj, Npad)), ("qd_t", qd_t, (nj, Npad)),
@@ -576,15 +573,12 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
         ("qlo", qlo, (nj, 1)), ("qhi", qhi, (nj, 1))))
     if lam_in_t is not None:
         given["lam_in_t"] = (lam_in_t, (P, 3, Npad))
-    if n_t is not None:
-        given["n_t"] = (n_t, (P, 3, Npad))
     if pctrl:
         given["kp_t"] = (kp_t, (nj, Npad))
         given["kd_t"] = (kd_t, (nj, Npad))
-    if exact or entry:
-        payload_t, comdisp_t = (exact_inputs if exact else entry_inputs)[:2]
-        given["payload_t"] = (payload_t, (1, Npad))
-        given["comdisp_t"] = (comdisp_t, (3, Npad))
+    payload_t, comdisp_t = (exact_inputs if exact else entry_inputs)[:2]
+    given["payload_t"] = (payload_t, (1, Npad))
+    given["comdisp_t"] = (comdisp_t, (3, Npad))
     hs, ox, oy, c_rows, c_cols = 1.0, 0.0, 0.0, 0, 0
     if terrain is not None:
         c_rows, c_cols = (int(x) for x in terrain.corners.shape[:2])
@@ -593,12 +587,11 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
         ox, oy = terrain.origin_xy
     # the kernels' input slots, in csrc/wtw_megastep.cuh's InIdx order; a
     # slot the variant does not read stays null
-    slots = ("Sw_t", "Sv_t", "A_t", "B_t", "m_t", "Minv_t", "p_cp_t", "rh_t",
-             "mu_t", "e_t", "g_t", "lam_in_t", "q_t", "qd_t", "pos_t",
-             "quat_t", "lin_t", "ang_t", "tgt_t", "strengths_t", "W0b", "b0b",
-             "W1b", "b1b", "W2b", "b2b", "el_t", "ell_t", "vl_t", "vll_t",
-             "vlim", "tlim", "qlo", "qhi", "kp_t", "kd_t", "payload_t",
-             "comdisp_t", "n_t", "corners", "net_t")
+    slots = ("rh_t", "mu_t", "e_t", "g_t", "lam_in_t", "q_t", "qd_t",
+             "pos_t", "quat_t", "lin_t", "ang_t", "tgt_t", "strengths_t",
+             "W0b", "b0b", "W1b", "b1b", "W2b", "b2b", "el_t", "ell_t",
+             "vl_t", "vll_t", "vlim", "tlim", "qlo", "qhi", "kp_t", "kd_t",
+             "payload_t", "comdisp_t", "corners", "net_t")
     assert len(slots) == _N_IN and set(given) <= set(slots)
     ptrs = [None if name not in given else
             _build.check(name, given[name][0], given[name][1], dev).data_ptr()
@@ -615,7 +608,7 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
               max_base_lin_vel, eps, 0.5 * dt, hs, ox, oy)
     ints = (Npad, D, num_iters, warm_iters, bool(contact),
             TEAM_THREADS if entry else KERNEL_THREADS, pctrl, exact,
-            n_t is None and terrain is None, entry, c_rows, c_cols)
+            terrain is None, entry, c_rows, c_cols)
     return ptrs, outs, floats, ints, (H, F)
 
 
@@ -683,13 +676,13 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
     mode (K5): payload and COM shift in place of the cache, which is
     rebuilt (`cache_rebuild_ops`) and formed into J and W before every
     substep, and every solve runs `num_iters` sweeps from a cold start.
-    With `entry` (K4, K4b as they run now): reuse mode with the cache built
-    in the launch from the entry state, once (`cache_rebuild_ops`): the
-    payload and COM shift are read in place of the cache and, on a
-    heightfield, one cell of four corner heights per contact point in place
-    of the normals, sampled once (`HEIGHTFIELD_SAMPLE_OPS`).  The actuator
-    weights and the bound columns are shared by all envs and are not
-    counted per env."""
+    With `entry` (the team kernel's variants, K4, K4b, K4c, K4b-P): reuse
+    mode with the cache built in the launch from the entry state, once
+    (`cache_rebuild_ops`): the payload and COM shift are read in place of
+    the cache and, on a heightfield, one cell of four corner heights per
+    contact point in place of the normals, sampled once
+    (`HEIGHTFIELD_SAMPLE_OPS`).  The actuator weights and the bound
+    columns are shared by all envs and are not counted per env."""
     nv, nb = model.nv, model.nb
     nj = nv - 6
     P = model.cp_body.shape[0]

@@ -5,9 +5,9 @@ through the hand-written kernels:
 
 - the control-step route (default training path): one control step = one
   launch of a whole-control-step kernel (ops/megastep.py), in reuse mode
-  (the cache of the entry state built inside the launch with the actuator
-  network, here on the host with P control) or in exact mode (cache
-  rebuilt inside the kernel before every substep);
+  (the cache of the entry state built inside the launch, with either
+  torque model) or in exact mode (cache rebuilt inside the kernel before
+  every substep);
 - the per-substep route: per control step one `build_dynamics_cache`
   (env-minor cache + the contact-cache kernel, ops/contact.py) and per
   physics substep one `physics_substep_cached` (the dynamics-substep kernel,
@@ -411,7 +411,8 @@ def megakernel_args(
     strengths: torch.Tensor,        # (N, 12)
     torque_limits: torch.Tensor,    # (12,)
     ctrl,                           # ("actuator_net", blockdiag_weights,
-                                    #  (el, ell, vl, vll) each (N, 12))
+                                    #  (el, ell, vl, vll) each (N, 12)) or
+                                    # ("P", kp_eff, kd_eff) each (N, 12)
     decimation: int,
     lam_in_t=None,                  # (P, 3, Npad) cross-step warm seed
     exact: bool = False,
@@ -422,15 +423,17 @@ def megakernel_args(
     and padded to MEGASTEP_BLOCK, the per-dof bound columns, the solver's
     static parameters, and where the dynamics cache comes from:
 
-    - the actuator network in reuse mode (K4, K4b): `entry_inputs` =
-      (payload, COM shift, the terrain on a heightfield or None), from
-      which the control step builds the cache of the entry state and
-      samples the heightfield under the entry contact points itself (the
-      kernel inside its launch, the plain version eagerly);
-    - P control in reuse mode (K4c, K4b-P), or any reuse-mode call with
-      `eager_cache`: the env-minor cache of the entry state built here on
-      the host (`build_pallas_env_inputs`), with the surface normals on a
-      heightfield;
+    - reuse mode (K4, K4b with the actuator network, K4c, K4b-P with P
+      control): `entry_inputs` = (payload, COM shift, the terrain on a
+      heightfield or None), from which the control step builds the cache
+      of the entry state and samples the heightfield under the entry
+      contact points itself (the team kernel inside its launch, the plain
+      version eagerly);
+    - reuse mode with `eager_cache`, which only the checks of a kernel
+      against its plain version ask for: the env-minor cache of the entry
+      state built here on the host (`build_pallas_env_inputs`), with the
+      surface normals on a heightfield, for the plain version (the kernels
+      refuse it);
     - exact mode (K5): the payload and COM shift the kernel rebuilds the
       cache from before every substep (`exact_inputs`)."""
     f32 = state.base_pos.dtype
@@ -449,7 +452,7 @@ def megakernel_args(
                 "exact mode in the control-step kernel is flat-ground only; "
                 "on a heightfield the env runs exact mode as `decimation` "
                 "reuse-mode launches of one substep each")
-    if exact or (ctrl[0] != "P" and not eager_cache):
+    if exact or not eager_cache:
         em, n_t = None, None
         rh_t, mu_t, e_t, g_t = _contact_inputs(
             model, dyn, -(-N // block) * block, block)
@@ -531,10 +534,9 @@ def control_step_megakernel(
     J/W cache built in-kernel.  Reuse-mode semantics (cache anchored at
     the entry state, contact points advanced at velocity level; on a
     heightfield the surface normals sampled at the entry contact points
-    enter the general-normal contact rows): with the actuator network
-    (K4, K4b) the kernel builds the entry cache and samples the
-    heightfield itself in its launch; with P control (K4c, K4b-P) the
-    cache and the normals are built here on the host first.  With
+    enter the general-normal contact rows): the team kernel builds the
+    entry cache and samples the heightfield itself in its launch, with
+    the actuator network (K4, K4b) or P control (K4c, K4b-P).  With
     `exact=True`, exact per-substep semantics: the kernel rebuilds the whole
     cache (FK/twists/inertia/CRBA/M^-1/J/W) from the current state before
     every substep (flat ground only; every contact solve starts cold, as in

@@ -322,9 +322,9 @@ def cache_columns(model, q_cols, base_quat_cols, ref, payload,
 
 
 # number of eager cache builds (`build_cache_envminor` calls); the
-# control-step route makes none with the actuator network (K4, K4b build the
-# entry cache in their launch, K5 before every substep) and one per control
-# step with P control
+# control-step route makes none (the team kernel, K4, K4b, K4c and K4b-P,
+# builds the entry cache in its launch, K5 before every substep), the
+# per-substep route one per control step
 cache_builds = 0
 
 
