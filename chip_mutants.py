@@ -23,17 +23,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("walk_these_ways_tpu_torch", "csrc")
 # (name, source, text to replace, replacement, the check that must fail)
 MUTANTS = (
-    # the one-thread kernels' dynamics (K3 is the first checked that runs
-    # them; K4 runs the team kernel's own, next)
+    # the one-thread dynamics (K5 is the one kernel that runs them) and the
+    # warp-per-env dynamics (K4 is the first checked that runs them; K3 and
+    # K3b run them too)
     ("shared_dynamics_bias_sign", "wtw_device.cuh",
      "tb[6 + j] = tau[6 + j] - acc;", "tb[6 + j] = tau[6 + j] + acc;",
-     "dynamics_substep"),
-    ("team_dynamics_bias_sign", "megastep_team.cu",
+     "control_step_exact"),
+    ("team_dynamics_bias_sign", "wtw_team.cuh",
      "s.x[lane] = s.tau[lane] - acc;", "s.x[lane] = s.tau[lane] + acc;",
      "control_step"),
-    # the team kernel's sum of the points' J^T dlam rows into the dof slots
-    # reads one slot past a point's leg columns (the next point's row)
-    ("team_dof_sum_reads_past_the_points_columns", "megastep_team.cu",
+    # the warp-per-env kernels' sum of the points' J^T dlam rows into the
+    # dof slots reads one slot past a point's leg columns (the next point's
+    # row)
+    ("team_dof_sum_reads_past_the_points_columns", "wtw_team.cuh",
      "if (k >= 0 && k < MS_PT_N[p]) acc += s.u.jt[p][6 + k];",
      "if (k >= 0 && k <= MS_PT_N[p]) acc += s.u.jt[p][6 + k];",
      "control_step"),
@@ -44,14 +46,26 @@ MUTANTS = (
      "const float nx = dhdx, ny = -dhdy, nz = 1.0f;",
      "control_step_normals"),
     ("dynamics_substep_integration_sign", "dynamics_substep.cu",
-     "gv[v] = gv[v] + a.c.dt * qdd[v];", "gv[v] = gv[v] - a.c.dt * qdd[v];",
+     "s.gv[lane] = s.gv0[lane] + dt * s.qdd[lane];",
+     "s.gv[lane] = s.gv0[lane] - dt * s.qdd[lane];", "dynamics_substep"),
+    # K3's point lanes write J_p^T dlam_p with one column's sign flipped
+    ("dynamics_substep_jt_row_sign", "dynamics_substep.cu",
+     "row[k] = Jp[0][k] * dl[0] + Jp[1][k] * dl[1] + Jp[2][k] * dl[2];",
+     "row[k] = Jp[0][k] * dl[0] - Jp[1][k] * dl[1] + Jp[2][k] * dl[2];",
      "dynamics_substep"),
+    # the per-substep route's entry cache writes the linear twist basis
+    # with the wrong sign
+    ("entry_cache_twist_basis_sign", "entry_cache.cu",
+     "[](const TeamEnv& e, int k) { return (&e.sv[0][0])[k]; });",
+     "[](const TeamEnv& e, int k) { return -(&e.sv[0][0])[k]; });",
+     "entry_cache"),
     ("contact_cache_drops_the_cross_product", "contact_cache.cu",
      "const float j = m * (sv[i] + c[i]);", "const float j = m * (sv[i]);",
      "contact_cache"),
-    ("shared_contact_solve_friction_sign", "wtw_contact.cuh",
+    # the one-thread contact solve, K2's
+    ("contact_solve_friction_sign", "wtw_contact.cuh",
      "const float dlt = -c.relax * vtn / w_tt;",
-     "const float dlt = c.relax * vtn / w_tt;", "dynamics_substep"),
+     "const float dlt = c.relax * vtn / w_tt;", "contact_substep"),
     ("contact_substep_halved_relaxation", "contact_substep.cu",
      "a.c.relax = f[F_RELAX];", "a.c.relax = 0.5f * f[F_RELAX];",
      "contact_substep"),
@@ -71,8 +85,9 @@ MUTANTS = (
     ("cache_rebuild_drops_payload_scale", "wtw_cache.cuh",
      "const float scale0 = mass[0] / MS_MASS[0];",
      "const float scale0 = 1.0f;", "control_step_exact"),
-    # the same edit in the team kernel's entry-cache build (K4, K4b)
-    ("team_cache_drops_payload_scale", "megastep_team.cu",
+    # the same edit in the warp-per-env entry-cache build (K4 is the first
+    # checked that runs it; K4b, K4c, K4b-P and the entry-cache launch too)
+    ("team_cache_drops_payload_scale", "wtw_team.cuh",
      "const float scale0 = (MS_MASS[0] + payload) / MS_MASS[0];",
      "const float scale0 = 1.0f;", "control_step"),
     # K5 reads a stale M^-1 after its first substep: the matrix of substep 0,
@@ -92,9 +107,9 @@ MUTANTS = (
      "const float l_n0 = lam[0] * n[0] + lam[1] * n[1] + lam[2] * n[2];",
      "const float l_n0 = lam[2];", "control_step_normals"),
     # K3b's normal row takes the mass W22 instead of n^T W n
-    ("normals_substep_wnn_is_w22", "wtw_contact.cuh",
-     "inv_wnn[p] = c.relax / quad3(W9, n);",
-     "inv_wnn[p] = c.relax / W9[8];", "dynamics_substep_normals"),
+    ("normals_substep_wnn_is_w22", "dynamics_substep.cu",
+     "inv_wnn = relax / quad3(W9, nrm);", "inv_wnn = relax / W9[8];",
+     "dynamics_substep_normals"),
 )
 
 

@@ -3,28 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's five kernel sources from csrc/*.cu with nvcc (one nvcc
+Builds the port's six kernel sources from csrc/*.cu with nvcc (one nvcc
 each, all started together; csrc/megastep_team.cu holds the control-step
 kernel in reuse mode, one warp per env with the entry cache built in the
 launch: K4, K4c with P control, K4b and K4b-P on a heightfield;
 csrc/megastep.cu K5 in exact mode with either torque model;
-csrc/dynamics_substep.cu K3 and K3b on a heightfield; csrc/contact_cache.cu
-K1; csrc/contact_substep.cu K2), holds each kernel against its plain
-PyTorch version on the card at the shapes the paths below give it (4000
-envs), then drives the port's paths through the entry points a user calls
-and checks what comes out:
+csrc/dynamics_substep.cu K3 and K3b on a heightfield, one warp per env;
+csrc/entry_cache.cu the per-substep route's entry cache, flat and on a
+heightfield; csrc/contact_cache.cu K1; csrc/contact_substep.cu K2), holds
+each kernel against its plain PyTorch version on the card at the shapes
+the paths below give it (4000 envs), then drives the port's paths through
+the entry points a user calls and checks what comes out:
 
 - the policy rollout of `mob_train_cfg(4000)` on the default route (one
   control-step kernel launch per step),
 - the same rollout on the per-substep route (`sim.megastep=False`: one
-  contact-cache launch per control step, one dynamics-substep launch per
-  physics substep), and one control step of both routes held against each
-  other,
+  entry-cache and one contact-cache launch per control step, one
+  dynamics-substep launch per physics substep, no eager cache build), and
+  one control step of both routes held against each other,
 - the contact-substep kernel driven directly (no env branch reaches it),
 - PPO training iterations (`learn/ppo.make_train_iteration`) on both routes,
 - exact mode on the control-step route (`sim.reuse_matrices=False`: one K5
   launch per step, no eager cache build), and one control step of it held
-  against the per-substep exact route,
+  against the per-substep exact route, which rolls out too (an entry-cache,
+  a contact-cache and a dynamics-substep launch per substep, no eager
+  cache build),
 - P control on the control-step route (`small_train_cfg(4000)`, K4c, no
   eager cache build),
 - the training entry point: `learn/runner.Runner` (log, checkpoint, resume,
@@ -34,10 +37,11 @@ and checks what comes out:
   and `scripts.test`; the bench's `main`,
 - rough terrain (`rough_train_cfg(4000)`): the default route (one K4b launch
   per step), the P-control route (one K4b-P launch per step), the exact
-  route (`decimation` K4b launches of one substep per step) and the
-  per-substep route (K1 + 4 K3b per step), the exact route
-  held against the per-substep exact route, a PPO iteration and the bench
-  on rough terrain,
+  route (`decimation` K4b launches of one substep per step), the
+  per-substep route (entry cache + K1 + 4 K3b per step) and the per-substep
+  exact route (4 x {entry cache, K1, K3b} per step), the exact route held
+  against the per-substep exact route, a PPO iteration and the bench on
+  rough terrain,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
   and the device-busy share).
 
@@ -73,13 +77,17 @@ from walk_these_ways_tpu_torch.learn import ppo  # noqa: E402
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
 from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs  # noqa: E402
 from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
-from walk_these_ways_tpu_torch.ops import _build, contact, dynamics, megastep  # noqa: E402
+from walk_these_ways_tpu_torch.ops import (  # noqa: E402
+    _build, contact, dynamics, entry_cache, megastep)
 from walk_these_ways_tpu_torch.physics import engine, envminor  # noqa: E402
 from walk_these_ways_tpu_torch.utils import convert, profiling  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
              "lam", "tau", "el", "ell", "vl", "vll")
+# the entry-cache kernel's outputs: the EnvMinorCache fields, then on a
+# heightfield the point heights plus radii and the normals
+ENTRY_NAMES = envminor.EnvMinorCache._fields + ("rh_t", "n_t")
 # Kernel vs plain version on the card: |a - b| <= ATOL + RTOL * |b|.
 # Both are float32 and round every product on its own (the kernels are built
 # without fused multiply-adds), but the kernels sum in their own order and
@@ -152,6 +160,8 @@ def reset_counts():
     contact.substep_launches = 0
     dynamics.launches = 0
     dynamics.normal_launches = 0
+    entry_cache.launches = 0
+    entry_cache.normal_launches = 0
     envminor.cache_builds = 0
 
 
@@ -165,6 +175,8 @@ def counts():
                 contact_substep=contact.substep_launches,
                 dynamics_substep=dynamics.launches,
                 dynamics_substep_normals=dynamics.normal_launches,
+                entry_cache=entry_cache.launches,
+                entry_cache_normals=entry_cache.normal_launches,
                 eager_cache_builds=envminor.cache_builds)
 
 
@@ -292,8 +304,38 @@ def substep_kernel_calls(x):
     return k1, k2, k3, k3_kw
 
 
+def entry_cache_calls(env, state):
+    """The entry-cache kernel's call and its plain version's (the eager
+    build) for the per-substep route from `state`, each returning its
+    outputs in ENTRY_NAMES order (rh_t and n_t on a heightfield only)."""
+    m, block = env.model, engine.SUBSTEP_BLOCK
+    dyn = env.dynamics_params(state)[1]
+
+    def kernel():
+        em, rh_t, n_t = entry_cache.entry_cache(m, state.phys, dyn,
+                                                env.terrain, block)
+        return tuple(em) + (() if n_t is None else (rh_t, n_t))
+
+    def plain():
+        em, rh_t, _, _, _, n_t = engine.build_pallas_env_inputs(
+            m, state.phys, dyn, env.terrain, block)
+        return tuple(em) + (() if n_t is None else (rh_t, n_t))
+
+    return kernel, plain
+
+
+def compare_entry_cache(key, env, state, state_name, worst):
+    """The per-substep route's entry-cache kernel against the eager build
+    on every lane, the padded ones (zeros, normals +z) included."""
+    kernel, plain = entry_cache_calls(env, state)
+    npad = -(-env.num_envs // engine.SUBSTEP_BLOCK) * engine.SUBSTEP_BLOCK
+    worst[key] = max(worst.get(key, 0.0), compare(
+        key, state_name, ENTRY_NAMES, kernel, plain, npad))
+
+
 def compare_substep_kernels(env, state, state_name, worst):
     n = env.num_envs
+    compare_entry_cache("entry_cache", env, state, state_name, worst)
     x = substep_inputs(env, state)
     k1, k2, k3, k3_kw = substep_kernel_calls(x)
     worst["contact_cache"] = max(worst.get("contact_cache", 0.0), compare(
@@ -325,6 +367,22 @@ def megastep_launch(model, args, kw):
     name = "megastep_team" if team else "megastep"
     stream = torch.cuda.current_stream(DEV).cuda_stream
     return lambda: _build.launch(lib, name, ptrs, outs, floats, ints, stream)
+
+
+def entry_cache_launch(env, state):
+    """The entry-cache kernel's launch on operands packed once."""
+    m = env.model
+    ptrs, outs, floats, ints, keep = entry_cache.kernel_operands(
+        m, state.phys, env.dynamics_params(state)[1], env.terrain,
+        engine.SUBSTEP_BLOCK)
+    lib = entry_cache.build_library(m)
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+
+    def launch():
+        _build.launch(lib, "entry_cache", ptrs, outs, floats, ints, stream)
+        return keep         # the packed inputs live as long as the launch
+
+    return launch
 
 
 def dynamics_launch(args, kw):
@@ -599,6 +657,8 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
                 lambda: megastep.control_step_reference(*p_args, **p_kw),
                 N))
             calls.append((args, kw))
+        compare_entry_cache("entry_cache_normals", env_rs, state, st_name,
+                            worst)
         x = substep_inputs(env_rs, state)
         k3, k3_kw = substep_kernel_calls(x)[2:4]
         assert k3[16] is not None                       # the normals
@@ -616,11 +676,8 @@ def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
     return state, calls
 
 
-def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi,
-                block=None):
-    """A rollout on rough terrain; on a route that builds its cache on the
-    host (`block` given), with the time of one eager cache build (terrain
-    samples included) at the route's block."""
+def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi):
+    """A rollout on rough terrain."""
     state, obs = env_x.reset(gen)
     torch.cuda.synchronize()
     reset_counts()
@@ -628,32 +685,29 @@ def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi,
     state, obs, ro = rollout(env_x, policy, steps, gen, state=state, obs=obs)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    got = counts()
-    extra = {} if block is None else dict(
-        entry_cache_build_ms=time_host(lambda: engine.build_pallas_env_inputs(
-            env_x.model, state.phys, env_x.dynamics_params(state)[1],
-            env_x.terrain, block)))
     return check_rollout(
         name, env_x, state, obs, ro, steps, seconds, expect_counts, smi,
-        config=config, need_resets=False, got=got, **extra)
+        config=config, need_resets=False, got=counts())
 
 
-def team_occupancy(lib):
-    """Launch shape of the team kernel and the resident blocks and warps
-    per SM of its four instantiations, K4, K4b, K4c and K4b-P
+def team_occupancy(lib, name, variants):
+    """Launch shape of a warp-per-env kernel (`name`: megastep_team,
+    dynamics_substep or entry_cache) and the resident blocks and warps per
+    SM of its instantiations, `variants` in the order its
+    `<name>_occupancy` reports them
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    blocks = (ctypes.c_int * 4)()
+    blocks = (ctypes.c_int * len(variants))()
     threads, smem = ctypes.c_int(), ctypes.c_int()
-    fn = lib.megastep_team_occupancy
+    fn = getattr(lib, name + "_occupancy")
     fn.argtypes = [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     rc = fn(blocks, ctypes.byref(threads), ctypes.byref(smem))
     threads, smem = threads.value, smem.value
-    per_sm = dict(zip(("K4", "K4b", "K4c", "K4b-P"), blocks))
+    per_sm = dict(zip(variants, blocks))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     envs_per_block = threads // 32
     say(phase="team_occupancy",
-        kernel="megastep_team (K4, K4b, K4c, K4b-P)",
+        kernel=f"{name} ({', '.join(variants)})",
         threads_per_block=threads, envs_per_block=envs_per_block,
         static_shared_bytes_per_block=smem, multiprocessors=sms,
         blocks_per_sm=per_sm,
@@ -663,7 +717,7 @@ def team_occupancy(lib):
             for k, b in per_sm.items()}),
         ok=rc == 0 and min(per_sm.values()) > 0)
     if rc != 0:
-        raise SystemExit(f"megastep_team_occupancy failed: {rc}")
+        raise SystemExit(f"{name}_occupancy failed: {rc}")
 
 
 def agreement(phase, what, s_a, s_b, n, max_envs_beyond=0, why=None):
@@ -776,17 +830,20 @@ def main():
         megastep.library_spec(m, 32, 6),
         megastep.library_spec(m, 32, 6, team=True),
         contact.cache_spec(nv, P), contact.substep_spec(nv, P),
-        dynamics.library_spec(m.anc_dof_body, m.joint_body, m.cp_body)])
+        dynamics.library_spec(m.anc_dof_body, m.joint_body, m.cp_body),
+        entry_cache.library_spec(m)])
     for name in ("megastep", "megastep_team", "contact_cache",
-                 "contact_substep", "dynamics_substep"):
+                 "contact_substep", "dynamics_substep", "entry_cache"):
         b = _build.builds[name]
         say(phase="build", library=name, source=CSRC + name + ".cu",
             seconds=b["seconds"], cached=b["cached"], command=b["command"],
             ptxas=[ln.strip() for ln in b["log"].splitlines()
                    if "registers" in ln or "stack frame" in ln
                    or "Compiling entry" in ln][:48])
-    say(phase="build_all", sources=5, libraries=5, seconds=time.time() - t0)
-    team_occupancy(libs[1])
+    say(phase="build_all", sources=6, libraries=6, seconds=time.time() - t0)
+    team_occupancy(libs[1], "megastep_team", ("K4", "K4b", "K4c", "K4b-P"))
+    team_occupancy(libs[4], "dynamics_substep", ("K3", "K3b"))
+    team_occupancy(libs[5], "entry_cache", ("flat", "heightfield"))
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
@@ -866,8 +923,8 @@ def main():
     # ---- kernel timing, bounds, plain versions' times ---------------------
     # K4, K4b, K4c and K4b-P build their entry cache in the launch: the
     # kernel's time and its plain version's (eager build + plain step)
-    # include it; the eager build alone, which the control-step routes no
-    # longer make, is timed beside
+    # include it; the eager build alone, which no route on the card makes
+    # any more, is timed beside
     timed = {}
     t0 = time.time()
     engine.build_pallas_env_inputs(env.model, state.phys,
@@ -901,7 +958,14 @@ def main():
         lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
         dynamics.work_per_env(m.anc_dof_body, m.cp_body, iters), N,
         launch=dynamics_launch(k3, k3_kw),
-        threads_per_block=dynamics.KERNEL_THREADS)
+        threads_per_block=dynamics.KERNEL_THREADS,
+        max_abs_err_vs_plain=worst["dynamics_substep"])
+    timed["entry_cache"] = timing(
+        "entry_cache", *entry_cache_calls(env_sub, state),
+        entry_cache.work_per_env(m), N,
+        launch=entry_cache_launch(env_sub, state),
+        threads_per_block=megastep.TEAM_THREADS,
+        max_abs_err_vs_plain=worst["entry_cache"])
     D = cfg.control.decimation
     timed["control_step_p"] = timing(
         "control_step_p", lambda: megastep.control_step(*args_p, **kw_p),
@@ -953,6 +1017,12 @@ def main():
         N, launch=dynamics_launch(k3b, k3b_kw),
         threads_per_block=dynamics.KERNEL_THREADS,
         max_abs_err_vs_plain=worst["dynamics_substep_normals"])
+    timed["entry_cache_normals"] = timing(
+        "entry_cache_normals", *entry_cache_calls(env_rs, state_r),
+        entry_cache.work_per_env(m, flat=False), N,
+        launch=entry_cache_launch(env_rs, state_r),
+        threads_per_block=megastep.TEAM_THREADS,
+        max_abs_err_vs_plain=worst["entry_cache_normals"])
 
     # ---- small-input agreement: CUDA env (kernels) vs CPU env (plain) ----
     # the CPU env runs thousands of tiny ops: one intra-op thread
@@ -1021,8 +1091,8 @@ def main():
     sub_counts = check_rollout(
         "substep_route", env_sub, state_s, obs_s, ro_s, steps,
         time.time() - t0,
-        expect(contact_cache=steps, dynamics_substep=steps * D,
-               eager_cache_builds=steps), smi)
+        expect(entry_cache=steps, contact_cache=steps,
+               dynamics_substep=steps * D), smi)
 
     # ---- one control step by both routes from one state --------------------
     a = torch.randn((N, 12), generator=gen, device=DEV)
@@ -1075,8 +1145,8 @@ def main():
     # ---- PPO training iterations on both routes ----------------------------
     train_phase("control_step", env, gen, 1, expect(control_step=steps))
     train_phase("substep", env_sub, gen, 1,
-                expect(contact_cache=steps, dynamics_substep=steps * D,
-                       eager_cache_builds=steps))
+                expect(entry_cache=steps, contact_cache=steps,
+                       dynamics_substep=steps * D))
 
     # ---- exact mode on the control-step route: K5, no eager cache build ---
     state_e, obs_e = env_exact.reset(gen)
@@ -1102,8 +1172,24 @@ def main():
         "exact_route_agreement",
         "PhysicsState after one control step from one state and the same "
         "actions, exact mode: the control-step kernel (K5, cache rebuilt "
-        "in-kernel before every substep) vs the per-substep route (eager "
-        "cache + K1 and one K3 per substep)", s_k5, s_sx, N)
+        "in-kernel before every substep) vs the per-substep route (entry "
+        "cache, K1 and K3 per substep)", s_k5, s_sx, N)
+
+    # ---- the per-substep exact route: D x {entry cache, K1, K3} a step ----
+    state_sx, obs_sx = env_sub_exact.reset(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state_sx, obs_sx, ro_sx = rollout(env_sub_exact, policy, steps, gen,
+                                      state=state_sx, obs=obs_sx)
+    torch.cuda.synchronize()
+    check_rollout(
+        "substep_exact_route", env_sub_exact, state_sx, obs_sx, ro_sx, steps,
+        time.time() - t0,
+        expect(entry_cache=steps * D, contact_cache=steps * D,
+               dynamics_substep=steps * D), smi,
+        config="mob_train_cfg, sim.megastep=False, sim.reuse_matrices=False",
+        need_resets=False)
 
     # ---- P control on the control-step route: K4c ---------------------------
     state_p, obs_p = env_p.reset(gen)
@@ -1143,8 +1229,14 @@ def main():
     rough_sub_counts = rough_route(
         "rough_substep_route", "rough_train_cfg, sim.megastep=False", env_rs,
         policy, steps, gen,
-        expect(contact_cache=steps, dynamics_substep_normals=steps * D,
-               eager_cache_builds=steps), smi, engine.SUBSTEP_BLOCK)
+        expect(entry_cache_normals=steps, contact_cache=steps,
+               dynamics_substep_normals=steps * D), smi)
+    rough_route(
+        "rough_substep_exact_route",
+        "rough_train_cfg, sim.megastep=False, sim.reuse_matrices=False",
+        env_rsx, policy, steps, gen,
+        expect(entry_cache_normals=steps * D, contact_cache=steps * D,
+               dynamics_substep_normals=steps * D), smi)
     a = torch.randn((N, 12), generator=gen, device=DEV)
     s_xb, *_ = env_rx.step(
         state_r._replace(rng=make_generator(SEED + 5, DEV)), a)
@@ -1156,7 +1248,7 @@ def main():
         "PhysicsState after one control step from one rough_train_cfg state "
         "and the same actions, exact mode: D control-step launches of one "
         "substep each (K4b, cold, fresh cache and terrain samples) vs the "
-        "per-substep route (eager cache + K1 and one K3b per substep)",
+        "per-substep route (entry cache, K1 and K3b per substep)",
         s_xb, s_sxb, N, max_envs_beyond=N // 100,
         why="the two routes' torque models sum in other orders (1e-6 in a "
             "torque) and on rough ground a few envs sit where the solve "
@@ -1187,7 +1279,9 @@ def main():
         control_step_normals=rough_counts["control_step_normals"],
         control_step_normals_p=rough_p_counts["control_step_normals_p"],
         control_step_p=p_counts["control_step_p"],
-        control_step_exact=exact_counts["control_step_exact"])
+        control_step_exact=exact_counts["control_step_exact"],
+        entry_cache=sub_counts["entry_cache"],
+        entry_cache_normals=rough_sub_counts["entry_cache_normals"])
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel was never launched on its path: {launches}")
     rows = (
@@ -1202,11 +1296,20 @@ def main():
          "advance on cached J/W)", "contact_substep.cu",
          "/ops/pallas_contact.py:372"),
         ("dynamics_substep", "dynamics_substep (K3: unconstrained dynamics, "
-         "midpoint rule, then the contact solve, flat ground)",
-         "dynamics_substep.cu", "/ops/pallas_dynamics.py:139"),
+         "midpoint rule, then the contact solve, flat ground, one warp per "
+         "env)", "dynamics_substep.cu", "/ops/pallas_dynamics.py:139"),
         ("dynamics_substep_normals", "dynamics_substep with surface normals "
-         "(K3b: as K3 on a heightfield, general-normal contact rows)",
-         "dynamics_substep.cu", "/ops/pallas_dynamics.py:147"),
+         "(K3b: as K3 on a heightfield, general-normal contact rows, one "
+         "warp per env)", "dynamics_substep.cu",
+         "/ops/pallas_dynamics.py:147"),
+        ("entry_cache", "entry_cache (the per-substep route's entry cache: "
+         "FK, twist bases, inertia blocks, CRBA, M^-1, contact points, one "
+         "warp per env; ports plain array code, not a TPU kernel)",
+         "entry_cache.cu", "/physics/envminor.py:333"),
+        ("entry_cache_normals", "entry_cache on a heightfield (as "
+         "entry_cache, with the height and normal sampled under each "
+         "contact point; not a TPU kernel)", "entry_cache.cu",
+         "/physics/engine.py:645"),
         ("control_step_normals", "control_step with surface normals (K4b: "
          "whole control step on a heightfield, actuator net, warm start, "
          "general-normal contact rows, entry cache and heightfield samples "

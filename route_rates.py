@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Env-steps per second of the port's control-step routes on one NVIDIA GPU.
+"""Env-steps per second of the port's routes on one NVIDIA GPU.
 
     python3 route_rates.py
 
@@ -7,11 +7,14 @@ For each route, at 4000 envs: a seeded random policy rolls 24 control steps
 out (`learn/rollout.rollout`, the rollout of a PPO iteration) three times
 after one warm-up rollout (kernels built, caches warm), host clock around
 each rollout ending in a synchronise.  Routes: `flat` (`mob_train_cfg`, the
-default route), `p` (`small_train_cfg`, P control) and `rough_p`
-(`rough_train_cfg` with P control).  Prints one JSON line per route with
-every rollout's env-steps/s, the eager cache builds and control-step
-kernel launches of the timed rollouts, then the card's name and power
-limit, and as the last line the directory of the package it measured.
+default route), `p` (`small_train_cfg`, P control), `rough_p`
+(`rough_train_cfg` with P control), `substep` and `rough_substep` (the
+per-substep route, `sim.megastep=False`, of `mob_train_cfg` and
+`rough_train_cfg`).  Prints one JSON line per route with every rollout's
+env-steps/s, the eager cache builds and kernel launches of the timed
+rollouts (the launch counters the measured tree has), then the card's name
+and power limit, and as the last line the directory of the package it
+measured.
 
 It uses only entry points that every slice of the port has, so a copy of
 it runs against an older tree: put it at that tree's root and run it there
@@ -20,6 +23,7 @@ only within one machine's run, in turns (old, new, new, old).  Needs one
 CUDA device.
 """
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -39,24 +43,50 @@ from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
     mob_train_cfg, rough_train_cfg, small_train_cfg)
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
 from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
-from walk_these_ways_tpu_torch.ops import megastep  # noqa: E402
 from walk_these_ways_tpu_torch.physics import envminor  # noqa: E402
 
-COUNTERS = ("launches", "p_launches", "normal_launches", "p_normal_launches",
-            "exact_launches")
+# (ops module, its launch counters); a module or counter the measured tree
+# does not have is left out
+COUNTERS = (
+    ("megastep", ("launches", "p_launches", "normal_launches",
+                  "p_normal_launches", "exact_launches")),
+    ("contact", ("cache_launches",)),
+    ("dynamics", ("launches", "normal_launches")),
+    ("entry_cache", ("launches", "normal_launches")))
+ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep")
 N_ENVS, STEPS, REPS = 4000, 24, 3
 
 
+def counters():
+    """{"module.counter": value} of the launch counters this tree has."""
+    out = {}
+    for name, attrs in COUNTERS:
+        try:
+            mod = importlib.import_module("walk_these_ways_tpu_torch.ops."
+                                          + name)
+        except ImportError:
+            continue
+        out.update({f"{name}.{a}": getattr(mod, a) for a in attrs
+                    if hasattr(mod, a)})
+    return out
+
+
 def route_cfg(route, n):
-    if route == "flat":
-        return mob_train_cfg(n)
-    if route == "p":
-        return small_train_cfg(n)
-    if route == "rough_p":
+    if route in ("flat", "substep"):
+        cfg = mob_train_cfg(n)
+    elif route == "p":
+        cfg = small_train_cfg(n)
+    elif route in ("rough_p", "rough_substep"):
         cfg = rough_train_cfg(n)
-        return dataclasses.replace(cfg, control=dataclasses.replace(
+    else:
+        raise ValueError(f"unknown route {route!r}: one of {ROUTES}")
+    if route == "rough_p":
+        cfg = dataclasses.replace(cfg, control=dataclasses.replace(
             cfg.control, control_type="P"))
-    raise ValueError(f"unknown route {route!r}: flat, p or rough_p")
+    if route.endswith("substep"):
+        cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, megastep=False))
+    return cfg
 
 
 def measure(route, n, steps, reps, dev):
@@ -69,7 +99,7 @@ def measure(route, n, steps, reps, dev):
     state, obs, _ = rollout(env, policy, steps, gen, state=state, obs=obs)
     torch.cuda.synchronize()
     builds = envminor.cache_builds
-    launches = [getattr(megastep, c) for c in COUNTERS]
+    launches = counters()
     rates = []
     for _ in range(reps):
         t0 = time.time()
@@ -80,8 +110,8 @@ def measure(route, n, steps, reps, dev):
     return dict(
         route=route, n_envs=n, steps=steps, env_steps_per_s=rates,
         eager_cache_builds=envminor.cache_builds - builds,
-        kernel_launches={c: getattr(megastep, c) - b
-                         for c, b in zip(COUNTERS, launches)},
+        kernel_launches={c: v - launches[c] for c, v in counters().items()
+                         if v != launches[c]},
         finite=bool(torch.isfinite(state.phys.base_pos).all()))
 
 
@@ -89,7 +119,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    for route in ("flat", "p", "rough_p"):
+    for route in ROUTES:
         row = measure(route, N_ENVS, STEPS, REPS, dev)
         print(json.dumps(row), flush=True)
         if not row["finite"]:

@@ -14,7 +14,8 @@ from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv, make_generato
 from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
                                                   rough_train_cfg,
                                                   small_train_cfg)
-from walk_these_ways_tpu_torch.ops import contact, dynamics, megastep
+from walk_these_ways_tpu_torch.ops import (contact, dynamics, entry_cache,
+                                           megastep)
 from walk_these_ways_tpu_torch.physics import engine, envminor
 
 pytestmark = pytest.mark.gpu
@@ -180,6 +181,55 @@ def test_team_kernel_routes_make_no_eager_cache_build_on_the_card(cuda,
     assert getattr(megastep, counter) == before + 3 * per_step
     assert bool(torch.isfinite(obs["obs"]).all())
     assert bool(torch.isfinite(state.phys.base_pos).all())
+
+
+@pytest.mark.parametrize("route", ["flat", "rough", "flat_exact",
+                                   "rough_exact"])
+def test_substep_routes_make_no_eager_cache_build_on_the_card(cuda, route):
+    """The per-substep routes (`sim.megastep=False`), reuse and exact mode,
+    flat and rough: the entry-cache kernel builds the cache, no eager
+    build.  Per control step reuse mode launches the entry cache and K1
+    once and K3 (K3b) `decimation` times, exact mode `decimation` times
+    each; every output finite.  The entry-cache kernel matches the eager
+    build on every lane: |kernel - plain| <= 2e-4 + 2e-4 |plain|."""
+    n = 250                          # 6 padded lanes
+    rough = route.startswith("rough")
+    exact = route.endswith("exact")
+    cfg = (rough_train_cfg if rough else mob_train_cfg)(n)
+    cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, megastep=False, reuse_matrices=not exact))
+    env = LeggedRobotEnv(cfg, device=cuda)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    counters = ((entry_cache, "normal_launches" if rough else "launches"),
+                (contact, "cache_launches"),
+                (dynamics, "normal_launches" if rough else "launches"),
+                (entry_cache, "launches" if rough else "normal_launches"),
+                (dynamics, "launches" if rough else "normal_launches"),
+                (megastep, "launches"), (megastep, "normal_launches"))
+    builds = envminor.cache_builds
+    before = [getattr(mod, c) for mod, c in counters]
+    steps, D = 3, env.cfg.control.decimation
+    for _ in range(steps):
+        state, obs, rew, *_ = env.step(state, torch.randn(
+            (n, 12), generator=gen, device=cuda))
+    torch.cuda.synchronize()
+    assert envminor.cache_builds == builds
+    per_step = D if exact else 1
+    assert [getattr(mod, c) - b for (mod, c), b in zip(counters, before)] \
+        == [steps * per_step, steps * per_step, steps * D, 0, 0, 0, 0]
+    assert bool(torch.isfinite(obs["obs"]).all())
+    assert bool(torch.isfinite(state.phys.base_pos).all())
+    dyn = env.dynamics_params(state)[1]
+    em, rh_t, n_t = entry_cache.entry_cache(env.model, state.phys, dyn,
+                                            env.terrain, engine.SUBSTEP_BLOCK)
+    p_em, p_rh, _, _, _, p_n = engine.build_pallas_env_inputs(
+        env.model, state.phys, dyn, env.terrain, engine.SUBSTEP_BLOCK)
+    assert envminor.cache_builds == builds + 1
+    assert (n_t is not None) == (p_n is not None) == rough
+    pairs = list(zip(em, p_em)) + ([(rh_t, p_rh), (n_t, p_n)] if rough
+                                   else [])
+    _close(*zip(*pairs))
 
 
 @pytest.mark.parametrize("variant", ["P", "exact", "P_exact"])

@@ -1,20 +1,25 @@
-"""The control-step and dynamics-substep kernels' sources, built for the host
-CPU, against their plain versions.
+"""The control-step, dynamics-substep and entry-cache kernels' sources,
+built for the host CPU, against their plain versions.
 
-`csrc/megastep.cu`, `csrc/megastep_team.cu` and `csrc/dynamics_substep.cu`
-are compiled with g++ against a stand-in for `cuda_runtime.h` (`__device__`
-and `__global__` empty, `__ldg(p)` = `*p`, `__shared__` = `static`; a
-one-thread-per-env kernel's `<<<blocks, threads>>>` launch is a loop over
-the grid, the team kernel's runs each block's threads as `std::thread`s
-that meet at one barrier per warp for each `__syncwarp`, the blocks one
-after another), loaded with ctypes and called through the port's own
-operand packing (`ops/megastep.kernel_operands`,
-`ops/dynamics.kernel_operands`) on CPU tensors.  K4, K4b, K4c and K4b-P
+`csrc/megastep.cu`, `csrc/megastep_team.cu`, `csrc/dynamics_substep.cu` and
+`csrc/entry_cache.cu` are compiled with g++ against a stand-in for
+`cuda_runtime.h` (`__device__` and `__global__` empty, `__ldg(p)` = `*p`,
+`__shared__` = `static`; the one-thread-per-env kernel's (K5's)
+`<<<blocks, threads>>>` launch is a loop over the grid, a warp-per-env
+kernel's runs each block's threads as `std::thread`s that meet at one
+barrier per warp for each `__syncwarp` and at one per block for each
+`__syncthreads`, the blocks one after another), loaded with ctypes and
+called through the port's own operand packing
+(`ops/megastep.kernel_operands`, `ops/dynamics.kernel_operands`,
+`ops/entry_cache.kernel_operands`) on CPU tensors.  K4, K4b, K4c and K4b-P
 (the team kernel: entry cache and heightfield samples in the launch)
 against `control_step_reference` fed the eager build of the same state; K5
-(either torque model) against `control_step_reference`, and K3 and K3b
-against `dynamics_substep_reference`, after a reset and after some random
-control steps, with the tolerance `chip_smoke.py` holds the card to:
+(either torque model) against `control_step_reference`; K3 and K3b against
+`dynamics_substep_reference`; the per-substep route's entry-cache launch,
+flat and on a heightfield, against the eager build
+(`engine.build_pallas_env_inputs`), every lane; after a reset and after
+some random control steps, with the tolerance `chip_smoke.py` holds the
+card to:
 |kernel - plain| <= 2e-4 + 2e-4 |plain|.  The rough cases stand on the 2 x 2
 rough-slope tiles of tests/test_torch_terrain.py.
 
@@ -48,6 +53,7 @@ from walk_these_ways_tpu_torch.envs import go1_env as t_env
 from walk_these_ways_tpu_torch.ops import _build
 from walk_these_ways_tpu_torch.ops import contact as t_pc
 from walk_these_ways_tpu_torch.ops import dynamics as t_pd
+from walk_these_ways_tpu_torch.ops import entry_cache as t_ec
 from walk_these_ways_tpu_torch.ops import megastep as t_pm
 from walk_these_ways_tpu_torch.physics import engine
 
@@ -56,6 +62,7 @@ N, STEPS = 16, 12
 ATOL, RTOL = 2e-4, 2e-4
 OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
              "lam", "tau", "el", "ell", "vl", "vll")
+ENTRY_NAMES = ("Sw", "Sv", "A", "B", "m", "Minv", "r", "p_cp", "rh", "n")
 
 CUDA_RUNTIME_STAND_IN = r"""
 #pragma once
@@ -125,16 +132,19 @@ class wtw_barrier {
   }
 };
 static thread_local wtw_barrier* wtw_warp = nullptr;
+static thread_local wtw_barrier* wtw_block = nullptr;
 inline void __syncwarp(unsigned = 0xffffffffu) { wtw_warp->wait(); }
-// a team kernel: each block's threads as std::threads, one barrier per
-// warp; the blocks one after another, so a __shared__ (static) array is
-// the running block's
+inline void __syncthreads() { wtw_block->wait(); }
+// a warp-per-env kernel: each block's threads as std::threads, one barrier
+// per warp and one for the block; the blocks one after another, so a
+// __shared__ (static) array is the running block's
 template <class F>
 void wtw_host_launch_threads(int blocks, int threads, F kernel) {
   for (int b = 0; b < blocks; ++b) {
     std::vector<std::unique_ptr<wtw_barrier>> warps;
     for (int w = 0; w * 32 < threads; ++w)
       warps.emplace_back(new wtw_barrier(std::min(32, threads - 32 * w)));
+    wtw_barrier block(threads);
     std::vector<std::thread> team;
     for (int t = 0; t < threads; ++t)
       team.emplace_back([&, b, t] {
@@ -142,6 +152,7 @@ void wtw_host_launch_threads(int blocks, int threads, F kernel) {
         threadIdx.x = t;
         blockDim.x = threads;
         wtw_warp = warps[t / 32].get();
+        wtw_block = &block;
         kernel();
       });
     for (auto& th : team) th.join();
@@ -151,17 +162,18 @@ void wtw_host_launch_threads(int blocks, int threads, F kernel) {
 
 
 def build_host_library(model, out_dir, name="megastep"):
-    """csrc/<name>.cu (megastep, megastep_team or dynamics_substep) for the
-    host, with the header the card's build gets; returns the bound ctypes
-    library.  The team kernel's lanes run as threads (the stand-in's
+    """csrc/<name>.cu (megastep, megastep_team, dynamics_substep or
+    entry_cache) for the host, with the header the card's build gets;
+    returns the bound ctypes library.  The lanes of the warp-per-env kernels
+    (all but K5's) run as threads (the stand-in's
     wtw_host_launch_threads)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
     with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as fh:
         src = fh.read()
-    launcher = ("wtw_host_launch_threads" if name == "megastep_team"
-                else "wtw_host_launch")
+    launcher = ("wtw_host_launch" if name == "megastep"
+                else "wtw_host_launch_threads")
     src, n = re.subn(rf"({name}_kernel<[\w, ]+>)<<<(\w+), (\w+), 0, \w+>>>"
                      r"\((\w+)\);",
                      launcher + r"(\2, \3, [&] { \1(\4); });", src)
@@ -173,11 +185,14 @@ def build_host_library(model, out_dir, name="megastep"):
         assert n == 4, "expected the launches of K4, K4b, K4c and K4b-P"
         header = t_pm.topology_header(model, 32, 6)
         counts = t_pm.library_spec(model, team=True)[2]
-    else:
+    elif name == "dynamics_substep":
         assert n == 2, "expected the launches of K3 and K3b"
-        header = t_pd.library_spec(model.anc_dof_body, model.joint_body,
-                                   model.cp_body)[1]
-        counts = (17, 3, 7)
+        header, counts = t_pd.library_spec(model.anc_dof_body,
+                                           model.joint_body,
+                                           model.cp_body)[1:]
+    else:
+        assert n == 2, "expected the flat and the heightfield launches"
+        header, counts = t_ec.library_spec(model)[1:]
     for fname, text in (("cuda_runtime.h", CUDA_RUNTIME_STAND_IN),
                         (_build.HEADER_NAME, header),
                         (name + "_host.cpp", src)):
@@ -212,6 +227,27 @@ def host_dynamics_substep(lib, args, kwargs):
     ptrs, outs, floats, ints = t_pd.kernel_operands(*args, **kw)
     _build.launch(lib, "dynamics_substep", ptrs, outs, floats, ints, 0)
     return outs
+
+
+def host_entry_cache(lib, model, state, dyn, terrain):
+    """The kernel's outputs for one `entry_cache` call on CPU tensors, at
+    the per-substep route's block: Sw, Sv, A, B, m, M^-1, r, p_cp and, on a
+    heightfield, rh and n."""
+    ptrs, outs, floats, ints, _ = t_ec.kernel_operands(
+        model, state, dyn, terrain, engine.SUBSTEP_BLOCK)
+    _build.launch(lib, "entry_cache", ptrs, outs, floats, ints, 0)
+    return tuple(o for o in outs if o is not None)
+
+
+def eager_entry_cache(model, state, dyn, terrain):
+    """The same outputs from the entry cache's plain version, the eager
+    build (`engine.build_pallas_env_inputs`); rh and n on a heightfield
+    only."""
+    em, rh_t, _, _, _, n_t = engine.build_pallas_env_inputs(
+        model, state, dyn, terrain, engine.SUBSTEP_BLOCK)
+    out = (em.Sw_t, em.Sv_t, em.A_t, em.B_t, em.m_t, em.Minv_t, em.r_t,
+           em.p_cp_t)
+    return out if n_t is None else out + (rh_t, n_t)
 
 
 def rough(cfg):
@@ -282,8 +318,8 @@ def substep_call(env, state):
 
 
 def errors(out_k, out_r, n, names=OUT_NAMES):
-    """Per output: largest |kernel - plain| over the valid envs, and the
-    count of elements beyond the tolerance."""
+    """Per output: largest |kernel - plain| over the first `n` envs (every
+    env with n None), and the count of elements beyond the tolerance."""
     res = {}
     for nm, a, b in zip(names, out_k, out_r):
         a, b = a[..., :n], b[..., :n]
@@ -299,7 +335,8 @@ def cases(n, steps, seed=0):
     build their entry cache (and sample the heightfield) in the kernel;
     their plain version is fed the eager build of the same state.  The
     states of K4 and K4b also give the dynamics-substep kernel's cases, K3
-    (flat) and K3b (rough)."""
+    (flat) and K3b (rough), and the entry-cache launch's (the state, the
+    randomised dynamics and the terrain)."""
     out = []
     for variant, cfg in configs(n).items():
         env = t_env.LeggedRobotEnv(cfg, device="cpu")
@@ -317,15 +354,22 @@ def cases(n, steps, seed=0):
                 call = substep_call(env, state)
                 out.append(({"K4": "K3", "K4b": "K3b"}[variant], st_name,
                             *call, call))
+                entry = (env.model, state.phys, env.dynamics_params(state)[1],
+                         env.terrain)
+                out.append(({"K4": "entry_cache",
+                             "K4b": "entry_cache_rough"}[variant], st_name,
+                            entry, None, None))
     return out
+
+
+LIBRARIES = ("megastep", "megastep_team", "dynamics_substep", "entry_cache")
 
 
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu").model
     d = str(tmp_path_factory.mktemp("host"))
-    libs = {name: build_host_library(model, d, name)
-            for name in ("megastep", "megastep_team", "dynamics_substep")}
+    libs = {name: build_host_library(model, d, name) for name in LIBRARIES}
     return libs, cases(N, STEPS)
 
 
@@ -333,9 +377,10 @@ def host(tmp_path_factory):
                                      "K4b_P"])
 def test_host_build_of_the_kernel_matches_its_plain_version(host, variant):
     libs, all_cases = host
-    for v, state_name, args, kwargs, (p_args, p_kwargs) in all_cases:
+    for v, state_name, args, kwargs, plain in all_cases:
         if v != variant:
             continue
+        p_args, p_kwargs = plain
         # on a heightfield: the normals, or the terrain the kernel samples
         entry = kwargs["entry_inputs"]
         assert (p_args[5] is not None) == variant.startswith("K4b")
@@ -355,12 +400,29 @@ def test_host_build_of_the_kernel_matches_its_plain_version(host, variant):
             assert float(out_r[8][..., :N].abs().max()) > 0  # contacts
 
 
-@pytest.mark.parametrize("variant", ["K3", "K3b"])
+@pytest.mark.parametrize("variant", ["K3", "K3b", "entry_cache",
+                                     "entry_cache_rough"])
 def test_host_build_of_the_dynamics_substep_kernel_matches_its_plain_version(
         host, variant):
+    """K3 and K3b against `dynamics_substep_reference`; the per-substep
+    route's entry-cache launch, which feeds them on the card, flat and on a
+    heightfield, against the eager build on every lane (the padded ones
+    hold its zeros and +z normals)."""
     libs, all_cases = host
     for v, state_name, args, kwargs, _ in all_cases:
         if v != variant:
+            continue
+        if variant.startswith("entry_cache"):
+            # off the card the wrapper raises: the eager build serves the CPU
+            with pytest.raises(ValueError, match="unsupported device"):
+                t_ec.entry_cache(*args, engine.SUBSTEP_BLOCK)
+            out_k = host_entry_cache(libs["entry_cache"], *args)
+            out_r = eager_entry_cache(*args)
+            assert len(out_k) == len(out_r) == (
+                10 if variant.endswith("rough") else 8)
+            for nm, (max_abs, beyond) in errors(out_k, out_r, None,
+                                                ENTRY_NAMES).items():
+                assert beyond == 0, (state_name, nm, max_abs)
             continue
         assert (args[16] is not None) == (variant == "K3b")      # n_t
         out_k = host_dynamics_substep(libs["dynamics_substep"], args, kwargs)
@@ -397,10 +459,18 @@ def main(argv):
         model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4),
                                      device="cpu").model
         libs = {name: build_host_library(model, d, name)
-                for name in ("megastep", "megastep_team",
-                             "dynamics_substep")}
-        for variant, state_name, args, kwargs, (p_args, p_kwargs) in cases(
-                n, 24):
+                for name in LIBRARIES}
+        for variant, state_name, args, kwargs, plain in cases(n, 24):
+            if variant.startswith("entry_cache"):
+                errs = errors(host_entry_cache(libs["entry_cache"], *args),
+                              eager_entry_cache(*args), None, ENTRY_NAMES)
+                print(json.dumps(dict(
+                    variant=variant, state=state_name, n_envs=n,
+                    max_abs_err=max(e[0] for e in errs.values()),
+                    beyond_tol=sum(e[1] for e in errs.values()))),
+                    flush=True)
+                continue
+            p_args, p_kwargs = plain
             if variant.startswith("K3"):
                 def run(a, pa):
                     return (host_dynamics_substep(

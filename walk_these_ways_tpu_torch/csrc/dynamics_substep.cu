@@ -1,5 +1,6 @@
-// Full cached physics substep for Hopper (sm_90a): unconstrained dynamics
-// with the midpoint rule, then the contact pipeline, in one launch.
+// Full cached physics substep for Hopper (sm_90a), one warp per env:
+// unconstrained dynamics with the midpoint rule, then the contact solve and
+// the point advance, in one launch.
 //
 // Replaces: the JAX package's ops/pallas_dynamics.py::_dyn_substep_kernel
 // (the TPU kernel reached through dynamics_substep_pallas; bodies dyn_core
@@ -12,32 +13,48 @@
 //   qdd1    = dyn(gv)                 body twists over the static ancestor
 //   qdd     = dyn(gv + dt/2 qdd1)     mask, RNEA bias in 3x3 block form,
 //   gv_free = gv + dt qdd             M^-1 (tau - bias) + centripetal rows
-//   then, with contact on, the contact solve and point advance of
-//   wtw_contact.cuh on gv_free (K3b: with the normals); with contact off
+//   then, with contact on, gaps and velocity targets from gv_free,
+//   `num_iters` row-decoupled projected-Jacobi sweeps on the total impulse
+//   from a cold start (the friction cone saturating exactly; K3b: the
+//   general-normal rows), gv += M^-1 J^T dlam after each sweep, and the
+//   contact points advanced with the clamped velocities; with contact off
 //   gv_free, the points unchanged and zero impulses.
 //
-// Design for this card.  One thread owns one env and runs the whole scalar
-// program; operands are env-minor, so a warp's load is one coalesced line.
-// The twist bases (2 x nv x 3 floats) are loaded once into thread-local
-// memory for both dynamics evaluations; M^-1 and the inertia blocks stay in
-// global memory and are re-read through the read-only path.  The point
-// Jacobian is an input (built by the contact-cache kernel) and is read from
-// global memory once per sweep; the robot's static topology from the
-// generated header lets a point read only the six base columns and its own
-// leg's columns (9 of 18 for a leg point, 6 for a trunk point).
+// Design for this card.  The one-thread-per-env kernel ran about one warp
+// per SM at 4096 envs and re-read each point's Jacobian from global memory
+// in every sweep: it waited on latency, about 150 times above its bound.
+// Here an env is a team of 32 lanes (one warp, csrc/wtw_team.cuh),
+// TEAM_ENVS envs per block:
+//   - staging: the block loads its envs' Sw, Sv, A, B, m, M^-1, g, tau and
+//     gv into their TeamEnv in shared memory a row at a time, TEAM_ENVS
+//     neighbouring threads reading one row's neighbouring floats (one
+//     32-byte sector; a lane-strided read of env-minor rows would touch a
+//     sector for every float);
+//   - dynamics: team_dynamics twice, wtw_device.cuh dyn_core's statements
+//     over the body, joint and dof lanes;
+//   - contact points: lane p (28 of 32) owns point p and keeps in registers
+//     its nonzero Jacobian columns (the six base columns and its leg's,
+//     MS_PT_LO / MS_PT_N: 27 floats for a leg point, 18 for a trunk point,
+//     read once), its W entries (flat: W00, W01, W11, W22; K3b all nine and
+//     its normal), its gap, target and impulse.  In each sweep it forms
+//     J_p gv from the velocity in shared memory, runs its own row update
+//     (the solve is row-decoupled) and writes J_p^T dlam_p into shared
+//     memory; team_apply_impulses sums each dof's slot over the points on
+//     the dof lanes and applies M^-1 there.
+// Every sum keeps the order of the one-thread kernel's statements
+// (wtw_contact.cuh contact_core_dev with the point->dof sparsity, and
+// dyn_core), which the plain version ops/dynamics.dynamics_substep_reference
+// follows, lazy apply after each sweep included: the kernel takes the
+// plain version's solver branches.  Lanes meet only at __syncwarp, the
+// block once after staging.
 //
-// Bound on this card: about 11 KB per env moved (J is most of it; K3b adds
-// the normals and W's five other entries) against about 0.08 MFLOP (K3b:
-// about 0.1), so the least time is set by bytes.  K3b reads a point's
-// normal and its nine W entries from global memory in every sweep rather
-// than holding them per thread.  One thread per env
-// is about one warp per SM at 4096 envs: as written the kernel waits on
-// instruction and load latency, far above that least time; measured numbers
-// are kept in PERF.md.
+// Bound on this card (ops/dynamics.work_per_env): about 7.2 KB per env
+// moved, J's nonzero columns and M^-1 most of it (K3b 8.1 KB: the normals
+// and W's other five entries), against about 0.08 MFLOP (K3b: 0.11), so
+// the least time is set by bytes.  The measured numbers are kept in PERF.md.
 #include <cuda_runtime.h>
 #include "wtw_topology.h"
-#include "wtw_device.cuh"
-#include "wtw_contact.cuh"
+#include "wtw_team.cuh"
 
 enum InIdx { I_SW = 0, I_SV, I_A, I_B, I_M, I_MINV, I_G, I_TAU, I_GV, I_J,
              I_W, I_PCP, I_RH, I_MU, I_E, I_VLIM, I_N, N_IN };
@@ -48,58 +65,176 @@ enum FIdx { F_DT = 0, F_RELAX, F_BAUM_DT, F_SLOP, F_MAXDEPEN, F_BOUNCE,
 struct DynSubstepArgs {
   const float* in[N_IN];
   float* out[N_OUT];
-  ContactParams c;
-  float half_dt;
-  int npad, contact;
+  float f[N_F];
+  int npad, num_iters, contact;
 };
 
-template <bool NORMALS>
-__global__ void __launch_bounds__(128)
-dynamics_substep_kernel(const DynSubstepArgs a) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= a.npad) return;          // ragged edge of the last block
-  const size_t npad = (size_t)a.npad;
-#define LD(idx, row) __ldg(a.in[idx] + (size_t)(row) * npad + env)
+// Rows [0, rows) of the env-minor operand `src` into the block's envs, at
+// field(env's TeamEnv): thread t loads row t / TEAM_ENVS of env
+// t % TEAM_ENVS, so that TEAM_ENVS neighbouring threads read one row's
+// neighbouring floats.
+template <class Field>
+__device__ __forceinline__ void stage_rows(TeamEnv* envs,
+                                           const float* __restrict__ src,
+                                           int rows, size_t npad, int env0,
+                                           Field field) {
+  for (int k = threadIdx.x; k < rows * TEAM_ENVS; k += TEAM * TEAM_ENVS) {
+    const int row = k / TEAM_ENVS, e = k % TEAM_ENVS;
+    field(envs[e])[row] = __ldg(src + (size_t)row * npad + env0 + e);
+  }
+}
 
-  float sw[NV][3], sv[NV][3];
-#pragma unroll 1
-  for (int d = 0; d < NV; ++d)
+// v = J_p x over the point's nd dofs (local column k: dof k for k < 6, dof
+// lo + k - 6 after), summed as wtw_contact.cuh jp_dot sums
+__device__ __forceinline__ void point_dot(const float (*Jp)[6 + GM], int nd,
+                                          int lo, const float* x, float* v) {
+  float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      sw[d][i] = LD(I_SW, d * 3 + i);
-      sv[d][i] = LD(I_SV, d * 3 + i);
-    }
-  float tau[NV], gv[NV], qdd[NV], gvm[NV], g[3];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) { tau[v] = LD(I_TAU, v); gv[v] = LD(I_GV, v); }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) g[i] = LD(I_G, i);
-
-  // unconstrained dynamics, midpoint rule on the velocity-product terms
-  const EnvRows rA{a.in[I_A], npad, env}, rB{a.in[I_B], npad, env},
-      rM{a.in[I_M], npad, env}, rMinv{a.in[I_MINV], npad, env};
-  dyn_core(sw, sv, rA, rB, rM, rMinv, g, tau, gv, qdd);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) gvm[v] = gv[v] + a.half_dt * qdd[v];
-  dyn_core(sw, sv, rA, rB, rM, rMinv, g, tau, gvm, qdd);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) gv[v] = gv[v] + a.c.dt * qdd[v];   // gv_free
-
-  if (a.contact) {
-    contact_core_dev<true, NORMALS>(
-        a.in[I_J], a.in[I_W], a.in[I_MINV], a.in[I_PCP], a.in[I_RH],
-        a.in[I_VLIM], a.in[I_N], LD(I_MU, 0), LD(I_E, 0), a.c, gv,
-        a.out[O_PCP], a.out[O_LAM], npad, env);
-  } else {
-#pragma unroll 1
-    for (int k = 0; k < NP * 3; ++k) {
-      a.out[O_PCP][(size_t)k * npad + env] = LD(I_PCP, k);
-      a.out[O_LAM][(size_t)k * npad + env] = 0.0f;
+  for (int k = 0; k < 6 + GM; ++k) {
+    if (k < nd) {
+      const float s = x[k < 6 ? k : lo + k - 6];
+      v0 += Jp[0][k] * s; v1 += Jp[1][k] * s; v2 += Jp[2][k] * s;
     }
   }
+  v[0] = v0; v[1] = v1; v[2] = v2;
+}
+
+template <bool NORMALS>
+__global__ void __launch_bounds__(TEAM * TEAM_ENVS, TEAM_MIN_BLOCKS)
+dynamics_substep_kernel(const DynSubstepArgs a) {
+  __shared__ TeamEnv team_envs[TEAM_ENVS];
+  const int lane = threadIdx.x % TEAM;
+  TeamEnv& s = team_envs[threadIdx.x / TEAM];
+  // the grid covers npad exactly (the launcher checks that TEAM_ENVS
+  // divides it): every warp is one env, and all its lanes reach every
+  // __syncwarp
+  const int env0 = blockIdx.x * TEAM_ENVS;
+  const int env = env0 + threadIdx.x / TEAM;
+  const size_t npad = (size_t)a.npad;
+#define LD(idx, row) __ldg(a.in[idx] + (size_t)(row) * npad + env)
+#define ST(idx, row, val) a.out[idx][(size_t)(row) * npad + env] = (val)
+
+  // ---- the block's envs into shared memory, a row at a time ----
+  stage_rows(team_envs, a.in[I_SW], NV * 3, npad, env0,
+             [](TeamEnv& e) { return &e.sw[0][0]; });
+  stage_rows(team_envs, a.in[I_SV], NV * 3, npad, env0,
+             [](TeamEnv& e) { return &e.sv[0][0]; });
+  stage_rows(team_envs, a.in[I_A], NB * 9, npad, env0,
+             [](TeamEnv& e) { return e.A; });
+  stage_rows(team_envs, a.in[I_B], NB * 9, npad, env0,
+             [](TeamEnv& e) { return e.B; });
+  stage_rows(team_envs, a.in[I_M], NB, npad, env0,
+             [](TeamEnv& e) { return e.m; });
+  stage_rows(team_envs, a.in[I_MINV], NV * NV, npad, env0,
+             [](TeamEnv& e) { return e.Minv; });
+  stage_rows(team_envs, a.in[I_G], 3, npad, env0,
+             [](TeamEnv& e) { return e.g; });
+  stage_rows(team_envs, a.in[I_TAU], NV, npad, env0,
+             [](TeamEnv& e) { return e.tau; });
+  stage_rows(team_envs, a.in[I_GV], NV, npad, env0,
+             [](TeamEnv& e) { return e.gv0; });
+  __syncthreads();
+
+  // ---- unconstrained dynamics, midpoint rule ----
+  const float dt = a.f[F_DT], relax = a.f[F_RELAX];
+  const LaneMasks mk = lane_masks(lane);
+  team_dynamics(s, s.gv0, mk, lane);
+  if (lane < NV) s.gv[lane] = s.gv0[lane] + a.f[F_HALFDT] * s.qdd[lane];
+  __syncwarp();
+  team_dynamics(s, s.gv, mk, lane);
+  if (lane < NV) s.gv[lane] = s.gv0[lane] + dt * s.qdd[lane];   // gv_free
+  __syncwarp();
+
+  // ---- the contact points: lane p owns point p ----
+  const bool is_point = lane < NP;
+  const int p = lane;
+  const int lo = is_point ? MS_PT_LO[p] : 0;
+  const int nd = 6 + (is_point ? MS_PT_N[p] : 0);
+  if (a.contact) {
+    const float mu = LD(I_MU, 0), rest = LD(I_E, 0);
+    float Jp[3][6 + GM], W9[9], nrm[3] = {0.0f, 0.0f, 1.0f};
+    float lam[3] = {0.0f, 0.0f, 0.0f};
+    float target = 0.0f, active = 0.0f, inv_wnn = 0.0f;
+    if (is_point) {
 #pragma unroll
-  for (int v = 0; v < NV; ++v) a.out[O_GV][(size_t)v * npad + env] = gv[v];
+      for (int k = 0; k < 6 + GM; ++k) {
+        const int d = k < 6 ? k : lo + k - 6;
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          Jp[i][k] = k < nd ? LD(I_J, (p * 3 + i) * NV + d) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        W9[k] = (NORMALS || k == 0 || k == 1 || k == 4 || k == 8)
+                    ? LD(I_W, p * 9 + k) : 0.0f;
+      if constexpr (NORMALS) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) nrm[i] = LD(I_N, p * 3 + i);
+      }
+      // gap and velocity target from the free velocity
+      const float phi = LD(I_RH, p) - LD(I_PCP, p * 3 + 2);
+      active = phi > 0.0f ? 1.0f : 0.0f;
+      float v0[3];
+      point_dot(Jp, nd, lo, s.gv, v0);
+      float vn0 = v0[2];
+      if constexpr (NORMALS)
+        vn0 = nrm[0] * v0[0] + nrm[1] * v0[1] + nrm[2] * v0[2];
+      const float bounce = vn0 < -a.f[F_BOUNCE] ? -rest * vn0 : 0.0f;
+      const float bias = fminf(
+          a.f[F_BAUM_DT] * fmaxf(phi - a.f[F_SLOP], 0.0f), a.f[F_MAXDEPEN]);
+      target = fmaxf(bounce, bias);
+      if constexpr (NORMALS)
+        inv_wnn = relax / quad3(W9, nrm);
+      else
+        inv_wnn = relax / W9[8];
+    }
+    // cold sweeps; the impulse of a sweep applied after it (lazy apply)
+#pragma unroll 1
+    for (int it = 0; it < a.num_iters; ++it) {
+      if (is_point) {
+        float v[3], l[3];
+        point_dot(Jp, nd, lo, s.gv, v);
+        if constexpr (NORMALS) {
+          l[0] = lam[0]; l[1] = lam[1]; l[2] = lam[2];
+          normal_row_update(v, nrm, W9, target, inv_wnn, relax, mu, active,
+                            l);
+        } else {
+          flat_row_update(v, W9[0], W9[1], W9[4], target, inv_wnn, relax,
+                          mu, active, lam, l);
+        }
+        const float dl[3] = {l[0] - lam[0], l[1] - lam[1], l[2] - lam[2]};
+        lam[0] = l[0]; lam[1] = l[1]; lam[2] = l[2];
+        float* row = s.u.jt[p];       // J_p^T dlam_p over the point's dofs
+#pragma unroll
+        for (int k = 0; k < 6 + GM; ++k)
+          if (k < nd)
+            row[k] = Jp[0][k] * dl[0] + Jp[1][k] * dl[1] + Jp[2][k] * dl[2];
+      }
+      __syncwarp();
+      team_apply_impulses(s, lane);
+    }
+    // advance the points with the clamped velocities
+    if (lane < NV) s.x[lane] = clampf(s.gv[lane], __ldg(a.in[I_VLIM] + lane));
+    __syncwarp();
+    if (is_point) {
+      float v[3];
+      point_dot(Jp, nd, lo, s.x, v);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        ST(O_PCP, p * 3 + i, LD(I_PCP, p * 3 + i) + dt * v[i]);
+        ST(O_LAM, p * 3 + i, lam[i]);
+      }
+    }
+  } else if (is_point) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ST(O_PCP, p * 3 + i, LD(I_PCP, p * 3 + i));
+      ST(O_LAM, p * 3 + i, 0.0f);
+    }
+  }
+  if (lane < NV) ST(O_GV, lane, s.gv[lane]);
 #undef LD
+#undef ST
 }
 
 // Plain C interface for ctypes.  `in` = {Sw, Sv (nv, 3, npad), A, B (nb, 9,
@@ -107,8 +242,9 @@ dynamics_substep_kernel(const DynSubstepArgs a) {
 // J (P, 3, nv, npad), W (P, 9, npad), p_cp (P, 3, npad), rh (P, npad),
 // mu, e (1, npad), vlim (nv, 1), n (P, 3, npad) or null on flat ground},
 // `out` = {gv (nv, npad), p_cp, lam (P, 3, npad)}, `f` the FIdx scalars,
-// `ip` = {npad, num_iters, contact, threads per block, normals}.  Launches
-// on `stream`, does not synchronise, returns the launch's cudaError_t (0 =
+// `ip` = {npad, num_iters, contact, threads per block, normals}.  `threads`
+// must be TEAM * TEAM_ENVS and npad a multiple of TEAM_ENVS.  Launches on
+// `stream`, does not synchronise, returns the launch's cudaError_t (0 =
 // launched).
 extern "C" int dynamics_substep_launch(const void* const* in,
                                        void* const* out, const float* f,
@@ -116,16 +252,13 @@ extern "C" int dynamics_substep_launch(const void* const* in,
   DynSubstepArgs a;
   for (int i = 0; i < N_IN; ++i) a.in[i] = static_cast<const float*>(in[i]);
   for (int i = 0; i < N_OUT; ++i) a.out[i] = static_cast<float*>(out[i]);
-  a.c.dt = f[F_DT]; a.c.relax = f[F_RELAX]; a.c.baum_dt = f[F_BAUM_DT];
-  a.c.slop = f[F_SLOP]; a.c.max_depen = f[F_MAXDEPEN];
-  a.c.bounce = f[F_BOUNCE];
-  a.half_dt = f[F_HALFDT];
-  a.npad = ip[0]; a.c.num_iters = ip[1]; a.contact = ip[2];
+  for (int i = 0; i < N_F; ++i) a.f[i] = f[i];
+  a.npad = ip[0]; a.num_iters = ip[1]; a.contact = ip[2];
   const int threads = ip[3], normals = ip[4];
-  if (threads < 1 || threads > 128 || a.npad < 1 || a.c.num_iters < 0
-      || (normals && a.in[I_N] == nullptr))
+  if (threads != TEAM * TEAM_ENVS || a.npad < 1 || a.npad % TEAM_ENVS
+      || a.num_iters < 0 || (normals && a.in[I_N] == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (a.npad + threads - 1) / threads;
+  const int blocks = a.npad / TEAM_ENVS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (normals)
     dynamics_substep_kernel<true><<<blocks, threads, 0, st>>>(a);
@@ -141,4 +274,19 @@ extern "C" const char* dynamics_substep_error_string(int code) {
 extern "C" int dynamics_substep_counts(int* n_in, int* n_out, int* n_f) {
   *n_in = N_IN; *n_out = N_OUT; *n_f = N_F;
   return 0;
+}
+
+// Resident blocks per SM of the two instantiations, into blocks[0..1] in
+// the order K3, K3b, and the threads and static shared memory per block;
+// returns the cudaError_t.
+extern "C" int dynamics_substep_occupancy(int* blocks, int* threads,
+                                          int* smem_bytes) {
+  *threads = TEAM * TEAM_ENVS;
+  *smem_bytes = (int)(sizeof(TeamEnv) * TEAM_ENVS);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks[0], dynamics_substep_kernel<false>, *threads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[1], dynamics_substep_kernel<true>, *threads, 0);
+  return (int)e;
 }

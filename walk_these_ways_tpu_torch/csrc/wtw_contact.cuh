@@ -7,9 +7,11 @@
 // row's mass n^T W n and the general-normal rows of wtw_device.cuh's
 // normal_row_update, on all nine entries of the point's W.
 //
-// Shared by csrc/contact_substep.cu (the whole kernel, flat only) and
-// csrc/dynamics_substep.cu (its second half).  Include after
-// "wtw_topology.h" and "wtw_device.cuh".  The arithmetic is the JAX package's
+// The contact-substep kernel's solve (csrc/contact_substep.cu runs it
+// dense and flat).  The dynamics-substep kernel (csrc/dynamics_substep.cu,
+// one warp per env) keeps these statements and their order, the SPARSE
+// and NORMALS ones included.  Include after "wtw_topology.h" and
+// "wtw_device.cuh".  The arithmetic is the JAX package's
 // ops/pallas_contact.py::contact_core with lam0=None and n=None (flat) or the
 // normals given.
 //

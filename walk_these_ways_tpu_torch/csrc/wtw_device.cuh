@@ -16,6 +16,9 @@
 #ifdef MS_NB
 #define NB MS_NB
 #define NJ MS_NJ
+#define GM MS_GMAX        // most leg dofs a contact point depends on
+#define NH MS_H           // actuator network: hidden units, inputs per joint
+#define NF MS_F
 #endif
 
 __device__ __forceinline__ void cross3(const float* a, const float* b,
@@ -166,6 +169,35 @@ __device__ __forceinline__ void normal_row_update(
   lam[0] = (ln * n[0] + lx * scale) * active;
   lam[1] = (ln * n[1] + ly * scale) * active;
   lam[2] = (ln * n[2] + lz * scale) * active;
+}
+
+// One contact point's row update in a projected-Jacobi sweep on flat
+// ground (n = +z): the normal row drives v_z to `target` (inv_wnn = relax /
+// W22), the friction row pushes against the slip with scalar mass t^T W t
+// (floored at 1e-6), and the tangential impulse is clamped to the mu *
+// lambda_n cone.  lam: the point's total impulse in; l: the new one (zero
+// where the point is not `active`).
+__device__ __forceinline__ void flat_row_update(
+    const float* v, float W00, float W01, float W11, float target,
+    float inv_wnn, float relax, float mu, float active, const float* lam,
+    float* l) {
+  const float vn = v[2], vtx = v[0], vty = v[1];
+  const float vtn = sqrtf(vtx * vtx + vty * vty + 1e-18f);
+  const float itn = 1.0f / vtn;
+  const float tx = vtx * itn, ty = vty * itn;
+  const float w_tt = fmaxf(
+      tx * tx * W00 + 2.0f * tx * ty * W01 + ty * ty * W11, 1e-6f);
+  const float dln = (target - vn) * inv_wnn;
+  const float dlt = -relax * vtn / w_tt;
+  const float ln = fmaxf(lam[2] + dln, 0.0f);
+  const float lx = lam[0] + dlt * tx;
+  const float ly = lam[1] + dlt * ty;
+  const float ltn = sqrtf(lx * lx + ly * ly + 1e-18f);
+  const float max_t = mu * ln;
+  const float scale = ltn > max_t ? max_t / ltn : 1.0f;
+  l[0] = lx * scale * active;
+  l[1] = ly * scale * active;
+  l[2] = ln * active;
 }
 
 #ifdef MS_NB

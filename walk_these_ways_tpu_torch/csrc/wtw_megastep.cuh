@@ -2,16 +2,12 @@
 // per env, reuse mode: K4, K4b, K4c, K4b-P) and csrc/megastep.cu (one thread
 // per env, exact mode: K5, K5-P).  Both take one argument list, packed by
 // ops/megastep.kernel_operands, and both run the per-contact-point
-// arithmetic below: a point's velocity from the kept Jacobian columns, its
-// columns and effective-mass entries, and the flat-ground row update.
+// arithmetic below: a point's velocity from the kept Jacobian columns, and
+// its columns and effective-mass entries.
 //
 // Include after the generated "wtw_topology.h".
 #pragma once
 #include "wtw_device.cuh"
-
-#define GM MS_GMAX
-#define NH MS_H
-#define NF MS_F
 
 // Both kernels build the dynamics cache themselves, so no slot holds it.
 enum InIdx {
@@ -130,33 +126,4 @@ __device__ __forceinline__ void point_cache(
     const float Wp[9] = {W00, w01, w02, w01, W11, w12, w02, w12, W22};
     inv_wnn = relax / quad3(Wp, nrm);
   }
-}
-
-// One contact point's row update in a projected-Jacobi sweep on flat
-// ground (n = +z): the normal row drives v_z to `target` (inv_wnn = relax /
-// W22), the friction row pushes against the slip with scalar mass t^T W t
-// (floored at 1e-6), and the tangential impulse is clamped to the mu *
-// lambda_n cone.  lam: the point's total impulse in; l: the new one (zero
-// where the point is not `active`).
-__device__ __forceinline__ void flat_row_update(
-    const float* v, float W00, float W01, float W11, float target,
-    float inv_wnn, float relax, float mu, float active, const float* lam,
-    float* l) {
-  const float vn = v[2], vtx = v[0], vty = v[1];
-  const float vtn = sqrtf(vtx * vtx + vty * vty + 1e-18f);
-  const float itn = 1.0f / vtn;
-  const float tx = vtx * itn, ty = vty * itn;
-  const float w_tt = fmaxf(
-      tx * tx * W00 + 2.0f * tx * ty * W01 + ty * ty * W11, 1e-6f);
-  const float dln = (target - vn) * inv_wnn;
-  const float dlt = -relax * vtn / w_tt;
-  const float ln = fmaxf(lam[2] + dln, 0.0f);
-  const float lx = lam[0] + dlt * tx;
-  const float ly = lam[1] + dlt * ty;
-  const float ltn = sqrtf(lx * lx + ly * ly + 1e-18f);
-  const float max_t = mu * ln;
-  const float scale = ltn > max_t ? max_t / ltn : 1.0f;
-  l[0] = lx * scale * active;
-  l[1] = ly * scale * active;
-  l[2] = ln * active;
 }

@@ -14,9 +14,9 @@ then ops/contact.contact_core.  CPU tensors go to the plain version
 `dynamics_substep_reference`; CUDA tensors go to the hand-written kernel
 `csrc/dynamics_substep.cu` (replaces `_dyn_substep_kernel` of
 ops/pallas_dynamics.py: K3 on flat ground, K3b with the per-point surface
-normals of a heightfield), or the call raises.  There is no fallback from
-the kernel to the plain version.  `launches` (K3) and `normal_launches`
-(K3b) count kernel launches (and nothing else).
+normals of a heightfield; one warp per env), or the call raises.  There is
+no fallback from the kernel to the plain version.  `launches` (K3) and
+`normal_launches` (K3b) count kernel launches (and nothing else).
 """
 from __future__ import annotations
 
@@ -31,9 +31,11 @@ from . import contact as pc
 launches = 0
 normal_launches = 0
 
-# threads per block of the CUDA kernel: one env per thread; at 4096 envs a
-# 32-thread block spreads the batch over the most SMs
-KERNEL_THREADS = 32
+# threads per block of the CUDA kernel: TEAM_ENVS (8) envs of 32 lanes, one
+# warp per env (csrc/wtw_team.cuh); the env axis is padded to a multiple of
+# TEAM_ENVS
+KERNEL_THREADS = 256
+TEAM_ENVS = 8
 
 
 def _cross(a, b):
@@ -173,9 +175,12 @@ _COUNTS = (17, 3, 7)
 
 def library_spec(anc, joint_body, cp_body):
     """What `_build.build_libraries` needs to build
-    csrc/dynamics_substep.cu."""
+    csrc/dynamics_substep.cu: the robot's topology, with the actuator
+    network's sizes of the team control-step kernel (32 hidden units, 6
+    inputs), by which csrc/wtw_team.cuh sizes the shared TeamEnv; this
+    kernel evaluates no network."""
     return ("dynamics_substep",
-            _build.topology_header(anc, joint_body, cp_body), _COUNTS)
+            _build.topology_header(anc, joint_body, cp_body, 32, 6), _COUNTS)
 
 
 def build_library(anc, joint_body, cp_body):
@@ -243,7 +248,7 @@ def kernel_operands(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t,
     input pointers in its InIdx order (the normals' slot null on flat
     ground), the three output tensors, allocated on the inputs' device, the
     FIdx floats and the int scalars.  Checks every operand's device, dtype,
-    shape and contiguity."""
+    shape and contiguity, and that TEAM_ENVS divides the padded env count."""
     dev = gv_t.device
     nv, Npad = gv_t.shape
     nb = m_t.shape[0]
@@ -264,6 +269,9 @@ def kernel_operands(Sw_t, Sv_t, A_t, B_t, m_t, Minv_t, g_t, tau_t, gv_t,
     if tuple(np.shape(anc)) != (nv, nb) or len(cp_body) != P:
         raise ValueError("dynamics_substep: topology and operand shapes "
                          "disagree")
+    if Npad % TEAM_ENVS:
+        raise ValueError(f"dynamics_substep: {Npad} padded envs, not a "
+                         f"multiple of {TEAM_ENVS}")
     outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
             torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
             torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))

@@ -8,10 +8,10 @@ through the hand-written kernels:
   (the cache of the entry state built inside the launch, with either
   torque model) or in exact mode (cache rebuilt inside the kernel before
   every substep);
-- the per-substep route: per control step one `build_dynamics_cache`
-  (env-minor cache + the contact-cache kernel, ops/contact.py) and per
-  physics substep one `physics_substep_cached` (the dynamics-substep kernel,
-  ops/dynamics.py).
+- the per-substep route: per control step (exact mode: per substep) one
+  `build_dynamics_cache` (the entry-cache kernel, ops/entry_cache.py, and
+  the contact-cache kernel, ops/contact.py) and per physics substep one
+  `physics_substep_cached` (the dynamics-substep kernel, ops/dynamics.py).
 
 The N-major halves of the reference (`forward_kinematics`, `mass_matrix`,
 `_contact_solve`, `_impulse_iteration`, `physics_substep`, and the
@@ -44,6 +44,7 @@ import torch
 from ..models.robot import RobotModel
 from ..ops import contact as pc
 from ..ops import dynamics as pdyn
+from ..ops import entry_cache as pec
 from ..ops import megastep as pm
 from ..ops import quat as qops
 from . import envminor
@@ -190,8 +191,10 @@ def build_pallas_env_inputs(model: RobotModel, state: PhysicsState,
                             block: int = 256):
     """Env-minor kernel inputs: the scalar-per-env dynamics cache
     (physics/envminor.py) plus per-point gap offsets, friction/restitution,
-    gravity and, on a heightfield, surface normals.  (Name kept from the JAX
-    package.)
+    gravity and, on a heightfield, surface normals, built eagerly.  (Name
+    kept from the JAX package.)  It is the plain version of the entry-cache
+    kernel (ops/entry_cache.py), which `build_dynamics_cache` launches on
+    the card.
 
     On a heightfield the height h and the normal n are sampled at the
     cache geometry (the entry contact points `em.p_cp_t`), once per cache:
@@ -293,9 +296,11 @@ def build_dynamics_cache(model: RobotModel, params: SimParams,
                          terrain: "Terrain | None" = None) -> DynamicsCache:
     """The cache of one control step (or, in exact mode, one substep),
     anchored at `state`: FK / inertia / CRBA / M^-1 in scalar-per-env form
-    (physics/envminor.py), J / W in the contact-cache kernel
-    (ops/contact.build_contact_cache) — no N-major dynamics tensor is
-    materialised."""
+    and, on a heightfield, the samples under the contact points — in the
+    entry-cache kernel (ops/entry_cache.entry_cache) on a CUDA device, by
+    the eager build (`build_pallas_env_inputs`) on the CPU — then J / W in
+    the contact-cache kernel (ops/contact.build_contact_cache); no N-major
+    dynamics tensor is materialised."""
     if not params.use_pallas_contact:
         raise NotImplementedError(
             "build_dynamics_cache without use_pallas_contact is the dense "
@@ -304,8 +309,15 @@ def build_dynamics_cache(model: RobotModel, params: SimParams,
     f32 = state.base_pos.dtype
     dev = state.base_pos.device
     block = SUBSTEP_BLOCK
-    em, rh_t, mu_t, e_t, g_t, n_t = build_pallas_env_inputs(
-        model, state, dyn, terrain, block)
+    if dev.type == "cpu":
+        em, rh_t, mu_t, e_t, g_t, n_t = build_pallas_env_inputs(
+            model, state, dyn, terrain, block)
+    else:
+        em, rh_hf, n_t = pec.entry_cache(model, state, dyn, terrain, block)
+        rh_t, mu_t, e_t, g_t = _contact_inputs(
+            model, dyn, em.Sw_t.shape[-1], block)
+        if rh_hf is not None:
+            rh_t = rh_hf
     anc_pn = torch.tensor(
         np.asarray(model.anc_dof_body)[:, np.asarray(model.cp_body)].T,
         dtype=f32, device=dev).contiguous()                    # (P, nv)

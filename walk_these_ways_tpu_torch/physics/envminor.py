@@ -11,10 +11,10 @@ body lists, and the joint-joint mass-matrix block is built only for the
 
 Outputs are stacked directly into the env-minor `(..., Npad)` layouts the
 kernels consume (ops/megastep.py, ops/contact.py, ops/dynamics.py).  Run
-eagerly this is a few thousand small tensor ops per control step; it feeds
-the per-substep route and the P-control kernels, and it is the plain
-version of the build that K4, K4b and K5 run in their launch
-(csrc/wtw_cache.cuh).
+eagerly this is a few thousand small tensor ops per control step; it is
+the plain version of the build that the kernels run in their launch: the
+team control-step kernel and the per-substep route's entry-cache kernel
+(csrc/wtw_team.cuh), and K5 (csrc/wtw_cache.cuh).
 """
 from __future__ import annotations
 
@@ -321,10 +321,11 @@ def cache_columns(model, q_cols, base_quat_cols, ref, payload,
     return Sw, Sv, Minv, A_blk, B_blk, m, r_cp, p_cp
 
 
-# number of eager cache builds (`build_cache_envminor` calls); the
-# control-step route makes none (the team kernel, K4, K4b, K4c and K4b-P,
-# builds the entry cache in its launch, K5 before every substep), the
-# per-substep route one per control step
+# number of eager cache builds (`build_cache_envminor` calls); no route on
+# the card makes one (the team kernel, K4, K4b, K4c and K4b-P, builds the
+# entry cache in its launch, K5 before every substep, and the per-substep
+# route launches ops/entry_cache.py); the CPU routes and the plain versions
+# make them
 cache_builds = 0
 
 
