@@ -23,12 +23,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("walk_these_ways_tpu_torch", "csrc")
 # (name, source, text to replace, replacement, the check that must fail)
 MUTANTS = (
-    # the one-thread dynamics (K5 is the one kernel that runs them) and the
-    # warp-per-env dynamics (K4 is the first checked that runs them; K3 and
-    # K3b run them too)
-    ("shared_dynamics_bias_sign", "wtw_device.cuh",
-     "tb[6 + j] = tau[6 + j] - acc;", "tb[6 + j] = tau[6 + j] + acc;",
-     "control_step_exact"),
+    # the warp-per-env dynamics (K4 is the first checked that runs them;
+    # K3, K3b, K5 and the other control-step variants run them too)
     ("team_dynamics_bias_sign", "wtw_team.cuh",
      "s.x[lane] = s.tau[lane] - acc;", "s.x[lane] = s.tau[lane] + acc;",
      "control_step"),
@@ -72,34 +68,32 @@ MUTANTS = (
     ("contact_cache_does_not_compile", "contact_cache.cu",
      "const size_t npad = (size_t)a.npad;", "const size_t npad = (size_t)a.npad",
      "build"),
-    # P control's damping term with the wrong sign: in the team kernel
-    # (K4c, K4b-P; K4c is checked first) and in the one-thread kernel (K5-P)
+    # P control's damping term with the wrong sign, in the line K4c,
+    # K4b-P and K5-P share (K4c is checked first)
     ("team_p_control_damping_sign", "megastep_team.cu",
      "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q) - LD(I_KD, j) * qd;",
      "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q) + LD(I_KD, j) * qd;",
      "control_step_p"),
-    ("p_control_damping_sign", "megastep.cu",
-     "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) - LD(I_KD, j) * qd[j];",
-     "t = LD(I_KP, j) * (LD(I_TGT, si * NJ + j) - q[j]) + LD(I_KD, j) * qd[j];",
-     "control_step_exact_p"),
-    ("cache_rebuild_drops_payload_scale", "wtw_cache.cuh",
-     "const float scale0 = mass[0] / MS_MASS[0];",
-     "const float scale0 = 1.0f;", "control_step_exact"),
-    # the same edit in the warp-per-env entry-cache build (K4 is the first
-    # checked that runs it; K4b, K4c, K4b-P and the entry-cache launch too)
+    # the warp-per-env cache build drops the payload's inertia scale (K4 is
+    # the first checked that runs it; K4b, K4c, K4b-P, K5, K5-P and the
+    # entry-cache launch too)
     ("team_cache_drops_payload_scale", "wtw_team.cuh",
      "const float scale0 = (MS_MASS[0] + payload) / MS_MASS[0];",
      "const float scale0 = 1.0f;", "control_step"),
-    # K5 reads a stale M^-1 after its first substep: the matrix of substep 0,
-    # plausible values one to three substeps old, as a read of the rewritten
-    # cache through a path that is not coherent with the kernel's own stores
-    # (__ldg) may return them
-    ("exact_minv_stale_after_first_substep", "megastep.cu",
-     "    cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, A9, B9, "
-     "mb,\n                      Minv, pcp);",
-     "    float stale[NV * NV];\n"
-     "    cache_columns_dev(q, quat, pos, payload, comdisp, sw, sv, A9, B9, "
-     "mb,\n                      si == 0 ? Minv : stale, pcp);",
+    # exact mode only (K5 is checked before K5-P; reuse mode's variants
+    # pass): the cache is rebuilt at the first substep only, so the later
+    # substeps run on the M^-1, J and W of substep 0, values one to three
+    # substeps old
+    ("exact_rebuild_only_at_first_substep", "megastep_team.cu",
+     "    if constexpr (EXACT) {\n      // the whole cache",
+     "    if (EXACT && si == 0) {\n      // the whole cache",
+     "control_step_exact"),
+    # exact mode only: the cache is rebuilt every substep but about the
+    # entry base position, while r is taken from the current one
+    ("exact_rebuild_keeps_the_entry_anchor", "megastep_team.cu",
+     "      if (lane < 3) s.ref[lane] = s.pos[lane];\n      __syncwarp();\n"
+     "      build_cache();",
+     "      __syncwarp();\n      build_cache();",
      "control_step_exact"),
     # the general-normal rows (K4b's and K3b's) take the normal part of the
     # impulse as if n were +z

@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's six kernel sources from csrc/*.cu with nvcc (one nvcc
+Builds the port's five kernel sources from csrc/*.cu with nvcc (one nvcc
 each, all started together; csrc/megastep_team.cu holds the control-step
-kernel in reuse mode, one warp per env with the entry cache built in the
-launch: K4, K4c with P control, K4b and K4b-P on a heightfield;
-csrc/megastep.cu K5 in exact mode with either torque model;
+kernel, one warp per env with the cache built in the launch: in reuse mode
+K4, K4c with P control, K4b and K4b-P on a heightfield, in exact mode K5
+and K5-P with P control, the cache rebuilt before every substep;
 csrc/dynamics_substep.cu K3 and K3b on a heightfield, one warp per env;
 csrc/entry_cache.cu the per-substep route's entry cache, flat and on a
 heightfield; csrc/contact_cache.cu K1; csrc/contact_substep.cu K2), holds
@@ -24,10 +24,11 @@ the entry points a user calls and checks what comes out:
 - the contact-substep kernel driven directly (no env branch reaches it),
 - PPO training iterations (`learn/ppo.make_train_iteration`) on both routes,
 - exact mode on the control-step route (`sim.reuse_matrices=False`: one K5
-  launch per step, no eager cache build), and one control step of it held
-  against the per-substep exact route, which rolls out too (an entry-cache,
-  a contact-cache and a dynamics-substep launch per substep, no eager
-  cache build),
+  launch per step, no eager cache build; with `small_train_cfg`'s P control
+  one K5-P launch per step), and one control step of it held against the
+  per-substep exact route, which rolls out too (an entry-cache, a
+  contact-cache and a dynamics-substep launch per substep, no eager cache
+  build),
 - P control on the control-step route (`small_train_cfg(4000)`, K4c, no
   eager cache build),
 - the training entry point: `learn/runner.Runner` (log, checkpoint, resume,
@@ -156,6 +157,7 @@ def reset_counts():
     megastep.normal_launches = 0
     megastep.p_normal_launches = 0
     megastep.exact_launches = 0
+    megastep.p_exact_launches = 0
     contact.cache_launches = 0
     contact.substep_launches = 0
     dynamics.launches = 0
@@ -171,6 +173,7 @@ def counts():
                 control_step_normals=megastep.normal_launches,
                 control_step_normals_p=megastep.p_normal_launches,
                 control_step_exact=megastep.exact_launches,
+                control_step_exact_p=megastep.p_exact_launches,
                 contact_cache=contact.cache_launches,
                 contact_substep=contact.substep_launches,
                 dynamics_substep=dynamics.launches,
@@ -362,11 +365,28 @@ def megastep_launch(model, args, kw):
     """The control-step kernel's launch on operands packed once: one ctypes
     call, without the wrapper's checks and allocations."""
     ptrs, outs, floats, ints, (H, F) = megastep.kernel_operands(*args, **kw)
-    team = kw["entry_inputs"] is not None
-    lib = megastep.build_library(model, H, F, team)
-    name = "megastep_team" if team else "megastep"
+    lib = megastep.build_library(model, H, F)
     stream = torch.cuda.current_stream(DEV).cuda_stream
-    return lambda: _build.launch(lib, name, ptrs, outs, floats, ints, stream)
+    return lambda: _build.launch(lib, "megastep_team", ptrs, outs, floats,
+                                 ints, stream)
+
+
+def contact_cache_launch(k1):
+    """K1's launch on operands packed once."""
+    ptrs, outs, floats, ints = contact.cache_operands(*k1)
+    lib = contact.cache_library(k1[1].shape[0], k1[4].shape[0])
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    return lambda: _build.launch(lib, "contact_cache", ptrs, outs, floats,
+                                 ints, stream)
+
+
+def contact_substep_launch(k2, solver):
+    """K2's launch on operands packed once."""
+    ptrs, outs, floats, ints = contact.substep_operands(*k2, **solver)
+    lib = contact.substep_library(k2[4].shape[0], k2[3].shape[0])
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    return lambda: _build.launch(lib, "contact_substep", ptrs, outs, floats,
+                                 ints, stream)
 
 
 def entry_cache_launch(env, state):
@@ -828,22 +848,22 @@ def main():
     t0 = time.time()
     libs = _build.build_libraries([
         megastep.library_spec(m, 32, 6),
-        megastep.library_spec(m, 32, 6, team=True),
         contact.cache_spec(nv, P), contact.substep_spec(nv, P),
         dynamics.library_spec(m.anc_dof_body, m.joint_body, m.cp_body),
         entry_cache.library_spec(m)])
-    for name in ("megastep", "megastep_team", "contact_cache",
-                 "contact_substep", "dynamics_substep", "entry_cache"):
+    for name in ("megastep_team", "contact_cache", "contact_substep",
+                 "dynamics_substep", "entry_cache"):
         b = _build.builds[name]
         say(phase="build", library=name, source=CSRC + name + ".cu",
             seconds=b["seconds"], cached=b["cached"], command=b["command"],
             ptxas=[ln.strip() for ln in b["log"].splitlines()
                    if "registers" in ln or "stack frame" in ln
                    or "Compiling entry" in ln][:48])
-    say(phase="build_all", sources=6, libraries=6, seconds=time.time() - t0)
-    team_occupancy(libs[1], "megastep_team", ("K4", "K4b", "K4c", "K4b-P"))
-    team_occupancy(libs[4], "dynamics_substep", ("K3", "K3b"))
-    team_occupancy(libs[5], "entry_cache", ("flat", "heightfield"))
+    say(phase="build_all", sources=5, libraries=5, seconds=time.time() - t0)
+    team_occupancy(libs[0], "megastep_team",
+                   ("K4", "K4b", "K4c", "K4b-P", "K5", "K5-P"))
+    team_occupancy(libs[3], "dynamics_substep", ("K3", "K3b"))
+    team_occupancy(libs[4], "entry_cache", ("flat", "heightfield"))
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
@@ -945,14 +965,18 @@ def main():
         "contact_cache", lambda: contact.build_contact_cache(*k1),
         lambda: contact.cache_core(*k1, eps=1e-6),
         contact.cache_work_per_env(anc_p_np), N,
-        threads_per_block=contact.CACHE_THREADS)
+        launch=contact_cache_launch(k1),
+        threads_per_block=contact.CACHE_THREADS,
+        max_abs_err_vs_plain=worst["contact_cache"])
     iters = cfg.sim.num_contact_iters
     timed["contact_substep"] = timing(
         "contact_substep",
         lambda: contact.contact_substep(*k2, **x["solver"]),
         lambda: contact.contact_core(*k2, **x["solver"]),
         contact.substep_work_per_env(nv, P, iters), N,
-        threads_per_block=contact.SUBSTEP_THREADS)
+        launch=contact_substep_launch(k2, x["solver"]),
+        threads_per_block=contact.SUBSTEP_THREADS,
+        max_abs_err_vs_plain=worst["contact_substep"])
     timed["dynamics_substep"] = timing(
         "dynamics_substep", lambda: dynamics.dynamics_substep(*k3, **k3_kw),
         lambda: dynamics.dynamics_substep_reference(*k3, **k3_kw),
@@ -981,8 +1005,17 @@ def main():
         lambda: megastep.control_step_reference(*args_x, **kw_x),
         megastep.work_per_env(m, D, 0, exact=True, num_iters=iters), N,
         launch=megastep_launch(m, args_x, kw_x),
-        threads_per_block=megastep.KERNEL_THREADS,
+        threads_per_block=megastep.TEAM_THREADS,
         max_abs_err_vs_plain=worst["control_step_exact"])
+    timed["control_step_exact_p"] = timing(
+        "control_step_exact_p",
+        lambda: megastep.control_step(*args_px, **kw_px),
+        lambda: megastep.control_step_reference(*args_px, **kw_px),
+        megastep.work_per_env(m, D, 0, control_type="P", exact=True,
+                              num_iters=iters), N,
+        launch=megastep_launch(m, args_px, kw_px),
+        threads_per_block=megastep.TEAM_THREADS,
+        max_abs_err_vs_plain=worst["control_step_exact_p"])
     t0 = time.time()
     engine.build_pallas_env_inputs(env_r.model, state_r.phys,
                                    env_r.dynamics_params(state_r)[1],
@@ -1161,6 +1194,20 @@ def main():
         time.time() - t0, expect(control_step_exact=steps), smi,
         config="mob_train_cfg, sim.reuse_matrices=False")
 
+    # ---- exact mode with P control: K5-P ---------------------------------
+    state_px, obs_px = env_px.reset(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state_px, obs_px, ro_px = rollout(env_px, policy, steps, gen,
+                                      state=state_px, obs=obs_px)
+    torch.cuda.synchronize()
+    exact_p_counts = check_rollout(
+        "exact_p_route", env_px, state_px, obs_px, ro_px, steps,
+        time.time() - t0, expect(control_step_exact_p=steps), smi,
+        config="small_train_cfg, sim.reuse_matrices=False",
+        need_resets=False)
+
     # ---- one control step: K5 against the per-substep exact route ----------
     a = torch.randn((N, 12), generator=gen, device=DEV)
     s_k5, *_ = env_exact.step(
@@ -1280,6 +1327,7 @@ def main():
         control_step_normals_p=rough_p_counts["control_step_normals_p"],
         control_step_p=p_counts["control_step_p"],
         control_step_exact=exact_counts["control_step_exact"],
+        control_step_exact_p=exact_p_counts["control_step_exact_p"],
         entry_cache=sub_counts["entry_cache"],
         entry_cache_normals=rough_sub_counts["entry_cache_normals"])
     if min(launches.values()) < 1:
@@ -1324,8 +1372,12 @@ def main():
          "cache built in the launch, one warp per env)",
          "megastep_team.cu", "/ops/pallas_megastep.py:154"),
         ("control_step_exact", "control_step, exact mode (K5: whole control "
-         "step, FK/CRBA/M^-1/J/W rebuilt in-kernel before every substep, "
-         "cold solves)", "megastep.cu", "/ops/pallas_megastep.py:154"))
+         "step, actuator net, FK/CRBA/M^-1/J/W rebuilt in shared memory "
+         "before every substep, cold solves, one warp per env)",
+         "megastep_team.cu", "/ops/pallas_megastep.py:154"),
+        ("control_step_exact_p", "control_step, exact mode, P control (K5-P: "
+         "as K5 with tau = kp (tgt - q) - kd qd, one warp per env)",
+         "megastep_team.cu", "/ops/pallas_megastep.py:154"))
     print(json.dumps(dict(kernels=[dict(
         name=title, route="cuda", source=CSRC + src,
         replaces=JAX_PACKAGE + site, launches=launches[key],

@@ -10,8 +10,11 @@ copies with one part of their work cut out or one launch setting changed
 together), times every copy with CUDA events over 20 launches on its
 source's inputs, each 24 random control steps in at 4000 envs: for the team
 kernel the default route's arguments (K4, `mob_train_cfg`), the P-control
-route's (K4c, `small_train_cfg`) and the rough P-control route's (K4b-P,
-`rough_train_cfg` with P control); for the dynamics-substep kernel the
+route's (K4c, `small_train_cfg`), the rough P-control route's (K4b-P,
+`rough_train_cfg` with P control) and the exact routes' (K5, K5-P: the same
+flat configurations with `sim.reuse_matrices=False`; for them also a copy
+whose per-substep cache rebuild is cut to substep 0); for the
+dynamics-substep kernel the
 first substep's arguments on the per-substep route (K3, `mob_train_cfg`;
 K3b, `rough_train_cfg`; `sim.megastep=False`).  Prints one JSON line per
 input and variant with its time beside the unchanged kernel's and ptxas's
@@ -53,9 +56,13 @@ VARIANTS = {
         ("no_actuator_net", "the two hidden layers skipped (torques from "
          "zeros)", [("for (int jj = 0; jj < NJ; jj += 2) {",
                      "for (int jj = 0; jj < 0; jj += 2) {")]),
-        ("no_entry_cache", "the entry-cache build skipped",
-         [("    team_entry_cache(s, q, LD(I_PAYLOAD, 0), comdisp, mk, "
-           "lane);\n", "")]),
+        ("no_entry_cache", "the cache build skipped (exact mode: at every "
+         "substep)", [("    team_entry_cache(s, q, LD(I_PAYLOAD, 0), "
+                       "comdisp, mk, lane);\n", "")]),
+        ("rebuild_at_first_substep_only", "exact mode's cache rebuilt at "
+         "substep 0 only (the later substeps on its M^-1, J and W)",
+         [("    if constexpr (EXACT) {\n      // the whole cache",
+           "    if (EXACT && si == 0) {\n      // the whole cache")]),
         ("no_contact_sweeps", "no projected-Jacobi sweep (gaps, seed and "
          "point advance kept)", [("for (int it = 0; it < iters; ++it) {",
                                   "for (int it = 0; it < 0; ++it) {")]),
@@ -76,8 +83,12 @@ VARIANTS = {
 }
 
 
+# variants timed on some inputs only (the others run them as the kernel)
+ONLY = {"rebuild_at_first_substep_only": ("K5", "K5-P")}
+
+
 def headers(model):
-    return {"megastep_team": megastep.library_spec(model, team=True),
+    return {"megastep_team": megastep.library_spec(model),
             "dynamics_substep": dynamics.library_spec(
                 model.anc_dof_body, model.joint_body, model.cp_body)}
 
@@ -141,16 +152,22 @@ def team_operands(dev, n):
     rough_p = rough_train_cfg(n)
     rough_p = dataclasses.replace(rough_p, control=dataclasses.replace(
         rough_p.control, control_type="P"))
+    def exact(cfg):
+        return dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, reuse_matrices=False))
+
     out, model = {}, None
     for name, cfg in (("K4", mob_train_cfg(n)), ("K4c", small_train_cfg(n)),
-                      ("K4b-P", rough_p)):
+                      ("K4b-P", rough_p), ("K5", exact(mob_train_cfg(n))),
+                      ("K5-P", exact(small_train_cfg(n)))):
         env, state = stepped(cfg, dev, n)
         model = env.model
         _, dyn, _, _, tgt_eff, ctrl, lam_in = env.control_step_inputs(state)
         args, kwargs = engine.megakernel_args(
             env.model, env.sim_params, state.phys, dyn, env.terrain, tgt_eff,
             state.motor_strengths, env.torque_limits, ctrl,
-            env.cfg.control.decimation, lam_in)
+            env.cfg.control.decimation, lam_in,
+            exact=not env.reuse_matrices)
         out[name] = (megastep.kernel_operands(*args, **kwargs)[:4],
                      (args, kwargs))
     return model, out
@@ -219,7 +236,9 @@ def main():
         base = [time_ms(src, libs[(src, "kernel")], ops)]
         rows = []
         for name, what, _ in variants[1:]:
-            rows.append((name, what, time_ms(src, libs[(src, name)], ops)))
+            if inp in ONLY.get(name, (inp,)):
+                rows.append((name, what,
+                             time_ms(src, libs[(src, name)], ops)))
         base.append(time_ms(src, libs[(src, "kernel")], ops))
         print(json.dumps(dict(source=src, input=inp, variant="kernel",
                               what=variants[0][1], ms=base, n_envs=n,

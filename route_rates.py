@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Env-steps per second of the port's routes on one NVIDIA GPU.
 
-    python3 route_rates.py
+    python3 route_rates.py [route ...]
 
 For each route, at 4000 envs: a seeded random policy rolls 24 control steps
 out (`learn/rollout.rollout`, the rollout of a PPO iteration) three times
 after one warm-up rollout (kernels built, caches warm), host clock around
-each rollout ending in a synchronise.  Routes: `flat` (`mob_train_cfg`, the
-default route), `p` (`small_train_cfg`, P control), `rough_p`
-(`rough_train_cfg` with P control), `substep` and `rough_substep` (the
-per-substep route, `sim.megastep=False`, of `mob_train_cfg` and
-`rough_train_cfg`).  Prints one JSON line per route with every rollout's
+each rollout ending in a synchronise.  Routes (all, or the ones named):
+`flat` (`mob_train_cfg`, the default route), `p` (`small_train_cfg`, P
+control), `rough_p` (`rough_train_cfg` with P control), `substep` and
+`rough_substep` (the per-substep route, `sim.megastep=False`, of
+`mob_train_cfg` and `rough_train_cfg`), `exact` and `exact_p` (exact mode on
+the control-step route, `sim.reuse_matrices=False`, of `mob_train_cfg` and
+`small_train_cfg`).  Prints one JSON line per route with every rollout's
 env-steps/s, the eager cache builds and kernel launches of the timed
 rollouts (the launch counters the measured tree has), then the card's name
 and power limit, and as the last line the directory of the package it
@@ -49,11 +51,12 @@ from walk_these_ways_tpu_torch.physics import envminor  # noqa: E402
 # does not have is left out
 COUNTERS = (
     ("megastep", ("launches", "p_launches", "normal_launches",
-                  "p_normal_launches", "exact_launches")),
+                  "p_normal_launches", "exact_launches", "p_exact_launches")),
     ("contact", ("cache_launches",)),
     ("dynamics", ("launches", "normal_launches")),
     ("entry_cache", ("launches", "normal_launches")))
-ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep")
+ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep", "exact",
+          "exact_p")
 N_ENVS, STEPS, REPS = 4000, 24, 3
 
 
@@ -72,9 +75,9 @@ def counters():
 
 
 def route_cfg(route, n):
-    if route in ("flat", "substep"):
+    if route in ("flat", "substep", "exact"):
         cfg = mob_train_cfg(n)
-    elif route == "p":
+    elif route in ("p", "exact_p"):
         cfg = small_train_cfg(n)
     elif route in ("rough_p", "rough_substep"):
         cfg = rough_train_cfg(n)
@@ -86,6 +89,9 @@ def route_cfg(route, n):
     if route.endswith("substep"):
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, megastep=False))
+    if route.startswith("exact"):
+        cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, reuse_matrices=False))
     return cfg
 
 
@@ -115,11 +121,14 @@ def measure(route, n, steps, reps, dev):
         finite=bool(torch.isfinite(state.phys.base_pos).all()))
 
 
-def main():
+def main(routes=ROUTES):
+    unknown = set(routes) - set(ROUTES)
+    if unknown:
+        raise SystemExit(f"unknown routes {sorted(unknown)}: one of {ROUTES}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    for route in ROUTES:
+    for route in routes:
         row = measure(route, N_ENVS, STEPS, REPS, dev)
         print(json.dumps(row), flush=True)
         if not row["finite"]:
@@ -132,4 +141,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or ROUTES)

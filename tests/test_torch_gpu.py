@@ -85,17 +85,20 @@ def test_wrapper_raises_for_what_the_kernel_does_not_cover(cuda):
         megastep.control_step(*args, **dict(kwargs, control_type="PD"))
     with pytest.raises(ValueError):
         megastep.control_step(*args[:6], args[6][:, :64], *args[7:], **kwargs)
-    # exact mode starts every solve cold: a cross-step seed is refused
+    # exact mode (K5 in the team kernel) starts every solve cold: a
+    # cross-step seed is refused; it is flat-ground only: normals are
+    # refused; neither reaches a launch
     exact_kw = dict(kwargs, entry_inputs=None, exact_inputs=(
         torch.zeros((1, args[6].shape[-1]), device=cuda),
         torch.zeros((3, args[6].shape[-1]), device=cuda)))
-    with pytest.raises(ValueError):
+    before = (megastep.exact_launches, megastep.p_exact_launches)
+    with pytest.raises(ValueError, match="lam_in_t must be None"):
         megastep.control_step(None, *args[1:19], args[6][:, :1].new_zeros(
             (28, 3, args[6].shape[-1])), **exact_kw)
-    # exact mode is flat-ground only: normals are refused
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="flat-ground only"):
         megastep.control_step(None, *args[1:5], normals, *args[6:19], None,
                               **exact_kw)
+    assert (megastep.exact_launches, megastep.p_exact_launches) == before
     # reuse mode builds its cache in the launch, with either torque model:
     # a host-built cache is refused, and nothing is launched
     env_p = LeggedRobotEnv(small_train_cfg(n), device=cuda)
@@ -149,18 +152,20 @@ def test_normals_kernel_matches_plain_version_on_the_card(cuda,
 
 
 @pytest.mark.parametrize("route", ["flat", "rough", "rough_exact", "p",
-                                   "rough_p"])
+                                   "rough_p", "flat_exact", "p_exact"])
 def test_team_kernel_routes_make_no_eager_cache_build_on_the_card(cuda,
                                                                   route):
     """The default route (K4), the rough default route (K4b), the rough
     exact route (`decimation` K4b launches of one substep), the P-control
     route (K4c, small_train_cfg) and the rough P-control route (K4b-P)
-    build their entry cache in the launch: no eager build; every output
-    finite."""
+    build their entry cache in the launch, the flat exact routes (K5, K5-P
+    with small_train_cfg) their cache before every substep: no eager
+    build; every output finite."""
     n = 256
-    cfg = {"flat": mob_train_cfg, "p": small_train_cfg}.get(
+    cfg = {"flat": mob_train_cfg, "flat_exact": mob_train_cfg,
+           "p": small_train_cfg, "p_exact": small_train_cfg}.get(
         route, rough_train_cfg)(n)
-    if route == "rough_exact":
+    if route.endswith("exact"):
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, reuse_matrices=False))
     if route == "rough_p":
@@ -170,7 +175,9 @@ def test_team_kernel_routes_make_no_eager_cache_build_on_the_card(cuda,
     gen = make_generator(0, cuda)
     state, _ = env.reset(gen)
     counter = {"flat": "launches", "p": "p_launches",
-               "rough_p": "p_normal_launches"}.get(route, "normal_launches")
+               "rough_p": "p_normal_launches",
+               "flat_exact": "exact_launches",
+               "p_exact": "p_exact_launches"}.get(route, "normal_launches")
     builds, before = envminor.cache_builds, getattr(megastep, counter)
     for _ in range(3):
         state, obs, rew, *_ = env.step(state, torch.randn(
@@ -235,10 +242,11 @@ def test_substep_routes_make_no_eager_cache_build_on_the_card(cuda, route):
 @pytest.mark.parametrize("variant", ["P", "exact", "P_exact"])
 def test_p_and_exact_kernels_match_plain_versions_on_the_card(cuda,
                                                               variant):
-    """K4c (the team kernel, against its plain version fed the eager
-    build) and K5 (either torque model) against their plain versions, 10
-    random steps in: |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane
-    finite, padded ones included."""
+    """K4c (the team kernel in reuse mode, against its plain version fed
+    the eager build) and K5, K5-P (the team kernel in exact mode, the cache
+    rebuilt before every substep) against their plain versions, 10 random
+    steps in: |kernel - plain| <= 2e-4 + 2e-4 |plain|; every lane finite,
+    padded ones included."""
     n = 256
     cfg = small_train_cfg(n) if variant.startswith("P") else mob_train_cfg(n)
     if variant.endswith("exact"):
@@ -254,7 +262,8 @@ def test_p_and_exact_kernels_match_plain_versions_on_the_card(cuda,
     p_args, p_kwargs = _call(env, state, eager_cache=True)
     exact = variant.endswith("exact")
     assert (kwargs["entry_inputs"] is None) == exact
-    count = "exact_launches" if exact else "p_launches"
+    count = {"P": "p_launches", "exact": "exact_launches",
+             "P_exact": "p_exact_launches"}[variant]
     before = getattr(megastep, count)
     out_k = megastep.control_step(*args, **kwargs)
     torch.cuda.synchronize()

@@ -1,20 +1,20 @@
 """The control-step, dynamics-substep and entry-cache kernels' sources,
 built for the host CPU, against their plain versions.
 
-`csrc/megastep.cu`, `csrc/megastep_team.cu`, `csrc/dynamics_substep.cu` and
+`csrc/megastep_team.cu`, `csrc/dynamics_substep.cu` and
 `csrc/entry_cache.cu` are compiled with g++ against a stand-in for
 `cuda_runtime.h` (`__device__` and `__global__` empty, `__ldg(p)` = `*p`,
-`__shared__` = `static`; the one-thread-per-env kernel's (K5's)
-`<<<blocks, threads>>>` launch is a loop over the grid, a warp-per-env
-kernel's runs each block's threads as `std::thread`s that meet at one
-barrier per warp for each `__syncwarp` and at one per block for each
-`__syncthreads`, the blocks one after another), loaded with ctypes and
-called through the port's own operand packing
-(`ops/megastep.kernel_operands`, `ops/dynamics.kernel_operands`,
-`ops/entry_cache.kernel_operands`) on CPU tensors.  K4, K4b, K4c and K4b-P
-(the team kernel: entry cache and heightfield samples in the launch)
-against `control_step_reference` fed the eager build of the same state; K5
-(either torque model) against `control_step_reference`; K3 and K3b against
+`__shared__` = `static`; a kernel's `<<<blocks, threads>>>` launch runs
+each block's threads as `std::thread`s that meet at one barrier per warp
+for each `__syncwarp` and at one per block for each `__syncthreads`, the
+blocks one after another), loaded with ctypes and called through the
+port's own operand packing (`ops/megastep.kernel_operands`,
+`ops/dynamics.kernel_operands`, `ops/entry_cache.kernel_operands`) on CPU
+tensors.  K4, K4b, K4c and K4b-P (the team kernel in reuse mode: entry
+cache and heightfield samples in the launch) against
+`control_step_reference` fed the eager build of the same state; K5 and
+K5-P (the team kernel in exact mode: the cache rebuilt before every
+substep) against `control_step_reference`; K3 and K3b against
 `dynamics_substep_reference`; the per-substep route's entry-cache launch,
 flat and on a heightfield, against the eager build
 (`engine.build_pallas_env_inputs`), every lane; after a reset and after
@@ -101,16 +101,6 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   *n = 1;
   return cudaSuccess;
 }
-// one thread per env: the grid as a loop
-template <class F> void wtw_host_launch(int blocks, int threads, F kernel) {
-  blockDim.x = threads;
-  for (int b = 0; b < blocks; ++b)
-    for (int t = 0; t < threads; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      kernel();
-    }
-}
 // __syncwarp: the 32 threads of a warp meet at a barrier
 class wtw_barrier {
   std::mutex m_;
@@ -161,30 +151,24 @@ void wtw_host_launch_threads(int blocks, int threads, F kernel) {
 """
 
 
-def build_host_library(model, out_dir, name="megastep"):
-    """csrc/<name>.cu (megastep, megastep_team, dynamics_substep or
-    entry_cache) for the host, with the header the card's build gets;
-    returns the bound ctypes library.  The lanes of the warp-per-env kernels
-    (all but K5's) run as threads (the stand-in's
-    wtw_host_launch_threads)."""
+def build_host_library(model, out_dir, name="megastep_team"):
+    """csrc/<name>.cu (megastep_team, dynamics_substep or entry_cache) for
+    the host, with the header the card's build gets; returns the bound
+    ctypes library.  The lanes of the warp-per-env kernels run as threads
+    (the stand-in's wtw_host_launch_threads)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
     with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as fh:
         src = fh.read()
-    launcher = ("wtw_host_launch" if name == "megastep"
-                else "wtw_host_launch_threads")
     src, n = re.subn(rf"({name}_kernel<[\w, ]+>)<<<(\w+), (\w+), 0, \w+>>>"
                      r"\((\w+)\);",
-                     launcher + r"(\2, \3, [&] { \1(\4); });", src)
-    if name == "megastep":
-        assert n == 2, "expected the launches of K5 and K5-P"
-        header = t_pm.topology_header(model, 32, 6)
-        counts = t_pm.library_spec(model)[2]
-    elif name == "megastep_team":
-        assert n == 4, "expected the launches of K4, K4b, K4c and K4b-P"
-        header = t_pm.topology_header(model, 32, 6)
-        counts = t_pm.library_spec(model, team=True)[2]
+                     r"wtw_host_launch_threads(\2, \3, [&] { \1(\4); });",
+                     src)
+    if name == "megastep_team":
+        assert n == 6, ("expected the launches of K4, K4b, K4c, K4b-P, K5 "
+                        "and K5-P")
+        header, counts = t_pm.library_spec(model)[1:]
     elif name == "dynamics_substep":
         assert n == 2, "expected the launches of K3 and K3b"
         header, counts = t_pd.library_spec(model.anc_dof_body,
@@ -209,14 +193,11 @@ def build_host_library(model, out_dir, name="megastep"):
 
 
 def host_control_step(libs, args, kwargs):
-    """The kernel's outputs for one `control_step` call on CPU tensors: the
-    team kernel for the calls that build their entry cache in the launch
-    (reuse mode: K4, K4b, K4c, K4b-P), the one-thread kernel for exact mode
-    (K5)."""
-    name = ("megastep_team" if kwargs["entry_inputs"] is not None
-            else "megastep")
+    """The team kernel's outputs for one `control_step` call on CPU tensors
+    (reuse mode: K4, K4b, K4c, K4b-P; exact mode: K5, K5-P)."""
     ptrs, outs, floats, ints, _ = t_pm.kernel_operands(*args, **kwargs)
-    _build.launch(libs[name], name, ptrs, outs, floats, ints, 0)
+    _build.launch(libs["megastep_team"], "megastep_team", ptrs, outs, floats,
+                  ints, 0)
     return tuple(o for o in outs if o is not None)
 
 
@@ -362,7 +343,7 @@ def cases(n, steps, seed=0):
     return out
 
 
-LIBRARIES = ("megastep", "megastep_team", "dynamics_substep", "entry_cache")
+LIBRARIES = ("megastep_team", "dynamics_substep", "entry_cache")
 
 
 @pytest.fixture(scope="module")
@@ -433,6 +414,37 @@ def test_host_build_of_the_dynamics_substep_kernel_matches_its_plain_version(
         assert all(bool(torch.isfinite(o).all()) for o in out_k)
         if state_name != "after_reset":
             assert float(out_r[2][..., :N].abs().max()) > 0  # contacts
+
+
+def test_host_build_of_k5_rebuilds_the_cache_before_every_substep(host):
+    """K5 (the team kernel in exact mode) at a mid-stance state, feet on
+    the ground, against its plain version, every output within the
+    tolerance.  The same control step with the cache built once, at
+    substep 0 (anchored at the entry base position, every solve cold: the
+    plain version in reuse mode with `warm_iters` 0), lies beyond the
+    tolerance of the exact plain version there, so a kernel that rebuilt
+    its cache only at substep 0 would fail this test."""
+    libs, _ = host
+    n = 8
+    cfg = configs(n)["K5"]
+    env = t_env.LeggedRobotEnv(cfg, device="cpu")
+    gen = t_env.make_generator(3, "cpu")
+    state, _ = env.reset(gen)
+    for _ in range(10):
+        state, *_ = env.step(state, 0.3 * torch.randn((n, 12), generator=gen))
+    args, kwargs = kernel_call(env, state)
+    assert kwargs["exact_inputs"] is not None and args[-1] is None
+    out_k = host_control_step(libs, args, kwargs)
+    out_r = t_pm.control_step_reference(*args, **kwargs)
+    for nm, (max_abs, beyond) in errors(out_k, out_r, n).items():
+        assert beyond == 0, (nm, max_abs)
+    assert all(bool(torch.isfinite(o).all()) for o in out_k)
+    # mid-stance: some feet carry impulse in this step
+    assert int((out_r[8][..., :n].abs().amax(dim=1) > 0).sum()) >= 4
+    once = t_pm.control_step_reference(*args, **dict(
+        kwargs, exact_inputs=None, warm_iters=0,
+        entry_inputs=kwargs["exact_inputs"] + (None,)))
+    assert sum(e[1] for e in errors(once, out_r, n).values()) > 0
 
 
 def envs_beyond(out_k, out_r, n):

@@ -518,45 +518,50 @@ def test_entry_inputs_cache_matches_the_eager_build():
 
 def test_control_step_on_cuda_has_no_plain_path():
     """The wrapper's CUDA branch never reaches the plain version, for any
-    variant (K4, K4b, K4c with P control and K4b-P in the team kernel, K5
-    exact mode): it launches a kernel or raises for what the kernels do not
-    cover; its source does not name control_step_reference, the eager
-    entry-cache build, the exact-mode cache rebuild or a library product
+    variant (K4, K4b, K4c with P control and K4b-P in reuse mode, K5 and
+    K5-P in exact mode, all in the team kernel): it launches the kernel or
+    raises for what the kernel does not cover; its source does not name
+    control_step_reference, the eager entry-cache build, the exact-mode
+    cache rebuild, a library product or the removed one-thread kernel
     after the CPU return, and a tensor on neither the CPU nor a CUDA device
     raises.  Exact mode with normals raises on every device.  The operand
     packing, which runs before any launch, refuses a host-built cache or
-    normals (reuse mode builds them in the launch) and a call that is
-    neither reuse mode with entry_inputs nor exact mode; the one-thread
-    kernel's launcher refuses reuse mode."""
+    normals (the kernel builds them in the launch) and a call that is
+    neither reuse mode with entry_inputs nor exact mode; the team
+    kernel's launcher takes exact mode on flat ground without a seed
+    only."""
     import inspect
     src = inspect.getsource(t_pm.control_step)
     head, tail = src.split('if dev.type != "cuda"', 1)
     assert "control_step_reference" in head
     banned_names = ("control_step_reference", "entry_cache_reference",
                     "_cache_arrays", "envminor", "cache_columns", "lookup",
-                    "torch.matmul", "F.linear", "torch.compile", " @ ")
+                    "torch.matmul", "F.linear", "torch.compile", " @ ",
+                    "csrc/megastep.cu", '"megastep"', "megastep_launch",
+                    "KERNEL_THREADS")
     for banned in banned_names:
         assert banned not in tail, banned
-    # the variants each pass their own flags to a launch, packed by
-    # kernel_operands, which names no plain path either: the entry form
-    # (reuse mode, either torque model) to the team kernel, exact mode to
-    # the one-thread kernel
+    # the variants each pass their own flags to the team kernel's launch,
+    # packed by kernel_operands, which names no plain path either: reuse
+    # mode (the entry form) and exact mode, either torque model
     assert "kernel_operands(" in tail
     assert tail.index("kernel_operands(") < tail.index("_build.launch(")
     assert "exact_inputs is not None and n_t is not None" in tail
-    assert "team = entry_inputs is not None" in tail
-    assert '"megastep_team" if team else "megastep"' in tail
+    assert '_build.launch(lib, "megastep_team", ' in tail
+    assert "build_library(model, H, F)" in tail
     packing = inspect.getsource(t_pm.kernel_operands)
-    assert ("TEAM_THREADS if entry else KERNEL_THREADS, pctrl, exact,\n"
-            "            terrain is None, entry") in packing
+    assert ("ints = (Npad, D, num_iters, warm_iters, bool(contact), "
+            "TEAM_THREADS,\n"
+            "            pctrl, exact, terrain is None, c_rows, c_cols)"
+            ) in packing
     assert '"n_t"' not in packing and "em." not in packing
     assert 'given["corners"] = (terrain.corners, (c_rows, c_cols, 4))' \
         in packing
     for banned in banned_names:
         assert banned not in packing, banned
-    for counter in ("exact_launches += 1", "p_launches += 1",
-                    "normal_launches += 1", "p_normal_launches += 1",
-                    "launches += 1"):
+    for counter in ("exact_launches += 1", "p_exact_launches += 1",
+                    "p_launches += 1", "normal_launches += 1",
+                    "p_normal_launches += 1", "launches += 1"):
         assert counter in tail
     m = t_go1()
     meta = torch.zeros(12, 8, device="meta")
@@ -595,8 +600,12 @@ def test_control_step_on_cuda_has_no_plain_path():
                     given_em, *[None] * 4, n_t, cpu, cpu, cpu, cpu, cpu,
                     cpu, cpu, cpu, (cpu, cpu), None, None, None, None,
                     control_type=ctrl, entry_inputs=entry_in, **kw)
-    with open(os.path.join(_build.CSRC_DIR, "megastep.cu")) as fh:
-        one_thread = fh.read()
-    launcher = one_thread[one_thread.index('extern "C" int megastep_launch'):]
-    assert "|| !ip[P_EXACT]" in launcher
-    assert launcher.count("megastep_kernel<") == 2
+    assert not os.path.exists(os.path.join(_build.CSRC_DIR, "megastep.cu"))
+    with open(os.path.join(_build.CSRC_DIR, "megastep_team.cu")) as fh:
+        team = fh.read()
+    launcher = team[team.index('extern "C" int megastep_team_launch'):
+                    team.index('extern "C" const char* megastep_team_error')]
+    assert "(exact && (!flat || a.in[I_LAM] != nullptr))" in launcher
+    assert launcher.count("megastep_team_kernel<") == 6
+    assert launcher.count("megastep_team_kernel<true, true, true>") == 1
+    assert launcher.count("megastep_team_kernel<true, false, true>") == 1

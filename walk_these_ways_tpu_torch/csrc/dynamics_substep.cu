@@ -30,7 +30,7 @@
 //     neighbouring threads reading one row's neighbouring floats (one
 //     32-byte sector; a lane-strided read of env-minor rows would touch a
 //     sector for every float);
-//   - dynamics: team_dynamics twice, wtw_device.cuh dyn_core's statements
+//   - dynamics: team_dynamics twice, ops/dynamics.dyn_core's statements
 //     over the body, joint and dof lanes;
 //   - contact points: lane p (28 of 32) owns point p and keeps in registers
 //     its nonzero Jacobian columns (the six base columns and its leg's,
@@ -43,10 +43,10 @@
 //     the dof lanes and applies M^-1 there.
 // Every sum keeps the order of the one-thread kernel's statements
 // (wtw_contact.cuh contact_core_dev with the point->dof sparsity, and
-// dyn_core), which the plain version ops/dynamics.dynamics_substep_reference
-// follows, lazy apply after each sweep included: the kernel takes the
-// plain version's solver branches.  Lanes meet only at __syncwarp, the
-// block once after staging.
+// ops/dynamics.dyn_core), which the plain version
+// ops/dynamics.dynamics_substep_reference follows, lazy apply after each
+// sweep included: the kernel takes the plain version's solver branches.
+// Lanes meet only at __syncwarp, the block once after staging.
 //
 // Bound on this card (ops/dynamics.work_per_env): about 7.2 KB per env
 // moved, J's nonzero columns and M^-1 most of it (K3b 8.1 KB: the normals

@@ -15,8 +15,8 @@
 // What it writes, per env, about the base position of the state:
 //   Sw, Sv (nv, 3), A, B (nb, 9), m (nb), M^-1 (nv, nv): FK, twist bases,
 //     inertia blocks, CRBA and the closed-form M^-1 (wtw_team.cuh
-//     team_entry_cache: wtw_cache.cuh cache_columns_dev's statements over
-//     the lanes, as the team control-step kernel builds its entry cache);
+//     team_entry_cache: physics/envminor.cache_columns' statements over
+//     the lanes, as the team control-step kernel builds its cache);
 //   p_cp (P, 3) the contact points and r = p_cp - pos;
 //   on a heightfield rh = h + radius (P) and the unit normal n (P, 3) at
 //     (p_cp.x, p_cp.y) (wtw_device.cuh heightfield_sample, Terrain.lookup's

@@ -1,56 +1,67 @@
 // Whole-control-step kernel for Hopper (sm_90a), one warp per env: one
-// launch runs all `decimation` physics substeps of one control step in
-// reuse mode, with the entry cache built inside the launch.
+// launch runs all `decimation` physics substeps of one control step, with
+// the dynamics cache built inside the launch: once from the entry state in
+// reuse mode, before every substep from the current state in exact mode.
 //
 // Replaces: the JAX package's ops/pallas_megastep.py::_megastep_kernel (the
-// TPU kernel reached through control_step_pallas) in reuse mode, in the
-// compile-time variants of the template flags FLAT and PCTRL:
-//   K4     flat ground (FLAT true, n = +z), actuator network;
-//   K4b    on a heightfield (FLAT false), actuator network: the height and
-//          the surface normal under each contact point are sampled once, at
-//          the entry contact points, from the corner-packed heightfield
-//          (heightfield_sample, Terrain.lookup's arithmetic), and the
-//          normals enter the contact solve through its general-normal rows
-//          (normal_row_update);
-//   K4c    flat ground, P control (PCTRL true): tau = kp (tgt - q) - kd qd,
-//          no actuator histories;
-//   K4b-P  on a heightfield, P control.
-// Exact mode (K5) runs one thread per env in csrc/megastep.cu.
+// TPU kernel reached through control_step_pallas), in the compile-time
+// variants of the template flags FLAT, PCTRL and EXACT:
+//   K4     reuse mode, flat ground (FLAT true, n = +z), actuator network;
+//   K4b    reuse mode on a heightfield (FLAT false), actuator network: the
+//          height and the surface normal under each contact point are
+//          sampled once, at the entry contact points, from the
+//          corner-packed heightfield (heightfield_sample, Terrain.lookup's
+//          arithmetic), and the normals enter the contact solve through its
+//          general-normal rows (normal_row_update);
+//   K4c    reuse mode, flat ground, P control (PCTRL true): tau = kp (tgt -
+//          q) - kd qd, no actuator histories;
+//   K4b-P  reuse mode on a heightfield, P control;
+//   K5     exact mode (EXACT true) with the cache rebuild _cache_arrays,
+//          flat ground only, actuator network;
+//   K5-P   exact mode, P control.
+// Exact mode on a heightfield is not a variant: the env runs it as
+// `decimation` reuse-mode launches of one substep each.
 //
-// What it computes, per env (envs are independent), as the JAX kernel in
-// reuse mode with the cache of the entry state:
-//   once:    the dynamics cache of the entry state (the statements of
-//            wtw_cache.cuh cache_columns_dev: FK, twist bases, inertia
-//            blocks, CRBA, closed-form M^-1, contact points p_cp) about the
-//            entry base position; r = p_cp - pos; per point the leg-joint
-//            Jacobian columns and W_p = J_p M^-1 J_p^T + eps I (on a
-//            heightfield its six distinct entries and n^T W_p n, with rh =
-//            h + radius and n sampled at p_cp);
+// What it computes, per env (envs are independent), as the JAX kernel:
+//   cache:   the dynamics cache (the statements of physics/envminor
+//            cache_columns: FK, twist bases, inertia blocks, CRBA,
+//            closed-form M^-1, contact points p_cp) about the base position;
+//            r = p_cp - pos; per point the leg-joint Jacobian columns and
+//            W_p = J_p M^-1 J_p^T + eps I (on a heightfield its six distinct
+//            entries and n^T W_p n, with rh = h + radius and n sampled at
+//            p_cp).  Reuse mode builds it once, from the entry state;
+//            exact mode before every substep, from the current q, quat and
+//            pos, anchored at the current base position (delta = 0), with
+//            the contact points of that FK;
 //   D times: torque model (actuator MLP 6 -> H -> H -> 1, softsign, per
 //            joint; or P control) -> x motor strength -> torque clip ->
 //            joint-limit torque -> unconstrained dynamics twice (midpoint
 //            rule) -> row-decoupled projected-Jacobi contact solve on the
-//            total impulse, the first substep seeded
-//            from `lam_in` (or cold with `num_iters` sweeps without it), the
+//            total impulse (in reuse mode the first substep seeded
+//            from `lam_in`, or cold with `num_iters` sweeps without it, the
 //            later ones warm-started from the previous substep's impulses
-//            with `warm_iters` sweeps, gv += M^-1 J^T dlam after each sweep
+//            with `warm_iters` sweeps; in exact mode every solve cold with
+//            `num_iters` sweeps), gv += M^-1 J^T dlam after each sweep
 //            -> contact points advanced at velocity level -> velocity clips
 //            -> integrate pos / quaternion exp map / q.
 // The iteration counts and the arithmetic are the plain version's
-// (ops/megastep.control_step_reference fed the eager build of the same
-// cache) and csrc/megastep.cu's: the same statements in the same order,
-// spread over the lanes of a warp.
+// (ops/megastep.control_step_reference, in reuse mode fed the eager build
+// of the same cache): the same statements in the same order, spread over
+// the lanes of a warp.
 //
-// Design for this card.  The one-thread kernel ran about one warp per SM at
-// 4000 envs and kept ~5 KB of per-env arrays in local memory: it was bound
-// by instruction latency at under 1 % of its bound.  Here an env is a team
+// Design for this card.  One thread per env ran about one warp per SM at
+// 4000 envs and kept 4-5 KB of per-env arrays in local memory: it was bound
+// by instruction latency at 1 % of its bound or less.  Here an env is a team
 // of 32 lanes (one warp), TEAM_ENVS envs per block.  The parallel axes are
 // the algorithm's own:
-//   - the entry cache (team_entry_cache): FK over the joint lanes one tree
-//     depth at a time, twist bases over the joint lanes, inertia blocks and
-//     contact points over the body and point lanes, the CRBA's sums over
-//     the body and joint lanes, the closed-form M^-1's entries over all
-//     lanes (its 6 x 6 Schur inverse on lane 0), into shared memory;
+//   - the cache (team_entry_cache; exact mode runs it at the top of every
+//     substep, into the same shared memory): FK over the joint lanes one
+//     tree depth at a time, twist bases over the joint lanes, inertia
+//     blocks and contact points over the body and point lanes, the CRBA's
+//     sums over the body and joint lanes, the closed-form M^-1's entries
+//     over all lanes (its 6 x 6 Schur inverse on lane 0), into shared
+//     memory; then each point lane forms its own J columns and W entries
+//     from it (point_cache);
 //   - torque model: P control on the joint lanes; the actuator network
 //     with lane o as hidden unit o of every joint (H = 32);
 //     the weights come packed (ops/megastep.team_actuator_weights) so that
@@ -66,12 +77,12 @@
 //     its leg's points), then lane w forms row w of M^-1 x;
 //   - dynamics: body twists and bias forces over the 13 body lanes, the
 //     velocity-product terms over the 12 joint lanes, tau - bias and
-//     M^-1 (tau - bias) over the 18 dof lanes (wtw_device.cuh dyn_core's
+//     M^-1 (tau - bias) over the 18 dof lanes (ops/dynamics.dyn_core's
 //     statements).
-// Every sum is serial on one lane in the one-thread kernel's order (and the
-// cache build's entries are wtw_cache.cuh's statements), so no env crosses
-// a solver branch for another summation order.  Lanes meet only at
-// __syncwarp; no shuffles.
+// Every sum is serial on one lane in the plain version's order (and the
+// cache build's entries are physics/envminor.cache_columns' statements), so
+// no env crosses a solver branch for another summation order.  Lanes meet
+// only at __syncwarp; no shuffles.
 //
 // Memory.  Per env in shared memory (TeamEnv, 5,696 bytes): M^-1 (324
 // floats; M while the cache is built), the twist bases Sw / Sv (108), the
@@ -95,7 +106,9 @@
 // (K4b 2.9 KB; K4c 2.2 KB, K4b-P 2.6 KB) in and out and 0.26 MFLOP (K4b
 // 0.29; K4c 0.13, K4b-P 0.15) of fp32 on the CUDA cores, the cache build
 // once included, so at 4000 envs the least time is set by arithmetic
-// (about 0.016 ms; P control about 0.008 ms).  No tensor cores: TF32's
+// (about 0.016 ms; P control about 0.008 ms).  Exact mode (`exact`): per
+// env 2.1 KB (K5-P 1.8 KB) and 0.55 MFLOP (K5-P 0.42), D cache builds
+// included, about 0.033 ms (K5-P 0.025 ms).  No tensor cores: TF32's
 // 10-bit mantissa cannot hold the kernel-vs-plain tolerance, and the
 // kernels are built without fused multiply-adds (ops/_build.py).  The
 // measured numbers are kept in PERF.md.
@@ -118,9 +131,10 @@
 static_assert(NH == TEAM, "one lane per hidden unit of the actuator network");
 static_assert(NJ % 2 == 0, "the actuator network runs two joints at a time");
 
-template <bool FLAT, bool PCTRL>
+template <bool FLAT, bool PCTRL, bool EXACT>
 __global__ void __launch_bounds__(TEAM * TEAM_ENVS, TEAM_MIN_BLOCKS)
 megastep_team_kernel(const MegastepArgs a) {
+  static_assert(FLAT || !EXACT, "exact mode is flat-ground only");
   __shared__ TeamEnv team_envs[TEAM_ENVS];
   const int lane = threadIdx.x % TEAM;
   TeamEnv& s = team_envs[threadIdx.x / TEAM];
@@ -159,43 +173,56 @@ megastep_team_kernel(const MegastepArgs a) {
   const float mu = LD(I_MU, 0), rest = LD(I_E, 0);
   __syncwarp();
 
-  // ---- the entry cache, about the entry base position ----
-  {
-    const float comdisp[3] = {LD(I_COMDISP, 0), LD(I_COMDISP, 1),
-                              LD(I_COMDISP, 2)};
-    team_entry_cache(s, q, LD(I_PAYLOAD, 0), comdisp, mk, lane);
-  }
-
   // ---- the contact points: lane p owns point p ----
   float pcp[3] = {0.0f, 0.0f, 0.0f}, r[3] = {0.0f, 0.0f, 0.0f};
   float lam[3] = {0.0f, 0.0f, 0.0f}, nrm[3] = {0.0f, 0.0f, 1.0f};
   float Jl[GM][3];
   float W00 = 0.0f, W01 = 0.0f, W11 = 0.0f, W02 = 0.0f, W12 = 0.0f;
   float W22 = 0.0f, inv_wnn = 0.0f, rh = 0.0f;
-  const bool have_seed = a.in[I_LAM] != nullptr;
-  if (is_point) {
+  const bool have_seed = !EXACT && a.in[I_LAM] != nullptr;
+
+  // The cache about s.ref, and each point lane's contact point, r, J
+  // columns and W entries from it (reuse mode: and the seed impulse).
+  // Starts after and ends at a __syncwarp, after which the union is free.
+  auto build_cache = [&]() {
+    {
+      const float comdisp[3] = {LD(I_COMDISP, 0), LD(I_COMDISP, 1),
+                                LD(I_COMDISP, 2)};
+      team_entry_cache(s, q, LD(I_PAYLOAD, 0), comdisp, mk, lane);
+    }
+    if (is_point) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      pcp[i] = s.u.build.pcp[p][i];
-      r[i] = pcp[i] - s.pos[i];
-      lam[i] = have_seed ? LD(I_LAM, p * 3 + i) : 0.0f;
+      for (int i = 0; i < 3; ++i) {
+        pcp[i] = s.u.build.pcp[p][i];
+        r[i] = pcp[i] - s.pos[i];
+        if constexpr (!EXACT) lam[i] = have_seed ? LD(I_LAM, p * 3 + i) : 0.0f;
+      }
+      rh = LD(I_RH, p);
+      if constexpr (!FLAT) {
+        // height and normal under the contact point: rh = h + radius
+        float h;
+        heightfield_sample(a.in[I_CORNERS], a.c_rows, a.c_cols, a.f[F_HS],
+                           a.f[F_OX], a.f[F_OY], pcp[0], pcp[1], h, nrm);
+        rh = h + rh;
+      }
+      point_cache<FLAT>(p, ThreadRows{s.Minv, 0, 0}, s.sw, s.sv, r, Jl, W00,
+                        W01, W11, W02, W12, W22, inv_wnn, nrm, eps, relax);
     }
-    rh = LD(I_RH, p);
-    if constexpr (!FLAT) {
-      // height and normal under the entry contact point: rh = h + radius
-      float h;
-      heightfield_sample(a.in[I_CORNERS], a.c_rows, a.c_cols, a.f[F_HS],
-                         a.f[F_OX], a.f[F_OY], pcp[0], pcp[1], h, nrm);
-      rh = h + rh;
-    }
-    point_cache<FLAT>(p, ThreadRows{s.Minv, 0, 0}, s.sw, s.sv, r, Jl, W00,
-                      W01, W11, W02, W12, W22, inv_wnn, nrm, eps, relax);
-  }
-  __syncwarp();     // the entry contact points are read; the union is free
+    __syncwarp();
+  };
+  // reuse mode: the entry cache, about the entry base position
+  if constexpr (!EXACT) build_cache();
 
   // ---- D substeps ----
 #pragma unroll 1
   for (int si = 0; si < a.D; ++si) {
+    if constexpr (EXACT) {
+      // the whole cache from the current state, re-anchored at the current
+      // base position (delta = 0), with fresh FK contact points
+      if (lane < 3) s.ref[lane] = s.pos[lane];
+      __syncwarp();
+      build_cache();
+    }
     // torque model: P control on the joint lanes, or the per-joint MLP on
     // [err, el, ell, qd, vl, vll] whose weights are the nonzero blocks of
     // the block-diagonal matrices
@@ -288,7 +315,7 @@ megastep_team_kernel(const MegastepArgs a) {
     }
 
     if (a.contact) {
-      const bool warm = a.warm_iters > 0 && (si > 0 || have_seed);
+      const bool warm = !EXACT && a.warm_iters > 0 && (si > 0 || have_seed);
       const int iters = warm ? a.warm_iters : a.num_iters;
       // gap and velocity target from the free velocity
       float target = 0.0f, active = 0.0f;
@@ -418,12 +445,14 @@ megastep_team_kernel(const MegastepArgs a) {
 }
 
 // Plain C interface for ctypes, the argument list of wtw_megastep.cuh.
-// Takes reuse mode with the entry cache built here: in[I_PAYLOAD],
-// in[I_COMDISP]; on a heightfield (flat 0) the corner-packed field
-// in[I_CORNERS] of ip[P_CROWS] x ip[P_CCOLS] cells and its pitch and origin
-// f[F_HS], f[F_OX], f[F_OY]; the packed actuator weights in[I_NET] and the
-// histories, or with P control (ip[P_PCTRL]) the gains in[I_KP], in[I_KD]
-// and no histories.  Exact mode (csrc/megastep.cu) is refused.  `threads`
+// Reuse mode (ip[P_EXACT] 0) builds the entry cache here from in[I_PAYLOAD]
+// and in[I_COMDISP], and takes the cross-step seed in[I_LAM] where it is
+// not null; on a heightfield (flat 0) the corner-packed field in[I_CORNERS]
+// of ip[P_CROWS] x ip[P_CCOLS] cells and its pitch and origin f[F_HS],
+// f[F_OX], f[F_OY].  Exact mode (ip[P_EXACT]) takes the same payload and
+// COM shift, flat ground only and no seed.  Either torque model: the
+// packed actuator weights in[I_NET] and the histories, or with P control
+// (ip[P_PCTRL]) the gains in[I_KP], in[I_KD] and no histories.  `threads`
 // must be TEAM * TEAM_ENVS and npad a multiple of TEAM_ENVS.  Launches on
 // `stream`, does not synchronise, returns the launch's cudaError_t (0 =
 // launched).
@@ -432,8 +461,9 @@ extern "C" int megastep_team_launch(const void* const* in, void* const* out,
                                     void* stream) {
   const MegastepArgs a = megastep_args(in, out, f, ip);
   const int threads = ip[P_THREADS], flat = ip[P_FLAT], pctrl = ip[P_PCTRL];
+  const int exact = ip[P_EXACT];
   if (threads != TEAM * TEAM_ENVS || a.npad < 1 || a.npad % TEAM_ENVS
-      || a.D < 1 || ip[P_EXACT] || !ip[P_ENTRY]
+      || a.D < 1 || (exact && (!flat || a.in[I_LAM] != nullptr))
       || a.in[I_PAYLOAD] == nullptr || a.in[I_COMDISP] == nullptr
       || (pctrl ? (a.in[I_KP] == nullptr || a.in[I_KD] == nullptr)
                 : a.in[I_NET] == nullptr)
@@ -442,14 +472,18 @@ extern "C" int megastep_team_launch(const void* const* in, void* const* out,
     return (int)cudaErrorInvalidValue;
   const int blocks = a.npad / TEAM_ENVS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (flat && pctrl)
-    megastep_team_kernel<true, true><<<blocks, threads, 0, st>>>(a);
+  if (exact && pctrl)
+    megastep_team_kernel<true, true, true><<<blocks, threads, 0, st>>>(a);
+  else if (exact)
+    megastep_team_kernel<true, false, true><<<blocks, threads, 0, st>>>(a);
+  else if (flat && pctrl)
+    megastep_team_kernel<true, true, false><<<blocks, threads, 0, st>>>(a);
   else if (flat)
-    megastep_team_kernel<true, false><<<blocks, threads, 0, st>>>(a);
+    megastep_team_kernel<true, false, false><<<blocks, threads, 0, st>>>(a);
   else if (pctrl)
-    megastep_team_kernel<false, true><<<blocks, threads, 0, st>>>(a);
+    megastep_team_kernel<false, true, false><<<blocks, threads, 0, st>>>(a);
   else
-    megastep_team_kernel<false, false><<<blocks, threads, 0, st>>>(a);
+    megastep_team_kernel<false, false, false><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -462,23 +496,23 @@ extern "C" int megastep_team_counts(int* n_in, int* n_out, int* n_f) {
   return 0;
 }
 
-// Resident blocks per SM of the four instantiations, into blocks[0..3] in
-// the order K4, K4b, K4c, K4b-P, and the threads and static shared memory
-// per block (the same for all four); returns the cudaError_t.
+// Resident blocks per SM of the six instantiations, into blocks[0..5] in
+// the order K4, K4b, K4c, K4b-P, K5, K5-P, and the threads and static
+// shared memory per block (the same for all six); returns the cudaError_t.
 extern "C" int megastep_team_occupancy(int* blocks, int* threads,
                                        int* smem_bytes) {
   *threads = TEAM * TEAM_ENVS;
   *smem_bytes = (int)(sizeof(TeamEnv) * TEAM_ENVS);
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks[0], megastep_team_kernel<true, false>, *threads, 0);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks[1], megastep_team_kernel<false, false>, *threads, 0);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks[2], megastep_team_kernel<true, true>, *threads, 0);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks[3], megastep_team_kernel<false, true>, *threads, 0);
+  const void* kernels[6] = {
+      (const void*)megastep_team_kernel<true, false, false>,
+      (const void*)megastep_team_kernel<false, false, false>,
+      (const void*)megastep_team_kernel<true, true, false>,
+      (const void*)megastep_team_kernel<false, true, false>,
+      (const void*)megastep_team_kernel<true, false, true>,
+      (const void*)megastep_team_kernel<true, true, true>};
+  cudaError_t e = cudaSuccess;
+  for (int k = 0; k < 6 && e == cudaSuccess; ++k)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[k], kernels[k],
+                                                      *threads, 0);
   return (int)e;
 }

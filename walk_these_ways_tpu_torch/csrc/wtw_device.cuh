@@ -1,10 +1,11 @@
 // Device helpers shared by the port's CUDA kernels (csrc/*.cu): small 3-vector
-// and 3x3 arithmetic, the M^-1 product and the unconstrained dynamics.
+// and 3x3 arithmetic, row accessors, the M^-1 product, the heightfield
+// sample and the contact rows' updates.
 //
 // Include after the generated "wtw_topology.h" (ops/_build.py writes it into
-// the build directory).  That header always defines MS_NV and MS_P; when it
-// also carries the robot's topology (MS_NB, MS_NJ and the __constant__ tables
-// MS_ANC, MS_JOINT_BODY) the dynamics below are compiled too.
+// the build directory).  That header always defines MS_NV and MS_P, and
+// with the robot's topology (MS_NB, MS_NJ and the __constant__ tables) the
+// sizes below.
 //
 // Every operand in global memory is env-minor: element `row` of env `env`
 // lives at ptr[row * npad + env], so a warp reads 32 neighbouring floats.
@@ -51,10 +52,9 @@ __device__ __forceinline__ void m3tv(const float* M, const float* v,
   o[2] = M[2] * v[0] + M[5] * v[1] + M[8] * v[2];
 }
 
-// Row accessors.  The dynamics and the contact solve read M^-1, the inertia
-// blocks and the body masses through one of these, so that kernels whose
-// cache is read-only for the whole launch and the kernel that rewrites its
-// cache before every substep share one copy of that code.
+// Row accessors.  M^-1 is read through one of these, so that a kernel that
+// reads the cache from global memory and one that builds it itself share
+// one copy of the code that reads it.
 //
 // EnvRows: an env-minor operand in global memory that no thread writes during
 // the launch, read through the read-only data path (__ldg).
@@ -67,10 +67,10 @@ struct EnvRows {
   }
 };
 
-// ThreadRows: a per-thread array that the kernel itself rewrites (the
-// exact-mode cache), read with ordinary loads: the read-only path is not
-// coherent with the kernel's own stores.  `npad` and `env` are ignored; they
-// keep the two accessors constructible alike.
+// ThreadRows: an array that the kernel itself writes (the warp-per-env
+// kernels' cache in shared memory), read with ordinary loads: the
+// read-only path is not coherent with the kernel's own stores.  `npad` and
+// `env` are ignored; they keep the two accessors constructible alike.
 struct ThreadRows {
   const float* p;
   size_t npad;
@@ -199,119 +199,3 @@ __device__ __forceinline__ void flat_row_update(
   l[1] = ly * scale * active;
   l[2] = ln * active;
 }
-
-#ifdef MS_NB
-// Unconstrained dynamics: body twists over the static ancestor mask,
-// velocity-product terms, F = I a + V x* (I V) in 3x3 blocks, projection onto
-// the twist rows, qdd = M^-1 (tau - bias) + centripetal term.  Rows b * 9 + k
-// of `A` / `B` are the row-major 3x3 blocks of body b, row b of `mass` its
-// mass.
-template <class Rows, class MinvRows>
-__device__ __noinline__ void dyn_core(
-    const float (*sw)[3], const float (*sv)[3], const Rows A, const Rows B,
-    const Rows mass, const MinvRows Minv, const float* g, const float* tau,
-    const float* gv, float* qdd) {
-  float Vw[NB][3], Vv[NB][3];
-#pragma unroll 1
-  for (int b = 0; b < NB; ++b) {
-    float w[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
-    for (int d = 0; d < NV; ++d) {
-      if (MS_ANC[d * NB + b]) {
-        const float s = gv[d];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          w[i] += sw[d][i] * s;
-          v[i] += sv[d][i] * s;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) { Vw[b][i] = w[i]; Vv[b][i] = v[i]; }
-  }
-
-  float Cw[NJ][3], Cv[NJ][3];
-#pragma unroll 1
-  for (int j = 0; j < NJ; ++j) {
-    const int jb = MS_JOINT_BODY[j];
-    const float qd = gv[6 + j];
-    float c1[3], c2[3], c3[3];
-    cross3(Vw[jb], sw[6 + j], c1);
-    cross3(Vw[jb], sv[6 + j], c2);
-    cross3(Vv[jb], sw[6 + j], c3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Cw[j][i] = c1[i] * qd;
-      Cv[j][i] = (c2[i] + c3[i]) * qd;
-    }
-  }
-
-  float Fw[NB][3], Fv[NB][3];
-  float Fws[3] = {0.0f, 0.0f, 0.0f}, Fvs[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 1
-  for (int b = 0; b < NB; ++b) {
-    float aw[3] = {0.0f, 0.0f, 0.0f};
-    float av[3] = {-g[0], -g[1], -g[2]};
-    for (int j = 0; j < NJ; ++j) {
-      if (MS_ANC[(6 + j) * NB + b]) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) { aw[i] += Cw[j][i]; av[i] += Cv[j][i]; }
-      }
-    }
-    float A9[9], B9[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      A9[k] = A[b * 9 + k];
-      B9[k] = B[b * 9 + k];
-    }
-    const float mb = mass[b];
-    float t1[3], t2[3], IVw[3], IVv[3], IAw[3], IAv[3];
-    m3v(A9, Vw[b], t1); m3v(B9, Vv[b], t2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IVw[i] = t1[i] + t2[i];
-    m3tv(B9, Vw[b], t1);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IVv[i] = t1[i] + mb * Vv[b][i];
-    m3v(A9, aw, t1); m3v(B9, av, t2);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IAw[i] = t1[i] + t2[i];
-    m3tv(B9, aw, t1);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) IAv[i] = t1[i] + mb * av[i];
-    float x1[3], x2[3], x3[3];
-    cross3(Vw[b], IVw, x1); cross3(Vv[b], IVv, x2); cross3(Vw[b], IVv, x3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float fw = IAw[i] + x1[i] + x2[i];
-      const float fv = IAv[i] + x3[i];
-      Fw[b][i] = fw; Fv[b][i] = fv;
-      Fws[i] += fw; Fvs[i] += fv;
-    }
-  }
-
-  // tb = tau - bias; root rows of the twist basis are unit vectors
-  float tb[NV];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    tb[i] = tau[i] - Fws[i];
-    tb[3 + i] = tau[3 + i] - Fvs[i];
-  }
-#pragma unroll 1
-  for (int j = 0; j < NJ; ++j) {
-    float acc = 0.0f;
-    for (int b = 0; b < NB; ++b) {
-      if (MS_ANC[(6 + j) * NB + b]) {
-        acc += sw[6 + j][0] * Fw[b][0] + sw[6 + j][1] * Fw[b][1]
-             + sw[6 + j][2] * Fw[b][2]
-             + sv[6 + j][0] * Fv[b][0] + sv[6 + j][1] * Fv[b][1]
-             + sv[6 + j][2] * Fv[b][2];
-      }
-    }
-    tb[6 + j] = tau[6 + j] - acc;
-  }
-  minv_mul(Minv, tb, qdd);
-  float corr[3];
-  cross3(gv, gv + 3, corr);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) qdd[3 + i] += corr[i];
-}
-#endif  // MS_NB

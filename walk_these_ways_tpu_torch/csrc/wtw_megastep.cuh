@@ -1,21 +1,19 @@
-// What the two control-step kernels share: csrc/megastep_team.cu (one warp
-// per env, reuse mode: K4, K4b, K4c, K4b-P) and csrc/megastep.cu (one thread
-// per env, exact mode: K5, K5-P).  Both take one argument list, packed by
-// ops/megastep.kernel_operands, and both run the per-contact-point
-// arithmetic below: a point's velocity from the kept Jacobian columns, and
-// its columns and effective-mass entries.
+// The control-step kernel's argument list (csrc/megastep_team.cu: K4,
+// K4b, K4c, K4b-P in reuse mode, K5, K5-P in exact mode), packed by
+// ops/megastep.kernel_operands, and its per-contact-point arithmetic: a
+// point's velocity from the kept Jacobian columns, and its columns and
+// effective-mass entries.
 //
 // Include after the generated "wtw_topology.h".
 #pragma once
 #include "wtw_device.cuh"
 
-// Both kernels build the dynamics cache themselves, so no slot holds it.
+// The kernel builds the dynamics cache itself, so no slot holds it.
 enum InIdx {
   I_RH = 0, I_MU, I_E, I_G,
   I_LAM, I_Q, I_QD, I_POS, I_QUAT, I_LIN, I_ANG, I_TGT, I_STR,
-  I_W0, I_B0, I_W1, I_B1, I_W2, I_B2, I_EL, I_ELL, I_VL, I_VLL,
-  I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD, I_PAYLOAD, I_COMDISP,
-  I_CORNERS, I_NET, N_IN
+  I_EL, I_ELL, I_VL, I_VLL, I_VLIM, I_TLIM, I_QLO, I_QHI, I_KP, I_KD,
+  I_PAYLOAD, I_COMDISP, I_CORNERS, I_NET, N_IN
 };
 enum OutIdx {
   O_Q = 0, O_QD, O_POS, O_QUAT, O_LIN, O_ANG, O_PCP, O_PCPPREV, O_LAM,
@@ -25,10 +23,10 @@ enum FIdx {
   F_DT = 0, F_RELAX, F_BAUM_DT, F_SLOP, F_MAXDEPEN, F_BOUNCE, F_KLIM,
   F_DLIM, F_MAXANG, F_MAXLIN, F_EPS, F_HALFDT, F_HS, F_OX, F_OY, N_F
 };
-// the int scalars `ip` of both launchers
+// the int scalars `ip` of the launcher
 enum IntIdx {
   P_NPAD = 0, P_D, P_ITERS, P_WARM_ITERS, P_CONTACT, P_THREADS, P_PCTRL,
-  P_EXACT, P_FLAT, P_ENTRY, P_CROWS, P_CCOLS, N_IP
+  P_EXACT, P_FLAT, P_CROWS, P_CCOLS, N_IP
 };
 
 struct MegastepArgs {
@@ -38,7 +36,7 @@ struct MegastepArgs {
   int npad, D, num_iters, warm_iters, contact, c_rows, c_cols;
 };
 
-// The launchers' common part: pointers, scalars and the counts of the
+// The launcher's arguments: pointers, scalars and the counts of the
 // heightfield's cells.  `in` / `out` are host arrays of device pointers in
 // InIdx / OutIdx order, `f` the FIdx scalars, `ip` the IntIdx ints.
 inline MegastepArgs megastep_args(const void* const* in, void* const* out,

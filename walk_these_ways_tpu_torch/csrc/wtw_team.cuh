@@ -1,7 +1,7 @@
 // What the warp-per-env kernels share: one env is a team of 32 lanes (one
 // warp), TEAM_ENVS envs per block, and the env's data in shared memory
-// (TeamEnv).  Included by csrc/megastep_team.cu (the control-step kernel in
-// reuse mode: K4, K4b, K4c, K4b-P), csrc/dynamics_substep.cu (the
+// (TeamEnv).  Included by csrc/megastep_team.cu (the control-step kernel:
+// K4, K4b, K4c, K4b-P, K5, K5-P), csrc/dynamics_substep.cu (the
 // dynamics-substep kernel: K3, K3b) and csrc/entry_cache.cu (the
 // per-substep route's entry cache).
 //
@@ -10,16 +10,17 @@
 //                        bases, inertia blocks, masses, M^-1), the base
 //                        state, the generalized-velocity vectors and one
 //                        union reused by the phases;
-//   team_entry_cache     the dynamics cache of a state, wtw_cache.cuh
-//                        cache_columns_dev's statements spread over the
-//                        lanes (needs the model tables, MS_HAVE_MODEL);
-//   team_dynamics        wtw_device.cuh dyn_core's statements spread over
+//   team_entry_cache     the dynamics cache of a state, physics/envminor
+//                        cache_columns' statements spread over the lanes
+//                        (needs the model tables, MS_HAVE_MODEL);
+//   team_dynamics        ops/dynamics.dyn_core's statements spread over
 //                        the lanes;
 //   team_apply_impulses  gv += M^-1 sum_p J_p^T f_p from the points' rows;
 //   point_jt             one point's row of J^T f from r and its leg columns.
 //
-// Every sum is serial on one lane in the one-thread order, so a team kernel
-// and the plain version it is held to take the same solver branches.
+// Every sum is serial on one lane in the plain version's order, so a team
+// kernel and the plain version it is held to take the same solver
+// branches.
 // Include after the generated "wtw_topology.h".
 #pragma once
 #include "wtw_device.cuh"
@@ -60,7 +61,7 @@ __device__ __forceinline__ LaneMasks lane_masks(int lane) {
 
 // One env's shared memory.
 struct TeamEnv {
-  // the entry cache, built once per launch (Minv holds M while it is built)
+  // the dynamics cache (Minv holds M while it is built)
   float sw[NV][3], sv[NV][3];
   float A[NB * 9], B[NB * 9], m[NB];
   float Minv[NV * NV];
@@ -90,15 +91,15 @@ struct TeamEnv {
 };
 
 #ifdef MS_HAVE_MODEL
-// The dynamics cache of the entry state about the entry base position
-// s.ref, into s (sw, sv, A, B, m, Minv) and s.u.build.pcp: wtw_cache.cuh
-// cache_columns_dev's statements spread over the lanes — FK one tree depth
+// The dynamics cache of the state (s.quat, `q`) about the base position
+// s.ref, into s (sw, sv, A, B, m, Minv) and s.u.build.pcp: physics/envminor
+// cache_columns' statements spread over the lanes — FK one tree depth
 // at a time over the joint lanes, the body lanes' inertia blocks, the
 // CRBA's sums over the body and joint lanes, the closed-form M^-1's
 // entries over all lanes (6 x 6 Schur inverse on lane 0) — each entry
-// computed by the same statements in the same order, so the two agree
-// bit for bit.  `q`: lane j's joint angle.  Starts after and ends at a
-// __syncwarp.
+// computed by the same statements in the same order, so the two differ
+// by the float32 sinf and cosf only.  `q`: lane j's joint angle.  Starts
+// after and ends at a __syncwarp.
 __device__ __forceinline__ void team_entry_cache(TeamEnv& s, float q,
                                                  float payload,
                                                  const float* comdisp,
@@ -346,7 +347,7 @@ __device__ __forceinline__ void team_entry_cache(TeamEnv& s, float q,
 #endif  // MS_HAVE_MODEL
 
 // qdd = M^-1 (tau - bias) + centripetal term from the velocity in `gv`, all
-// in `s`: wtw_device.cuh dyn_core's statements spread over the lanes (body
+// in `s`: ops/dynamics.dyn_core's statements spread over the lanes (body
 // lanes, joint lanes, dof lanes), every sum serial in dyn_core's order.
 // Starts and ends at a __syncwarp.
 __device__ __forceinline__ void team_dynamics(TeamEnv& s, const float* gv,

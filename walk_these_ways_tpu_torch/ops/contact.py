@@ -346,21 +346,31 @@ def build_contact_cache(anc, Sw_t, Sv_t, Minv_t, r_t, eps: float = 1e-6):
         return cache_core(anc, Sw_t, Sv_t, Minv_t, r_t, eps=eps)
     if dev.type != "cuda":
         raise ValueError(f"build_contact_cache: unsupported device {dev}")
+    with torch.cuda.device(dev):
+        ptrs, outs, floats, ints = cache_operands(anc, Sw_t, Sv_t, Minv_t,
+                                                  r_t, eps)
+        _build.launch(cache_library(Sw_t.shape[0], r_t.shape[0]),
+                      "contact_cache", ptrs, outs, floats, ints,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    cache_launches += 1
+    return outs
+
+
+def cache_operands(anc, Sw_t, Sv_t, Minv_t, r_t, eps: float = 1e-6):
+    """The arguments of `contact_cache_launch` (csrc/contact_cache.cu):
+    input pointers, the outputs (J_t, W_t) allocated on the inputs' device,
+    the floats and the ints.  Checks every operand's device, dtype, shape
+    and contiguity."""
+    dev = Sw_t.device
     nv, _, Npad = Sw_t.shape
     P = r_t.shape[0]
     ins = [("anc", anc, (P, nv)), ("Sw_t", Sw_t, (nv, 3, Npad)),
            ("Sv_t", Sv_t, (nv, 3, Npad)), ("Minv_t", Minv_t, (nv, nv, Npad)),
            ("r_t", r_t, (P, 3, Npad))]
     ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
-    lib = cache_library(nv, P)
-    with torch.cuda.device(dev):
-        outs = (torch.empty((P, 3, nv, Npad), dtype=torch.float32, device=dev),
-                torch.empty((P, 9, Npad), dtype=torch.float32, device=dev))
-        _build.launch(lib, "contact_cache", ptrs, outs, (eps,),
-                      (Npad, CACHE_THREADS),
-                      torch.cuda.current_stream(dev).cuda_stream)
-    cache_launches += 1
-    return outs
+    outs = (torch.empty((P, 3, nv, Npad), dtype=torch.float32, device=dev),
+            torch.empty((P, 9, Npad), dtype=torch.float32, device=dev))
+    return ptrs, outs, (eps,), (Npad, CACHE_THREADS)
 
 
 def contact_substep(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
@@ -387,6 +397,25 @@ def contact_substep(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
                             vlim, **kw)
     if dev.type != "cuda":
         raise ValueError(f"contact_substep: unsupported device {dev}")
+    with torch.cuda.device(dev):
+        ptrs, outs, floats, ints = substep_operands(
+            J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, **kw)
+        _build.launch(substep_library(gv_t.shape[0], pcp_t.shape[0]),
+                      "contact_substep", ptrs, outs, floats, ints,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    substep_launches += 1
+    return outs
+
+
+def substep_operands(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
+                     num_iters: int, relaxation: float, dt: float,
+                     baumgarte: float, slop: float, max_depen: float,
+                     bounce_thresh: float):
+    """The arguments of `contact_substep_launch` (csrc/contact_substep.cu):
+    input pointers, the outputs (gv_new_t, pcp_new_t, lam_t) allocated on
+    the inputs' device, the floats and the ints.  Checks every operand's
+    device, dtype, shape and contiguity."""
+    dev = gv_t.device
     nv, Npad = gv_t.shape
     P = pcp_t.shape[0]
     ins = [("J_t", J_t, (P, 3, nv, Npad)), ("W_t", W_t, (P, 9, Npad)),
@@ -395,18 +424,11 @@ def contact_substep(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
            ("mu_t", mu_t, (1, Npad)), ("e_t", e_t, (1, Npad)),
            ("vlim", vlim, (nv, 1))]
     ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
-    lib = substep_library(nv, P)
-    with torch.cuda.device(dev):
-        outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
-                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
-                torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))
-        _build.launch(lib, "contact_substep", ptrs, outs,
-                      (dt, relaxation, baumgarte / dt, slop, max_depen,
-                       bounce_thresh),
-                      (Npad, num_iters, SUBSTEP_THREADS),
-                      torch.cuda.current_stream(dev).cuda_stream)
-    substep_launches += 1
-    return outs
+    outs = (torch.empty((nv, Npad), dtype=torch.float32, device=dev),
+            torch.empty((P, 3, Npad), dtype=torch.float32, device=dev),
+            torch.empty((P, 3, Npad), dtype=torch.float32, device=dev))
+    return ptrs, outs, (dt, relaxation, baumgarte / dt, slop, max_depen,
+                        bounce_thresh), (Npad, num_iters, SUBSTEP_THREADS)
 
 
 # -- work counts (bytes moved, fp32 operations) per env -----------------------

@@ -6,8 +6,8 @@ bias forces (Coriolis + gravity), unconstrained acceleration
 qdd = M^-1 (tau - bias) and the centripetal reference-point correction, on
 env-minor operands with the robot's static topology (ancestor masks,
 joint->body map) unrolled in Python, sparsity included.  `dyn_core` is the
-arithmetic the CUDA kernels (csrc/megastep.cu, csrc/dynamics_substep.cu) are
-held against.
+arithmetic the CUDA kernels (csrc/megastep_team.cu, csrc/dynamics_substep.cu)
+are held against.
 
 `dynamics_substep` is one whole substep — `dyn_core` twice (midpoint rule),
 then ops/contact.contact_core.  CPU tensors go to the plain version

@@ -10,32 +10,33 @@ here:
   `physics/envminor.cache_columns` before every substep.  It runs anywhere
   and is what the kernel is held against.
 - `control_step`: the wrapper.  CPU tensors go to the plain version; CUDA
-  tensors go to a hand-written kernel (both replace
-  `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.  There
-  is no fallback from a kernel to the plain version.  Reuse mode runs one
-  warp per env in `csrc/megastep_team.cu`, with the entry cache built and
-  the heightfield sampled inside its launch (`entry_inputs`): K4 (flat
-  ground) and K4b (on a heightfield) with the actuator network, K4c and
-  K4b-P with P control.  K5 (exact mode, flat ground, either torque model)
-  runs one thread per env in `csrc/megastep.cu`.
+  tensors go to the hand-written kernel `csrc/megastep_team.cu` (it
+  replaces `ops/pallas_megastep.py::_megastep_kernel`), or the call raises.
+  There is no fallback from the kernel to the plain version.  It runs one
+  warp per env and builds the dynamics cache inside its launch: in reuse
+  mode once, from the entry state, with the heightfield sampled there
+  (`entry_inputs`): K4 (flat ground) and K4b (on a heightfield) with the
+  actuator network, K4c and K4b-P with P control; in exact mode
+  (`exact_inputs`, flat ground) before every substep: K5 with the actuator
+  network, K5-P with P control.
 - `blockdiag_actuator_weights`: host helper that lays the 12 per-joint
   actuator MLPs (6 -> 32 -> 32 -> 1, softsign) out as block-diagonal
   matrices, with features stacked as X[12 f + j] = feature f of joint j.
   The plain version evaluates them as three dense products; the kernel
   reads only the nonzero blocks.
 
-The kernels are built at first use with `nvcc` for sm_90a into `build/` at
-the repo root (or `$WTW_TORCH_BUILD_DIR`), from their sources and a topology
-header generated from the RobotModel, and are bound through `ctypes`
+The kernel is built at first use with `nvcc` for sm_90a into `build/` at
+the repo root (or `$WTW_TORCH_BUILD_DIR`), from its source and a topology
+header generated from the RobotModel, and is bound through `ctypes`
 (ops/_build.py, shared by all the port's kernels).
 
-Bound of the kernels on an H100 (see their sources and `work_per_env`):
-a few KB moved and 0.1-0.6 MFLOP fp32 per env and control step; at 4000 envs
-the least time is tens of microseconds and is set by arithmetic.
+Bound of the kernel on an H100 (see its source and `work_per_env`): a few
+KB moved and 0.1-0.6 MFLOP fp32 per env and control step; at 4000 envs the
+least time is tens of microseconds and is set by arithmetic.
 
 `launches` (K4), `p_launches` (K4c), `normal_launches` (K4b),
-`p_normal_launches` (K4b-P) and `exact_launches` (K5) count kernel launches
-(and nothing else).
+`p_normal_launches` (K4b-P), `exact_launches` (K5) and `p_exact_launches`
+(K5-P) count kernel launches (and nothing else).
 """
 from __future__ import annotations
 
@@ -49,19 +50,18 @@ from . import dynamics as pd
 
 # number of times `control_step` launched each kernel variant: K4 (reuse,
 # actuator network), K4c (reuse, P control), K4b (reuse on a heightfield,
-# actuator network), K4b-P (the same with P control), K5 (exact mode)
+# actuator network), K4b-P (the same with P control), K5 (exact mode,
+# actuator network), K5-P (exact mode, P control)
 launches = 0
 p_launches = 0
 normal_launches = 0
 p_normal_launches = 0
 exact_launches = 0
+p_exact_launches = 0
 
-# threads per block of csrc/megastep.cu (K5): one env per thread; at 4000
-# envs a 32-thread block spreads the batch over the most SMs
-KERNEL_THREADS = 32
-# csrc/megastep_team.cu (K4, K4b, K4c, K4b-P): one warp of 32 lanes per
-# env, TEAM_ENVS envs (TEAM_THREADS threads) per block; the env axis is
-# padded to engine.MEGASTEP_BLOCK, which TEAM_ENVS divides
+# csrc/megastep_team.cu: one warp of 32 lanes per env, TEAM_ENVS envs
+# (TEAM_THREADS threads) per block; the env axis is padded to
+# engine.MEGASTEP_BLOCK, which TEAM_ENVS divides
 TEAM_ENVS = 8
 TEAM_THREADS = 32 * TEAM_ENVS
 
@@ -397,32 +397,28 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
 
 
 def topology_header(model, hidden: int, features: int) -> str:
-    """C header with the robot's static tables for csrc/megastep.cu and
-    csrc/megastep_team.cu: the topology, and the model constants of the
-    cache build."""
+    """C header with the robot's static tables for csrc/megastep_team.cu:
+    the topology, and the model constants of the cache build."""
     return (_build.topology_header(model.anc_dof_body, model.joint_body,
                                    model.cp_body, hidden, features)
             + _build.model_tables(model))
 
 
-_N_IN, _N_OUT, _N_F = 33, 14, 15
+_N_IN, _N_OUT, _N_F = 27, 14, 15
 
 
-def library_spec(model, hidden: int = 32, features: int = 6,
-                 team: bool = False):
-    """What `_build.build_libraries` needs to build csrc/megastep.cu (K5
-    with either torque model) or, with `team`, csrc/megastep_team.cu (K4,
-    K4b, K4c, K4b-P).  Both take one argument list."""
-    return ("megastep_team" if team else "megastep",
-            topology_header(model, hidden, features), (_N_IN, _N_OUT, _N_F))
+def library_spec(model, hidden: int = 32, features: int = 6):
+    """What `_build.build_libraries` needs to build csrc/megastep_team.cu
+    (K4, K4b, K4c, K4b-P, K5, K5-P)."""
+    return ("megastep_team", topology_header(model, hidden, features),
+            (_N_IN, _N_OUT, _N_F))
 
 
-def build_library(model, hidden: int = 32, features: int = 6,
-                  team: bool = False):
+def build_library(model, hidden: int = 32, features: int = 6):
     """Compile the kernel's source for sm_90a (once per topology and
     source) and load it.  Returns the ctypes library.  Raises on any
     failure."""
-    return _build.build_library(*library_spec(model, hidden, features, team))
+    return _build.build_library(*library_spec(model, hidden, features))
 
 
 def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
@@ -443,17 +439,17 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
 
     Tensors on the CPU: the plain version, with `entry_inputs` the eager
     build of the entry cache (`entry_cache_reference`) first.  Tensors on a
-    CUDA device: a kernel, launched on the current stream without
-    synchronising, outputs allocated here: reuse mode takes `entry_inputs`
-    and runs csrc/megastep_team.cu, which builds the entry cache and
-    samples the heightfield in its launch (K4, K4b with the actuator
-    network, K4c, K4b-P with P control); exact mode takes `exact_inputs`
-    and runs csrc/megastep.cu (K5).  Neither takes a host-built cache `em`
-    or normals `n_t` there.  Exact mode with `n_t` raises on every device,
-    as does anything else the kernels do not take on a CUDA device and a
-    failed build or launch."""
+    CUDA device: csrc/megastep_team.cu, launched on the current stream
+    without synchronising, outputs allocated here: reuse mode takes
+    `entry_inputs`, and the kernel builds the entry cache and samples the
+    heightfield in its launch (K4, K4b with the actuator network, K4c,
+    K4b-P with P control); exact mode takes `exact_inputs`, and the kernel
+    rebuilds the cache before every substep (K5, K5-P).  It takes no
+    host-built cache `em` or normals `n_t`.  Exact mode with `n_t` raises
+    on every device, as does anything else the kernel does not take on a
+    CUDA device and a failed build or launch."""
     global launches, p_launches, normal_launches, p_normal_launches
-    global exact_launches
+    global exact_launches, p_exact_launches
     kw = dict(model=model, control_type=control_type, dt=dt,
               num_iters=num_iters, warm_iters=warm_iters,
               relaxation=relaxation, baumgarte=baumgarte, slop=slop,
@@ -482,13 +478,13 @@ def control_step(em, rh_t, mu_t, e_t, g_t, n_t,
     ptrs, outs, floats, ints, (H, F) = kernel_operands(
         em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
         tgt_t, strengths_t, ctrl_inputs, vlim, tlim, qlo, qhi, lam_in_t, **kw)
-    team = entry_inputs is not None
-    lib = build_library(model, H, F, team)
+    lib = build_library(model, H, F)
     with torch.cuda.device(dev):
-        _build.launch(lib, "megastep_team" if team else "megastep", ptrs,
-                      outs, floats, ints,
+        _build.launch(lib, "megastep_team", ptrs, outs, floats, ints,
                       torch.cuda.current_stream(dev).cuda_stream)
-    if exact_inputs is not None:
+    if exact_inputs is not None and control_type == "P":
+        p_exact_launches += 1
+    elif exact_inputs is not None:
         exact_launches += 1
     elif control_type == "P" and entry_inputs[2] is not None:
         p_normal_launches += 1
@@ -512,13 +508,12 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
                     max_base_lin_vel: float, decimation: int,
                     eps: float = 1e-6, exact_inputs=None, entry_inputs=None):
     """The arguments of `megastep_team_launch` (csrc/megastep_team.cu,
-    reuse mode: `entry_inputs`) or `megastep_launch` (csrc/megastep.cu,
-    exact mode: `exact_inputs`) for one control step
-    (csrc/wtw_megastep.cuh): input pointers in InIdx order (null where the
-    variant reads nothing), the output tensors, allocated on the inputs'
-    device, in OutIdx order (None where the variant writes nothing), the
-    FIdx floats, the IntIdx ints and the actuator network's (hidden,
-    features).  Both kernels build the dynamics cache themselves: a
+    reuse mode: `entry_inputs`; exact mode: `exact_inputs`) for one control
+    step (csrc/wtw_megastep.cuh): input pointers in InIdx order (null where
+    the variant reads nothing), the output tensors, allocated on the
+    inputs' device, in OutIdx order (None where the variant writes
+    nothing), the FIdx floats, the IntIdx ints and the actuator network's
+    (hidden, features).  The kernel builds the dynamics cache itself: a
     host-built cache `em` or normals `n_t` raise, as does a call with
     neither or both of `entry_inputs` and `exact_inputs`.  Checks every
     operand's device, dtype, shape and contiguity."""
@@ -527,11 +522,11 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
     exact = exact_inputs is not None
     entry = entry_inputs is not None
     if exact == entry:
-        raise ValueError("the kernels take reuse mode with entry_inputs "
-                         "(the team kernel) or exact mode with exact_inputs")
+        raise ValueError("the kernel takes reuse mode with entry_inputs "
+                         "or exact mode with exact_inputs")
     if em is not None or n_t is not None:
-        raise ValueError("the kernels build the cache and sample the "
-                         "normals themselves: em and n_t must be None")
+        raise ValueError("the kernel builds the cache and samples the "
+                         "normals itself: em and n_t must be None")
     terrain = entry_inputs[2] if entry else None
 
     nv = model.nv
@@ -555,12 +550,11 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
                   ("W2b", W2b, (nj, nj * H)), ("b2b", b2b, (nj, 1)))
         for name, x, shape in blocks:
             _build.check(name, x, shape, dev)
-        if entry:       # the team kernel reads the packed nonzero blocks
-            blocks = (("net_t", team_actuator_weights(*ctrl_inputs[:6]),
-                       (nj * (F * H + H * H + 3 * H + 1),)),)
-        net = blocks + (
-            ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
-            ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)))
+        # the kernel reads the packed nonzero blocks
+        net = (("net_t", team_actuator_weights(*ctrl_inputs[:6]),
+                (nj * (F * H + H * H + 3 * H + 1),)),
+               ("el_t", el_t, (nj, Npad)), ("ell_t", ell_t, (nj, Npad)),
+               ("vl_t", vl_t, (nj, Npad)), ("vll_t", vll_t, (nj, Npad)))
     given = dict((name, (x, shape)) for name, x, shape in net + (
         ("rh_t", rh_t, (P, Npad)), ("mu_t", mu_t, (1, Npad)),
         ("e_t", e_t, (1, Npad)), ("g_t", g_t, (3, Npad)),
@@ -585,13 +579,12 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
         given["corners"] = (terrain.corners, (c_rows, c_cols, 4))
         hs = terrain.horizontal_scale
         ox, oy = terrain.origin_xy
-    # the kernels' input slots, in csrc/wtw_megastep.cuh's InIdx order; a
+    # the kernel's input slots, in csrc/wtw_megastep.cuh's InIdx order; a
     # slot the variant does not read stays null
     slots = ("rh_t", "mu_t", "e_t", "g_t", "lam_in_t", "q_t", "qd_t",
              "pos_t", "quat_t", "lin_t", "ang_t", "tgt_t", "strengths_t",
-             "W0b", "b0b", "W1b", "b1b", "W2b", "b2b", "el_t", "ell_t",
-             "vl_t", "vll_t", "vlim", "tlim", "qlo", "qhi", "kp_t", "kd_t",
-             "payload_t", "comdisp_t", "corners", "net_t")
+             "el_t", "ell_t", "vl_t", "vll_t", "vlim", "tlim", "qlo", "qhi",
+             "kp_t", "kd_t", "payload_t", "comdisp_t", "corners", "net_t")
     assert len(slots) == _N_IN and set(given) <= set(slots)
     ptrs = [None if name not in given else
             _build.check(name, given[name][0], given[name][1], dev).data_ptr()
@@ -606,9 +599,8 @@ def kernel_operands(em, rh_t, mu_t, e_t, g_t, n_t, q_t, qd_t, pos_t, quat_t,
     floats = (dt, relaxation, baumgarte / dt, slop, max_depen, bounce_thresh,
               limit_stiffness, limit_damping, max_base_ang_vel,
               max_base_lin_vel, eps, 0.5 * dt, hs, ox, oy)
-    ints = (Npad, D, num_iters, warm_iters, bool(contact),
-            TEAM_THREADS if entry else KERNEL_THREADS, pctrl, exact,
-            terrain is None, entry, c_rows, c_cols)
+    ints = (Npad, D, num_iters, warm_iters, bool(contact), TEAM_THREADS,
+            pctrl, exact, terrain is None, c_rows, c_cols)
     return ptrs, outs, floats, ints, (H, F)
 
 
@@ -673,7 +665,7 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
     substep warm-started with `warm_iters` sweeps (cold with `num_iters`
     where `warm_iters` is 0); K4b also reads the normals, forms W's six
     distinct entries and n^T W n, and runs the general-normal rows.  Exact
-    mode (K5): payload and COM shift in place of the cache, which is
+    mode (K5, K5-P): payload and COM shift in place of the cache, which is
     rebuilt (`cache_rebuild_ops`) and formed into J and W before every
     substep, and every solve runs `num_iters` sweeps from a cold start.
     With `entry` (the team kernel's variants, K4, K4b, K4c, K4b-P): reuse

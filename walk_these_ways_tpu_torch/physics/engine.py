@@ -446,8 +446,8 @@ def megakernel_args(
       state built here on the host (`build_pallas_env_inputs`), with the
       surface normals on a heightfield, for the plain version (the kernels
       refuse it);
-    - exact mode (K5): the payload and COM shift the kernel rebuilds the
-      cache from before every substep (`exact_inputs`)."""
+    - exact mode (K5, K5-P): the payload and COM shift the kernel rebuilds
+      the cache from before every substep (`exact_inputs`)."""
     f32 = state.base_pos.dtype
     dev = state.base_pos.device
     block = MEGASTEP_BLOCK
@@ -549,11 +549,11 @@ def control_step_megakernel(
     enter the general-normal contact rows): the team kernel builds the
     entry cache and samples the heightfield itself in its launch, with
     the actuator network (K4, K4b) or P control (K4c, K4b-P).  With
-    `exact=True`, exact per-substep semantics: the kernel rebuilds the whole
-    cache (FK/twists/inertia/CRBA/M^-1/J/W) from the current state before
-    every substep (flat ground only; every contact solve starts cold, as in
-    the per-substep exact route).  On CPU tensors the plain version runs
-    the same steps eagerly.  Arguments as `megakernel_args`.
+    `exact=True`, exact per-substep semantics: the team kernel rebuilds the
+    whole cache (FK/twists/inertia/CRBA/M^-1/J/W) from the current state
+    before every substep (K5, K5-P; flat ground only; every contact solve
+    starts cold, as in the per-substep exact route).  On CPU tensors the
+    plain version runs the same steps eagerly.  Arguments as `megakernel_args`.
 
     Returns (new_state, lam_t, pcp_t, pcp_prev_t, torques (N, 12),
     hist (dict of (N, 12) actuator histories, empty for P control))."""

@@ -13,8 +13,8 @@ Outputs are stacked directly into the env-minor `(..., Npad)` layouts the
 kernels consume (ops/megastep.py, ops/contact.py, ops/dynamics.py).  Run
 eagerly this is a few thousand small tensor ops per control step; it is
 the plain version of the build that the kernels run in their launch: the
-team control-step kernel and the per-substep route's entry-cache kernel
-(csrc/wtw_team.cuh), and K5 (csrc/wtw_cache.cuh).
+team control-step kernel (once, or in exact mode before every substep) and
+the per-substep route's entry-cache kernel (csrc/wtw_team.cuh).
 """
 from __future__ import annotations
 
@@ -322,8 +322,8 @@ def cache_columns(model, q_cols, base_quat_cols, ref, payload,
 
 
 # number of eager cache builds (`build_cache_envminor` calls); no route on
-# the card makes one (the team kernel, K4, K4b, K4c and K4b-P, builds the
-# entry cache in its launch, K5 before every substep, and the per-substep
+# the card makes one (the team kernel builds the cache in its launch: K4,
+# K4b, K4c and K4b-P once, K5 and K5-P before every substep; the per-substep
 # route launches ops/entry_cache.py); the CPU routes and the plain versions
 # make them
 cache_builds = 0
