@@ -56,14 +56,28 @@ MUTANTS = (
      "[](const TeamEnv& e, int k) { return -(&e.sv[0][0])[k]; });",
      "entry_cache"),
     ("contact_cache_drops_the_cross_product", "contact_cache.cu",
-     "const float j = m * (sv[i] + c[i]);", "const float j = m * (sv[i]);",
+     "j[i] = m * (sv[i] + c[i]);", "j[i] = m * (sv[i]);",
      "contact_cache"),
-    # the one-thread contact solve, K2's
-    ("contact_solve_friction_sign", "wtw_contact.cuh",
-     "const float dlt = -c.relax * vtn / w_tt;",
-     "const float dlt = c.relax * vtn / w_tt;", "contact_substep"),
+    # K1's column lists drop the last column that `anc` sets (the last
+    # leg's last dof): J there is written as a zero and W loses its terms
+    ("contact_cache_column_list_drops_a_column", "contact_cache.cu",
+     "    for (int v = 0; v < NV; ++v) {\n      const float m = __ldg(",
+     "    for (int v = 0; v < NV - 1; ++v) {\n      const float m = __ldg(",
+     "contact_cache"),
+    # K2's friction row pushes along the slip (the relaxation's sign flipped
+    # in the friction step only: 1 / w_nn is formed before the call)
+    ("contact_solve_friction_sign", "contact_substep.cu",
+     "flat_row_update(v, W00, W01, W11, target, inv_wnn, relax, mu,",
+     "flat_row_update(v, W00, W01, W11, target, inv_wnn, -relax, mu,",
+     "contact_substep"),
     ("contact_substep_halved_relaxation", "contact_substep.cu",
-     "a.c.relax = f[F_RELAX];", "a.c.relax = 0.5f * f[F_RELAX];",
+     "const float relax = a.f[F_RELAX],",
+     "const float relax = 0.5f * a.f[F_RELAX],", "contact_substep"),
+    # K2's dense impulse apply leaves the last point (the last leg's foot)
+    # out of the dof sums
+    ("contact_substep_apply_skips_a_point", "contact_substep.cu",
+     "for (int p = 0; p < NP; ++p) acc += s.jt[p][lane];",
+     "for (int p = 0; p < NP - 1; ++p) acc += s.jt[p][lane];",
      "contact_substep"),
     ("contact_cache_does_not_compile", "contact_cache.cu",
      "const size_t npad = (size_t)a.npad;", "const size_t npad = (size_t)a.npad",

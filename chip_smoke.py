@@ -10,7 +10,9 @@ K4, K4c with P control, K4b and K4b-P on a heightfield, in exact mode K5
 and K5-P with P control, the cache rebuilt before every substep;
 csrc/dynamics_substep.cu K3 and K3b on a heightfield, one warp per env;
 csrc/entry_cache.cu the per-substep route's entry cache, flat and on a
-heightfield; csrc/contact_cache.cu K1; csrc/contact_substep.cu K2), holds
+heightfield; csrc/contact_cache.cu K1, a tile of 16 envs a block with the
+operands staged in shared memory once; csrc/contact_substep.cu K2, one warp
+per env), prints the resident warps per SM of each kernel, holds
 each kernel against its plain PyTorch version on the card at the shapes
 the paths below give it (4000 envs), then drives the port's paths through
 the entry points a user calls and checks what comes out:
@@ -710,12 +712,13 @@ def rough_route(name, config, env_x, policy, steps, gen, expect_counts, smi):
         config=config, need_resets=False, got=counts())
 
 
-def team_occupancy(lib, name, variants):
-    """Launch shape of a warp-per-env kernel (`name`: megastep_team,
-    dynamics_substep or entry_cache) and the resident blocks and warps per
-    SM of its instantiations, `variants` in the order its
+def team_occupancy(lib, name, variants, envs_per_block=None):
+    """Launch shape of a kernel (`name`: megastep_team, dynamics_substep,
+    entry_cache, contact_cache or contact_substep) and the resident blocks
+    and warps per SM of its instantiations, `variants` in the order its
     `<name>_occupancy` reports them
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  `envs_per_block`:
+    one env per warp where not given."""
     blocks = (ctypes.c_int * len(variants))()
     threads, smem = ctypes.c_int(), ctypes.c_int()
     fn = getattr(lib, name + "_occupancy")
@@ -725,13 +728,14 @@ def team_occupancy(lib, name, variants):
     threads, smem = threads.value, smem.value
     per_sm = dict(zip(variants, blocks))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    envs_per_block = threads // 32
+    warps_per_block = -(-threads // 32)
+    envs_per_block = envs_per_block or warps_per_block
     say(phase="team_occupancy",
         kernel=f"{name} ({', '.join(variants)})",
         threads_per_block=threads, envs_per_block=envs_per_block,
         static_shared_bytes_per_block=smem, multiprocessors=sms,
         blocks_per_sm=per_sm,
-        warps_per_sm={k: b * envs_per_block for k, b in per_sm.items()},
+        warps_per_sm={k: b * warps_per_block for k, b in per_sm.items()},
         waves_at_n_envs=dict(n_envs=N_ENVS, **{
             k: N_ENVS / max(1, b * envs_per_block * sms)
             for k, b in per_sm.items()}),
@@ -864,6 +868,8 @@ def main():
                    ("K4", "K4b", "K4c", "K4b-P", "K5", "K5-P"))
     team_occupancy(libs[3], "dynamics_substep", ("K3", "K3b"))
     team_occupancy(libs[4], "entry_cache", ("flat", "heightfield"))
+    team_occupancy(libs[1], "contact_cache", ("K1",), contact.CACHE_ENVS)
+    team_occupancy(libs[2], "contact_substep", ("K2",))
 
     # ---- policy: seeded actor/critic + the committed adaptation module --
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
@@ -966,7 +972,7 @@ def main():
         lambda: contact.cache_core(*k1, eps=1e-6),
         contact.cache_work_per_env(anc_p_np), N,
         launch=contact_cache_launch(k1),
-        threads_per_block=contact.CACHE_THREADS,
+        threads_per_block=contact.cache_threads(P),
         max_abs_err_vs_plain=worst["contact_cache"])
     iters = cfg.sim.num_contact_iters
     timed["contact_substep"] = timing(
@@ -1338,10 +1344,11 @@ def main():
          "warp per env)", "megastep_team.cu",
          "/ops/pallas_megastep.py:154"),
         ("contact_cache", "build_contact_cache (K1: point Jacobians J and "
-         "effective masses W)", "contact_cache.cu",
+         "effective masses W, a tile of 16 envs a block, operands staged "
+         "in shared memory once)", "contact_cache.cu",
          "/ops/pallas_contact.py:131"),
         ("contact_substep", "contact_substep (K2: contact solve + point "
-         "advance on cached J/W)", "contact_substep.cu",
+         "advance on cached J/W, one warp per env)", "contact_substep.cu",
          "/ops/pallas_contact.py:372"),
         ("dynamics_substep", "dynamics_substep (K3: unconstrained dynamics, "
          "midpoint rule, then the contact solve, flat ground, one warp per "

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the warp-per-env kernels goes, on one NVIDIA GPU.
+"""Where the time of the port's kernels goes, on one NVIDIA GPU.
 
-    python3 kernel_ablation.py
+    python3 kernel_ablation.py [source ...]
 
-Builds `csrc/megastep_team.cu` (the team control-step kernel) and
-`csrc/dynamics_substep.cu` (the dynamics-substep kernel) as they are and in
-copies with one part of their work cut out or one launch setting changed
-(one text edit each, under `build/ablation/`, one nvcc each, all started
+Builds `csrc/megastep_team.cu` (the team control-step kernel),
+`csrc/dynamics_substep.cu` (the dynamics-substep kernel),
+`csrc/contact_cache.cu` (K1) and `csrc/contact_substep.cu` (K2), or the
+sources named (`megastep_team`, `dynamics_substep`, `contact_cache`,
+`contact_substep`), as they are and in copies with one part of their work
+cut out or one launch setting changed (one text edit each, under `build/ablation/`, one nvcc each, all started
 together), times every copy with CUDA events over 20 launches on its
 source's inputs, each 24 random control steps in at 4000 envs: for the team
 kernel the default route's arguments (K4, `mob_train_cfg`), the P-control
@@ -16,7 +18,10 @@ flat configurations with `sim.reuse_matrices=False`; for them also a copy
 whose per-substep cache rebuild is cut to substep 0); for the
 dynamics-substep kernel the
 first substep's arguments on the per-substep route (K3, `mob_train_cfg`;
-K3b, `rough_train_cfg`; `sim.megastep=False`).  Prints one JSON line per
+K3b, `rough_train_cfg`; `sim.megastep=False`); for K1 and K2 the same
+substep of `mob_train_cfg`'s per-substep route (K1 on the entry cache the
+card builds, K2 on K1's J and W and the entry velocity).  Prints one JSON
+line per
 input and variant with its time beside the unchanged kernel's and ptxas's
 registers and spills, then the card's name and power limit.  The cut
 copies compute wrong results: they are timed, never checked
@@ -42,7 +47,7 @@ from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
 from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
     mob_train_cfg, rough_train_cfg, small_train_cfg)
 from walk_these_ways_tpu_torch.ops import (  # noqa: E402
-    _build, contact, dynamics, megastep)
+    _build, contact, dynamics, entry_cache, megastep)
 from walk_these_ways_tpu_torch.physics import engine  # noqa: E402
 
 UNBOUNDED = ("registers_unbounded", "__launch_bounds__ asks for no number "
@@ -80,6 +85,37 @@ VARIANTS = {
          "evaluation skipped", [("  team_dynamics(s, s.gv, mk, lane);\n",
                                  "")]),
         UNBOUNDED),
+    "contact_cache": (
+        ("kernel", "the kernel as it is", []),
+        ("no_minv_products", "t_i = J_i M^-1 skipped (W from zeros; J, "
+         "staging and stores kept)",
+         [("    for (int ka = 0; ka < NV; ++ka) {",
+           "    for (int ka = 0; ka < 0; ++ka) {")]),
+        ("unguarded_inner_loop", "the t_i loop over all NV columns, M^-1 "
+         "read at column 0 and zero past the list (the same result)",
+         [("          if (kb < n) {\n            const float mm = "
+           "row[column(cols, kb) * CC_ENVS];",
+           "          {\n            const float mm = kb < n ? "
+           "row[column(cols, kb) * CC_ENVS] : 0.0f;")]),
+        ("registers_unbounded", "__launch_bounds__ asks for no number of "
+         "resident blocks", [("__launch_bounds__(CC_THREADS, CC_MIN_BLOCKS)",
+                              "__launch_bounds__(CC_THREADS)")])),
+    "contact_substep": (
+        ("kernel", "the kernel as it is", []),
+        ("no_contact_sweeps", "no projected-Jacobi sweep (staging, J loads, "
+         "gaps and point advance kept)",
+         [("for (int it = 0; it < a.num_iters; ++it) {",
+           "for (int it = 0; it < 0; ++it) {")]),
+        ("min_blocks_4", "__launch_bounds__ asks for 4 resident blocks "
+         "(64 registers a thread)",
+         [("#define CS_MIN_BLOCKS 2 ", "#define CS_MIN_BLOCKS 4 ")]),
+        ("min_blocks_3", "__launch_bounds__ asks for 3 resident blocks "
+         "(80 registers a thread)",
+         [("#define CS_MIN_BLOCKS 2 ", "#define CS_MIN_BLOCKS 3 ")]),
+        ("registers_unbounded", "__launch_bounds__ asks for no number of "
+         "resident blocks",
+         [("__launch_bounds__(CS_TEAM * CS_ENVS, CS_MIN_BLOCKS)",
+           "__launch_bounds__(CS_TEAM * CS_ENVS)")])),
 }
 
 
@@ -88,17 +124,21 @@ ONLY = {"rebuild_at_first_substep_only": ("K5", "K5-P")}
 
 
 def headers(model):
+    P = model.cp_body.shape[0]
     return {"megastep_team": megastep.library_spec(model),
             "dynamics_substep": dynamics.library_spec(
-                model.anc_dof_body, model.joint_body, model.cp_body)}
+                model.anc_dof_body, model.joint_body, model.cp_body),
+            "contact_cache": contact.cache_spec(model.nv, P),
+            "contact_substep": contact.substep_spec(model.nv, P)}
 
 
-def build(model, root):
+def build(model, root, sources):
     """One nvcc per source and variant, all started together; returns the
     bound libraries and ptxas's register lines by (source, variant)."""
     specs = headers(model)
     procs = {}
-    for src, variants in VARIANTS.items():
+    for src in sources:
+        variants = VARIANTS[src]
         for name, _, edits in variants:
             d = os.path.join(root, src, name)
             shutil.rmtree(d, ignore_errors=True)
@@ -205,14 +245,58 @@ def substep_operands(dev, n):
     return out
 
 
-def main():
+def contact_operands(dev, n):
+    """K1's and K2's packed launch operands at the first substep of the
+    flat per-substep route's control step from the stepped state (the entry
+    cache as the card builds it; K2 on K1's J and W and the entry
+    velocity), and the tensors they point into."""
+    cfg = mob_train_cfg(n)
+    cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, megastep=False))
+    env, state = stepped(cfg, dev, n)
+    m, p, ph = env.model, env.sim_params, state.phys
+    dyn = env.dynamics_params(state)[1]
+    em = entry_cache.entry_cache(m, ph, dyn, env.terrain,
+                                 engine.SUBSTEP_BLOCK)[0]
+    po = engine.build_dynamics_cache(m, p, ph, dyn, env.terrain).pallas_ops
+    anc_p = torch.tensor(m.anc_dof_body[:, m.cp_body].T,
+                         dtype=torch.float32, device=dev).contiguous()
+    k1 = (anc_p, em.Sw_t, em.Sv_t, em.Minv_t, em.r_t)
+    gv_t = contact.to_env_minor(torch.cat(
+        [ph.base_ang_vel, ph.base_lin_vel, ph.qd], dim=-1), po.block)
+    vlim = engine._velocity_bounds(m, p, torch.float32, dev)
+    k2 = (po.J_t, po.W_t, po.Minv_t, po.p_cp_t, gv_t, po.rh_t, po.mu_t,
+          po.e_t, vlim)
+    solver = dict(num_iters=p.num_contact_iters, relaxation=p.relaxation,
+                  dt=p.dt, baumgarte=p.contact_baumgarte,
+                  slop=p.contact_slop,
+                  max_depen=p.max_depenetration_velocity,
+                  bounce_thresh=p.bounce_threshold_velocity)
+    return {("contact_cache", "K1"): (contact.cache_operands(*k1), k1),
+            ("contact_substep", "K2"): (
+                contact.substep_operands(*k2, **solver), k2)}
+
+
+def main(sources=tuple(VARIANTS)):
+    unknown = set(sources) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"unknown sources {sorted(unknown)}: one of "
+                         f"{tuple(VARIANTS)}")
     dev = torch.device("cuda", 0)
     n = 4000
-    model, inputs = team_operands(dev, n)
-    inputs = {("megastep_team", k): v for k, v in inputs.items()}
-    inputs.update({("dynamics_substep", k): v
-                   for k, v in substep_operands(dev, n).items()})
-    libs, logs = build(model, os.path.join(_build.build_dir(), "ablation"))
+    inputs = {}
+    if "megastep_team" in sources:
+        inputs.update({("megastep_team", k): v
+                       for k, v in team_operands(dev, n)[1].items()})
+    if "dynamics_substep" in sources:
+        inputs.update({("dynamics_substep", k): v
+                       for k, v in substep_operands(dev, n).items()})
+    if {"contact_cache", "contact_substep"} & set(sources):
+        inputs.update({k: v for k, v in contact_operands(dev, n).items()
+                       if k[0] in sources})
+    model = LeggedRobotEnv(mob_train_cfg(4), device=dev).model
+    libs, logs = build(model, os.path.join(_build.build_dir(), "ablation"),
+                       sources)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def time_ms(src, lib, ops):
@@ -254,4 +338,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or tuple(VARIANTS))

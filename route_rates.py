@@ -10,9 +10,12 @@ each rollout ending in a synchronise.  Routes (all, or the ones named):
 `flat` (`mob_train_cfg`, the default route), `p` (`small_train_cfg`, P
 control), `rough_p` (`rough_train_cfg` with P control), `substep` and
 `rough_substep` (the per-substep route, `sim.megastep=False`, of
-`mob_train_cfg` and `rough_train_cfg`), `exact` and `exact_p` (exact mode on
-the control-step route, `sim.reuse_matrices=False`, of `mob_train_cfg` and
-`small_train_cfg`).  Prints one JSON line per route with every rollout's
+`mob_train_cfg` and `rough_train_cfg`: per control step the entry cache, K1
+and 4 x K3 or K3b), `substep_exact` (its exact mode on `mob_train_cfg`,
+`sim.reuse_matrices=False` too: 4 x {entry cache, K1, K3} a step), `exact`
+and `exact_p` (exact mode on the control-step route,
+`sim.reuse_matrices=False`, of `mob_train_cfg` and `small_train_cfg`).
+Prints one JSON line per route with every rollout's
 env-steps/s, the eager cache builds and kernel launches of the timed
 rollouts (the launch counters the measured tree has), then the card's name
 and power limit, and as the last line the directory of the package it
@@ -55,8 +58,8 @@ COUNTERS = (
     ("contact", ("cache_launches",)),
     ("dynamics", ("launches", "normal_launches")),
     ("entry_cache", ("launches", "normal_launches")))
-ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep", "exact",
-          "exact_p")
+ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep",
+          "substep_exact", "exact", "exact_p")
 N_ENVS, STEPS, REPS = 4000, 24, 3
 
 
@@ -75,7 +78,7 @@ def counters():
 
 
 def route_cfg(route, n):
-    if route in ("flat", "substep", "exact"):
+    if route in ("flat", "substep", "substep_exact", "exact"):
         cfg = mob_train_cfg(n)
     elif route in ("p", "exact_p"):
         cfg = small_train_cfg(n)
@@ -86,10 +89,10 @@ def route_cfg(route, n):
     if route == "rough_p":
         cfg = dataclasses.replace(cfg, control=dataclasses.replace(
             cfg.control, control_type="P"))
-    if route.endswith("substep"):
+    if "substep" in route:
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, megastep=False))
-    if route.startswith("exact"):
+    if "exact" in route:
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, reuse_matrices=False))
     return cfg

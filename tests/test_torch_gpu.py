@@ -343,6 +343,33 @@ def test_contact_substep_kernel_matches_plain_version_on_the_card(cuda):
     _close(out_k, out_r)
 
 
+def test_contact_kernels_take_the_mask_and_jacobian_they_are_given(cuda):
+    """K1 with an ancestor mask that sets one more column per point than the
+    robot's, and K2 on the J and W of that mask (nonzeros outside the
+    robot's point-dof sparsity), against their plain versions; both refuse
+    a padded env count that their tile does not divide."""
+    m, em, anc_p, rh_t, mu_t, e_t, g_t, vlim, statics, gv, tau, _ = \
+        _substep_inputs(cuda)
+    extra = anc_p.clone()
+    for p in range(extra.shape[0]):
+        unset = (extra[p] == 0).nonzero().flatten()
+        extra[p, unset[p % len(unset)]] = 1.0
+    k1 = (extra, em.Sw_t, em.Sv_t, em.Minv_t, em.r_t)
+    J_t, W_t = contact.build_contact_cache(*k1)
+    _close((J_t, W_t), contact.cache_core(*k1, eps=1e-6))
+    args = (J_t, W_t, em.Minv_t, em.p_cp_t, gv, rh_t, mu_t, e_t, vlim)
+    out_r = contact.contact_core(*args, **statics)
+    assert float(out_r[2].abs().max()) > 1e-3        # contacts active
+    _close(contact.contact_substep(*args, **statics), out_r)
+    # 252 envs: neither 16 (K1's tile) nor 8 (K2's) divides it
+    with pytest.raises(ValueError, match="not a multiple"):
+        contact.build_contact_cache(extra, *(x[..., :252].contiguous()
+                                             for x in k1[1:]))
+    with pytest.raises(ValueError, match="not a multiple"):
+        contact.contact_substep(*(x[..., :252].contiguous()
+                                  for x in args[:8]), vlim, **statics)
+
+
 @pytest.mark.parametrize("with_contact,rough", [(True, False), (False, False),
                                                (True, True)])
 def test_dynamics_substep_kernel_matches_plain_version_on_the_card(

@@ -1,25 +1,31 @@
-"""The control-step, dynamics-substep and entry-cache kernels' sources,
-built for the host CPU, against their plain versions.
+"""The control-step, dynamics-substep, entry-cache, contact-cache and
+contact-substep kernels' sources, built for the host CPU, against their
+plain versions.
 
-`csrc/megastep_team.cu`, `csrc/dynamics_substep.cu` and
-`csrc/entry_cache.cu` are compiled with g++ against a stand-in for
+`csrc/megastep_team.cu`, `csrc/dynamics_substep.cu`,
+`csrc/entry_cache.cu`, `csrc/contact_cache.cu` and `csrc/contact_substep.cu`
+are compiled with g++ against a stand-in for
 `cuda_runtime.h` (`__device__` and `__global__` empty, `__ldg(p)` = `*p`,
 `__shared__` = `static`; a kernel's `<<<blocks, threads>>>` launch runs
 each block's threads as `std::thread`s that meet at one barrier per warp
 for each `__syncwarp` and at one per block for each `__syncthreads`, the
 blocks one after another), loaded with ctypes and called through the
 port's own operand packing (`ops/megastep.kernel_operands`,
-`ops/dynamics.kernel_operands`, `ops/entry_cache.kernel_operands`) on CPU
-tensors.  K4, K4b, K4c and K4b-P (the team kernel in reuse mode: entry
-cache and heightfield samples in the launch) against
+`ops/dynamics.kernel_operands`, `ops/entry_cache.kernel_operands`,
+`ops/contact.cache_operands` and `substep_operands`) on CPU tensors.
+K4, K4b, K4c and K4b-P (the team kernel in reuse mode: entry cache and
+heightfield samples in the launch) against
 `control_step_reference` fed the eager build of the same state; K5 and
 K5-P (the team kernel in exact mode: the cache rebuilt before every
 substep) against `control_step_reference`; K3 and K3b against
 `dynamics_substep_reference`; the per-substep route's entry-cache launch,
 flat and on a heightfield, against the eager build
-(`engine.build_pallas_env_inputs`), every lane; after a reset and after
-some random control steps, with the tolerance `chip_smoke.py` holds the
-card to:
+(`engine.build_pallas_env_inputs`), every lane; K1 against `cache_core`
+and K2 against `contact_core`, with the robot's ancestor mask and with one
+that sets one more column per point (so J has nonzeros outside the robot's
+point-dof sparsity, which neither kernel may assume); after a reset and
+after some random control steps, with the tolerance `chip_smoke.py` holds
+the card to:
 |kernel - plain| <= 2e-4 + 2e-4 |plain|.  The rough cases stand on the 2 x 2
 rough-slope tiles of tests/test_torch_terrain.py.
 
@@ -152,17 +158,17 @@ void wtw_host_launch_threads(int blocks, int threads, F kernel) {
 
 
 def build_host_library(model, out_dir, name="megastep_team"):
-    """csrc/<name>.cu (megastep_team, dynamics_substep or entry_cache) for
-    the host, with the header the card's build gets; returns the bound
-    ctypes library.  The lanes of the warp-per-env kernels run as threads
-    (the stand-in's wtw_host_launch_threads)."""
+    """csrc/<name>.cu (megastep_team, dynamics_substep, entry_cache,
+    contact_cache or contact_substep) for the host, with the header the
+    card's build gets; returns the bound ctypes library.  The threads of a
+    block run as std::threads (the stand-in's wtw_host_launch_threads)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
     with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as fh:
         src = fh.read()
-    src, n = re.subn(rf"({name}_kernel<[\w, ]+>)<<<(\w+), (\w+), 0, \w+>>>"
-                     r"\((\w+)\);",
+    src, n = re.subn(rf"({name}_kernel(?:<[\w, ]+>)?)<<<(\w+), (\w+), 0, "
+                     r"\w+>>>\((\w+)\);",
                      r"wtw_host_launch_threads(\2, \3, [&] { \1(\4); });",
                      src)
     if name == "megastep_team":
@@ -174,9 +180,14 @@ def build_host_library(model, out_dir, name="megastep_team"):
         header, counts = t_pd.library_spec(model.anc_dof_body,
                                            model.joint_body,
                                            model.cp_body)[1:]
-    else:
+    elif name == "entry_cache":
         assert n == 2, "expected the flat and the heightfield launches"
         header, counts = t_ec.library_spec(model)[1:]
+    else:
+        assert n == 1, f"expected the launch of {name}"
+        spec = (t_pc.cache_spec if name == "contact_cache"
+                else t_pc.substep_spec)
+        header, counts = spec(model.nv, model.cp_body.shape[0])[1:]
     for fname, text in (("cuda_runtime.h", CUDA_RUNTIME_STAND_IN),
                         (_build.HEADER_NAME, header),
                         (name + "_host.cpp", src)):
@@ -298,6 +309,68 @@ def substep_call(env, state):
     return args, kwargs
 
 
+def extra_columns(anc_p):
+    """The (P, nv) ancestor mask `anc_p` with one more column set per point
+    (point p's (p mod k)-th of its k unset columns), so that J has nonzeros
+    outside the robot's point-dof sparsity."""
+    out = anc_p.clone()
+    for p in range(out.shape[0]):
+        unset = (out[p] == 0).nonzero().flatten()
+        out[p, unset[p % len(unset)]] = 1.0
+    return out
+
+
+def contact_calls(env, state, extra=False):
+    """K1's and K2's argument lists, and K2's solver statics, at the first
+    substep of the per-substep route from `state`: the cache of the state
+    with the robot's ancestor mask (with `extra`, `extra_columns` of it);
+    K2 is fed the plain J and W of that mask, the entry velocity and the
+    entry contact points."""
+    m, p = env.model, env.sim_params
+    block = engine.SUBSTEP_BLOCK
+    em, rh_t, mu_t, e_t, _, _ = engine.build_pallas_env_inputs(
+        m, state.phys, env.dynamics_params(state)[1], env.terrain, block)
+    anc_p = torch.tensor(m.anc_dof_body[:, m.cp_body].T, dtype=torch.float32)
+    if extra:
+        anc_p = extra_columns(anc_p)
+    k1 = (anc_p, em.Sw_t, em.Sv_t, em.Minv_t, em.r_t)
+    J_t, W_t = t_pc.cache_core(*k1, eps=1e-6)
+    ph = state.phys
+    gv_t = t_pc.to_env_minor(
+        torch.cat([ph.base_ang_vel, ph.base_lin_vel, ph.qd], dim=-1), block)
+    vlim = engine._velocity_bounds(m, p, torch.float32, "cpu")
+    k2 = (J_t, W_t, em.Minv_t, em.p_cp_t, gv_t, rh_t, mu_t, e_t, vlim)
+    solver = dict(num_iters=p.num_contact_iters, relaxation=p.relaxation,
+                  dt=p.dt, baumgarte=p.contact_baumgarte, slop=p.contact_slop,
+                  max_depen=p.max_depenetration_velocity,
+                  bounce_thresh=p.bounce_threshold_velocity)
+    return k1, k2, solver
+
+
+def host_contact(libs, variant, args, solver):
+    """K1's (variant "K1...") or K2's outputs from the host build, through
+    the wrappers' own operand packing."""
+    if variant.startswith("K1"):
+        name = "contact_cache"
+        ptrs, outs, floats, ints = t_pc.cache_operands(*args)
+    else:
+        name = "contact_substep"
+        ptrs, outs, floats, ints = t_pc.substep_operands(*args, **solver)
+    _build.launch(libs[name], name, ptrs, outs, floats, ints, 0)
+    return outs
+
+
+def plain_contact(variant, args, solver):
+    """The plain version of K1 (`cache_core`) or K2 (`contact_core`) and the
+    names of its outputs."""
+    if variant.startswith("K1"):
+        return t_pc.cache_core(*args, eps=1e-6), ("J", "W")
+    return t_pc.contact_core(*args, **solver), ("gv", "pcp", "lam")
+
+
+CONTACT_VARIANTS = ("K1", "K2", "K1_non_robot_mask", "K2_outside_sparsity")
+
+
 def errors(out_k, out_r, n, names=OUT_NAMES):
     """Per output: largest |kernel - plain| over the first `n` envs (every
     env with n None), and the count of elements beyond the tolerance."""
@@ -317,7 +390,9 @@ def cases(n, steps, seed=0):
     their plain version is fed the eager build of the same state.  The
     states of K4 and K4b also give the dynamics-substep kernel's cases, K3
     (flat) and K3b (rough), and the entry-cache launch's (the state, the
-    randomised dynamics and the terrain)."""
+    randomised dynamics and the terrain); K4's give K1's and K2's (their
+    argument lists and K2's solver statics), with the robot's ancestor mask
+    and with `extra_columns` of it."""
     out = []
     for variant, cfg in configs(n).items():
         env = t_env.LeggedRobotEnv(cfg, device="cpu")
@@ -340,10 +415,18 @@ def cases(n, steps, seed=0):
                 out.append(({"K4": "entry_cache",
                              "K4b": "entry_cache_rough"}[variant], st_name,
                             entry, None, None))
+            if variant == "K4":
+                for k1_name, k2_name, extra in (
+                        ("K1", "K2", False),
+                        ("K1_non_robot_mask", "K2_outside_sparsity", True)):
+                    k1, k2, solver = contact_calls(env, state, extra)
+                    out.append((k1_name, st_name, k1, None, None))
+                    out.append((k2_name, st_name, k2, solver, None))
     return out
 
 
-LIBRARIES = ("megastep_team", "dynamics_substep", "entry_cache")
+LIBRARIES = ("megastep_team", "dynamics_substep", "entry_cache",
+             "contact_cache", "contact_substep")
 
 
 @pytest.fixture(scope="module")
@@ -416,6 +499,46 @@ def test_host_build_of_the_dynamics_substep_kernel_matches_its_plain_version(
             assert float(out_r[2][..., :N].abs().max()) > 0  # contacts
 
 
+@pytest.mark.parametrize("variant", CONTACT_VARIANTS)
+def test_host_build_of_the_contact_kernels_matches_its_plain_version(
+        host, variant):
+    """K1 against `cache_core` and K2 against `contact_core`, every lane
+    (the padded ones included).  The `_non_robot_mask` and
+    `_outside_sparsity` cases take an ancestor mask with one more column per
+    point than the robot's, and J and W made with it: there the plain
+    version on the robot's mask (K1) or on J cut to the robot's point-dof
+    sparsity (K2) lies beyond the tolerance, so a kernel that took the
+    robot's topology in place of its operands would fail."""
+    libs, all_cases = host
+    seen = 0
+    for v, state_name, args, solver, _ in all_cases:
+        if v != variant:
+            continue
+        seen += 1
+        out_k = host_contact(libs, variant, args, solver)
+        out_r, names = plain_contact(variant, args, solver)
+        for nm, (max_abs, beyond) in errors(out_k, out_r, None,
+                                            names).items():
+            assert beyond == 0, (state_name, nm, max_abs)
+        assert all(bool(torch.isfinite(o).all()) for o in out_k)
+        if variant.startswith("K2") and state_name != "after_reset":
+            assert float(out_r[2][..., :N].abs().max()) > 0  # contacts
+        if variant in ("K1", "K2"):
+            continue
+        # the robot's mask: K1's case in the same state
+        robot = next(a[0] for v1, s1, a, *_ in all_cases
+                     if v1 == "K1" and s1 == state_name)
+        if variant.startswith("K1"):
+            assert bool((args[0] != robot).any())
+            cut = (robot,) + args[1:]
+        else:
+            cut = (args[0] * robot[:, None, :, None],) + args[1:]
+        out_cut = plain_contact(variant, cut, solver)[0]
+        assert sum(e[1] for e in errors(out_cut, out_r, None,
+                                        names).values()) > 0
+    assert seen == 2
+
+
 def test_host_build_of_k5_rebuilds_the_cache_before_every_substep(host):
     """K5 (the team kernel in exact mode) at a mid-stance state, feet on
     the ground, against its plain version, every output within the
@@ -473,6 +596,16 @@ def main(argv):
         libs = {name: build_host_library(model, d, name)
                 for name in LIBRARIES}
         for variant, state_name, args, kwargs, plain in cases(n, 24):
+            if variant in CONTACT_VARIANTS:
+                out_r, names = plain_contact(variant, args, kwargs)
+                errs = errors(host_contact(libs, variant, args, kwargs),
+                              out_r, None, names)
+                print(json.dumps(dict(
+                    variant=variant, state=state_name, n_envs=n,
+                    max_abs_err=max(e[0] for e in errs.values()),
+                    beyond_tol=sum(e[1] for e in errs.values()))),
+                    flush=True)
+                continue
             if variant.startswith("entry_cache"):
                 errs = errors(host_entry_cache(libs["entry_cache"], *args),
                               eager_entry_cache(*args), None, ENTRY_NAMES)

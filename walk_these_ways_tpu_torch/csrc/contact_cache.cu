@@ -8,23 +8,43 @@
 //   J[p,i,v] = anc[p,v] * (Sv[v,i] + (Sw[v] x r[p])[i])
 //   W_p      = J_p M^-1 J_p^T + eps I          (9 rows, row-major)
 //
-// Design for this card.  One thread owns one (env, point) pair: the grid is
-// (env blocks, points), so at 4096 envs there are 28 x 4096 threads instead of
-// 4096, enough warps to hide the latency of the loads.  Every operand is
-// env-minor, so a warp reads and writes 32 neighbouring floats.  The point's
-// 3 x nv Jacobian rows live in thread-local memory while the thread forms
-// t_i = J_i M^-1 one row at a time; the ancestor mask is read at one address
-// by the whole warp (a broadcast), and columns it zeroes are skipped in the
-// products (they add exact zeros).  Sw, Sv and M^-1 are read by all 28
-// threads of an env: the first read comes from device memory, the rest from
-// L2.
+// Design for this card.  A block owns a tile of CC_ENVS neighbouring envs,
+// the env on the fast thread index, and CC_SLOTS point slots; thread (slot,
+// env) takes the points slot, slot + CC_SLOTS, ...:
+//   - staging: the tile's Sw, Sv and M^-1 go into shared memory once, a row
+//     at a time, CC_ENVS neighbouring threads reading one row's neighbouring
+//     floats; every point of an env then reads them from there (M^-1 is read
+//     from device memory once per env, not once per point and row);
+//   - columns: `anc` is an operand, as in the TPU kernel.  At block start
+//     each point's list of nonzero columns (ascending) and their mask
+//     values go into shared memory; a thread forms J only on its point's
+//     columns (the loops unrolled to NV and cut at the list's length) and
+//     writes exact zeros for the others, since J stays dense;
+//   - W: t_i = J_i M^-1 for the three rows at once over the point's columns
+//     only (the 9 x 9 block of M^-1 for a leg point, 6 x 6 for a trunk
+//     point), t in registers, then W_ij = J_j . t_i with each J column made
+//     again from shared memory (the same statements, so the same bits:
+//     holding J in registers beside t spilled).  A column that `anc`
+//     zeroes adds only +-0 to these sums, so skipping it is exact, and the
+//     sums keep the order of ascending dofs;
+//   - stores: the dense J (P*3*nv floats per env, most of the bytes) and W
+//     go out row by row, CC_ENVS neighbouring floats a store.
 //
 // Bound on this card: the dense J (P*3*nv floats per env) and W (P*9) must be
 // written once, and Sw, Sv, M^-1, r read once: about 9.1 KB per env against
-// about 0.02 MFLOP, so the least time is set by bytes.
+// about 0.02 MFLOP, so the least time is set by bytes.  The measured numbers
+// are kept in PERF.md.
 #include <cuda_runtime.h>
 #include "wtw_topology.h"
 #include "wtw_device.cuh"
+
+#define CC_ENVS 16                   // envs per block (fast thread index)
+#define CC_SLOTS ((NP + 1) / 2)      // point slots per block
+#define CC_THREADS (CC_ENVS * CC_SLOTS)
+#define CC_MIN_BLOCKS 2              // resident blocks asked of ptxas
+#define CC_PACK ((NV + 3) / 4)       // a point's column list, 4 bytes a word
+
+static_assert(NV <= 64, "a column index fits in a byte, the set in 64 bits");
 
 enum InIdx { I_ANC = 0, I_SW, I_SV, I_MINV, I_R, N_IN };
 enum OutIdx { O_J = 0, O_W, N_OUT };
@@ -37,72 +57,158 @@ struct CacheArgs {
   int npad;
 };
 
-__global__ void __launch_bounds__(256)
-contact_cache_kernel(const CacheArgs a) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
-  if (env >= a.npad) return;          // ragged edge of the last block
-  const size_t npad = (size_t)a.npad;
-  const float* anc = a.in[I_ANC] + p * NV;      // same address for the warp
-  const float* Minv = a.in[I_MINV];
+// One block's shared memory: the tile's operands, env-minor (row, env), and
+// the points' column lists.
+struct CacheTile {
+  float sw[NV * 3][CC_ENVS], sv[NV * 3][CC_ENVS];
+  float minv[NV * NV][CC_ENVS];
+  unsigned cols[NP][CC_PACK];        // nonzero columns, ascending
+  float mval[NP][NV];                // anc at those columns
+  int ncol[NP];
+};
 
-  float r[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    r[i] = __ldg(a.in[I_R] + (size_t)(p * 3 + i) * npad + env);
-
-  // J rows of this point, written out as they are made
-  float Jp[3][NV];
-#pragma unroll 1
-  for (int v = 0; v < NV; ++v) {
-    const float m = __ldg(anc + v);
-    float sw[3], sv[3], c[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      sw[i] = __ldg(a.in[I_SW] + (size_t)(v * 3 + i) * npad + env);
-      sv[i] = __ldg(a.in[I_SV] + (size_t)(v * 3 + i) * npad + env);
-    }
-    cross3(sw, r, c);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float j = m * (sv[i] + c[i]);
-      Jp[i][v] = j;
-      a.out[O_J][((size_t)(p * 3 + i) * NV + v) * npad + env] = j;
-    }
+// Rows [0, rows) of the env-minor operand `src` into dst[row][env] for the
+// tile's envs, CC_ENVS neighbouring threads reading one row's neighbouring
+// floats.
+__device__ __forceinline__ void stage_tile(float (*dst)[CC_ENVS],
+                                           const float* __restrict__ src,
+                                           int rows, size_t npad, int env0) {
+  for (int k = threadIdx.x; k < rows * CC_ENVS; k += CC_THREADS) {
+    const int row = k / CC_ENVS, e = k % CC_ENVS;
+    dst[row][e] = __ldg(src + (size_t)row * npad + env0 + e);
   }
+}
 
-  // W[i][j] = sum_v J[j][v] t_i[v],  t_i[v] = sum_w J[i][w] Minv[w][v]
-#pragma unroll 1
+__device__ __forceinline__ int column(const unsigned* cols, int k) {
+  return (cols[k / 4] >> (8 * (k % 4))) & 0xffu;
+}
+
+// Column k (dof v) of point p's J at the tile's env e, contact offset r
+__device__ __forceinline__ void j_column(const CacheTile& tile, int p, int k,
+                                         int v, int e, const float* r,
+                                         float* j) {
+  const float m = tile.mval[p][k];
+  float sw[3], sv[3], c[3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
-    float t[NV];
+    sw[i] = tile.sw[v * 3 + i][e];
+    sv[i] = tile.sv[v * 3 + i][e];
+  }
+  cross3(sw, r, c);
 #pragma unroll
-    for (int v = 0; v < NV; ++v) t[v] = 0.0f;
-#pragma unroll 1
-    for (int w = 0; w < NV; ++w) {
-      if (__ldg(anc + w) == 0.0f) continue;     // J[i][w] is an exact zero
-      const float jw = Jp[i][w];
-      const float* row = Minv + (size_t)(w * NV) * npad + env;
+  for (int i = 0; i < 3; ++i) j[i] = m * (sv[i] + c[i]);
+}
+
+__global__ void __launch_bounds__(CC_THREADS, CC_MIN_BLOCKS)
+contact_cache_kernel(const CacheArgs a) {
+  __shared__ CacheTile tile;
+  // the grid covers npad exactly (the launcher checks that CC_ENVS divides
+  // it), so every thread reaches the __syncthreads
+  const int e = threadIdx.x % CC_ENVS, slot = threadIdx.x / CC_ENVS;
+  const int env0 = blockIdx.x * CC_ENVS, env = env0 + e;
+  const size_t npad = (size_t)a.npad;
+
+  // ---- the tile's operands and the points' column lists ----
+  stage_tile(tile.sw, a.in[I_SW], NV * 3, npad, env0);
+  stage_tile(tile.sv, a.in[I_SV], NV * 3, npad, env0);
+  stage_tile(tile.minv, a.in[I_MINV], NV * NV, npad, env0);
+  for (int p = threadIdx.x; p < NP; p += CC_THREADS) {
+    unsigned packed[CC_PACK];
 #pragma unroll
-      for (int v = 0; v < NV; ++v) t[v] += jw * __ldg(row + (size_t)v * npad);
+    for (int w = 0; w < CC_PACK; ++w) packed[w] = 0u;
+    int n = 0;
+    for (int v = 0; v < NV; ++v) {
+      const float m = __ldg(a.in[I_ANC] + p * NV + v);
+      if (m != 0.0f) {
+        packed[n / 4] |= (unsigned)v << (8 * (n % 4));
+        tile.mval[p][n] = m;
+        ++n;
+      }
     }
-    float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f;
+#pragma unroll
+    for (int w = 0; w < CC_PACK; ++w) tile.cols[p][w] = packed[w];
+    tile.ncol[p] = n;
+  }
+  __syncthreads();
+
+#pragma unroll 1
+  for (int p = slot; p < NP; p += CC_SLOTS) {
+    const int n = tile.ncol[p];
+    unsigned cols[CC_PACK];
+#pragma unroll
+    for (int w = 0; w < CC_PACK; ++w) cols[w] = tile.cols[p][w];
+    float r[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      r[i] = __ldg(a.in[I_R] + (size_t)(p * 3 + i) * npad + env);
+
+    // t_i[b] = sum_a J[i][a] Minv[col a][col b], the three rows at once;
+    // each J column is written out as it is made, zeros elsewhere
+    float t[3][NV];
+#pragma unroll
+    for (int b = 0; b < NV; ++b) t[0][b] = t[1][b] = t[2][b] = 0.0f;
+    unsigned long long set = 0ull;
+#pragma unroll
+    for (int ka = 0; ka < NV; ++ka) {
+      if (ka < n) {
+        const int v = column(cols, ka);
+        float j[3];
+        j_column(tile, p, ka, v, e, r, j);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          a.out[O_J][((size_t)(p * 3 + i) * NV + v) * npad + env] = j[i];
+        set |= 1ull << v;
+        const float* row = &tile.minv[v * NV][e];
+#pragma unroll
+        for (int kb = 0; kb < NV; ++kb) {
+          if (kb < n) {
+            const float mm = row[column(cols, kb) * CC_ENVS];
+            t[0][kb] += j[0] * mm;
+            t[1][kb] += j[1] * mm;
+            t[2][kb] += j[2] * mm;
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      w0 += Jp[0][v] * t[v]; w1 += Jp[1][v] * t[v]; w2 += Jp[2][v] * t[v];
+      if (!((set >> v) & 1ull)) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          a.out[O_J][((size_t)(p * 3 + i) * NV + v) * npad + env] = 0.0f;
+      }
     }
-    if (i == 0) w0 += a.eps;
-    if (i == 1) w1 += a.eps;
-    if (i == 2) w2 += a.eps;
-    float* Wp = a.out[O_W] + (size_t)(p * 9 + i * 3) * npad + env;
-    Wp[0] = w0; Wp[npad] = w1; Wp[2 * npad] = w2;
+    // W[i][jj] = sum_b J[jj][b] t_i[b] (J's column b made again, to the
+    // bit), + eps on the diagonal
+    float w[3][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f},
+                     {0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int kb = 0; kb < NV; ++kb) {
+      if (kb < n) {
+        float j[3];
+        j_column(tile, p, kb, column(cols, kb), e, r, j);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) w[i][jj] += j[jj] * t[i][kb];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      w[i][i] += a.eps;
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj)
+        a.out[O_W][(size_t)(p * 9 + i * 3 + jj) * npad + env] = w[i][jj];
+    }
   }
 }
 
 // Plain C interface for ctypes.  `in` = {anc (P, nv), Sw (nv, 3, npad),
 // Sv (nv, 3, npad), Minv (nv, nv, npad), r (P, 3, npad)}, `out` = {J (P, 3,
 // nv, npad), W (P, 9, npad)}, `f` = {eps}, `ip` = {npad, threads per block}.
-// Launches on `stream`, does not synchronise, returns the launch's
-// cudaError_t (0 = launched).
+// `threads` must be CC_THREADS and npad a multiple of CC_ENVS.  Launches on
+// `stream`, does not synchronise, returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int contact_cache_launch(const void* const* in, void* const* out,
                                     const float* f, const int* ip,
                                     void* stream) {
@@ -112,11 +218,11 @@ extern "C" int contact_cache_launch(const void* const* in, void* const* out,
   a.eps = f[F_EPS];
   a.npad = ip[0];
   const int threads = ip[1];
-  if (threads < 1 || threads > 256 || a.npad < 1)
+  if (threads != CC_THREADS || a.npad < 1 || a.npad % CC_ENVS)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.npad + threads - 1) / threads, NP);
-  contact_cache_kernel<<<grid, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+  const int blocks = a.npad / CC_ENVS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  contact_cache_kernel<<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -127,4 +233,14 @@ extern "C" const char* contact_cache_error_string(int code) {
 extern "C" int contact_cache_counts(int* n_in, int* n_out, int* n_f) {
   *n_in = N_IN; *n_out = N_OUT; *n_f = N_F;
   return 0;
+}
+
+// Resident blocks per SM into blocks[0], the threads and static shared
+// memory per block (CC_ENVS envs); returns the cudaError_t.
+extern "C" int contact_cache_occupancy(int* blocks, int* threads,
+                                       int* smem_bytes) {
+  *threads = CC_THREADS;
+  *smem_bytes = (int)sizeof(CacheTile);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks[0], contact_cache_kernel, CC_THREADS, 0);
 }

@@ -41,9 +41,11 @@
 //     (the solve is row-decoupled) and writes J_p^T dlam_p into shared
 //     memory; team_apply_impulses sums each dof's slot over the points on
 //     the dof lanes and applies M^-1 there.
-// Every sum keeps the order of the one-thread kernel's statements
-// (wtw_contact.cuh contact_core_dev with the point->dof sparsity, and
-// ops/dynamics.dyn_core), which the plain version
+// Every sum keeps the order of the one-thread kernel it replaced: J_p x
+// over the point's dofs in ascending order, each dof's J^T dlam over the
+// points in index order, M^-1's rows over v in order (as the
+// contact-substep kernel, csrc/contact_substep.cu, sums on a dense J), and
+// ops/dynamics.dyn_core's statements, which the plain version
 // ops/dynamics.dynamics_substep_reference follows, lazy apply after each
 // sweep included: the kernel takes the plain version's solver branches.
 // Lanes meet only at __syncwarp, the block once after staging.
@@ -85,7 +87,7 @@ __device__ __forceinline__ void stage_rows(TeamEnv* envs,
 }
 
 // v = J_p x over the point's nd dofs (local column k: dof k for k < 6, dof
-// lo + k - 6 after), summed as wtw_contact.cuh jp_dot sums
+// lo + k - 6 after), summed over k in ascending order
 __device__ __forceinline__ void point_dot(const float (*Jp)[6 + GM], int nd,
                                           int lo, const float* x, float* v) {
   float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;

@@ -3,7 +3,10 @@
 // (TeamEnv).  Included by csrc/megastep_team.cu (the control-step kernel:
 // K4, K4b, K4c, K4b-P, K5, K5-P), csrc/dynamics_substep.cu (the
 // dynamics-substep kernel: K3, K3b) and csrc/entry_cache.cu (the
-// per-substep route's entry cache).
+// per-substep route's entry cache).  The contact-substep kernel
+// (csrc/contact_substep.cu, K2) runs one warp per env too, but it is given
+// no robot topology, which this header needs: it keeps its own dense
+// counterpart of team_apply_impulses.
 //
 //   lane_masks           the robot's ancestor tables as one lane's bit masks;
 //   TeamEnv              one env's shared memory: the dynamics cache (twist

@@ -38,10 +38,20 @@ from . import _build
 cache_launches = 0      # build_contact_cache -> csrc/contact_cache.cu
 substep_launches = 0    # contact_substep     -> csrc/contact_substep.cu
 
-# threads per block: the cache kernel runs one thread per (env, point), the
-# substep kernel one thread per env (32 spreads 4096 envs over the most SMs)
-CACHE_THREADS = 128
-SUBSTEP_THREADS = 32
+# launch shapes.  csrc/contact_cache.cu: a block is a tile of CACHE_ENVS
+# envs (the fast thread index) by (P + 1) // 2 point slots
+# (`cache_threads`).  csrc/contact_substep.cu: one warp of 32 lanes per env,
+# SUBSTEP_ENVS envs a block.  Each refuses a padded env count that its tile
+# does not divide (engine.SUBSTEP_BLOCK, 256, is one both divide).
+CACHE_ENVS = 16
+SUBSTEP_ENVS = 8
+SUBSTEP_THREADS = 32 * SUBSTEP_ENVS
+
+
+def cache_threads(P: int) -> int:
+    """Threads per block of csrc/contact_cache.cu for P contact points."""
+    return CACHE_ENVS * ((P + 1) // 2)
+
 
 # -- env-minor transpose helpers --------------------------------------------
 
@@ -360,17 +370,20 @@ def cache_operands(anc, Sw_t, Sv_t, Minv_t, r_t, eps: float = 1e-6):
     """The arguments of `contact_cache_launch` (csrc/contact_cache.cu):
     input pointers, the outputs (J_t, W_t) allocated on the inputs' device,
     the floats and the ints.  Checks every operand's device, dtype, shape
-    and contiguity."""
+    and contiguity, and that CACHE_ENVS divides the padded env count."""
     dev = Sw_t.device
     nv, _, Npad = Sw_t.shape
     P = r_t.shape[0]
+    if Npad % CACHE_ENVS:
+        raise ValueError(f"build_contact_cache: {Npad} padded envs, not a "
+                         f"multiple of {CACHE_ENVS}")
     ins = [("anc", anc, (P, nv)), ("Sw_t", Sw_t, (nv, 3, Npad)),
            ("Sv_t", Sv_t, (nv, 3, Npad)), ("Minv_t", Minv_t, (nv, nv, Npad)),
            ("r_t", r_t, (P, 3, Npad))]
     ptrs = [_build.check(n, x, shp, dev).data_ptr() for n, x, shp in ins]
     outs = (torch.empty((P, 3, nv, Npad), dtype=torch.float32, device=dev),
             torch.empty((P, 9, Npad), dtype=torch.float32, device=dev))
-    return ptrs, outs, (eps,), (Npad, CACHE_THREADS)
+    return ptrs, outs, (eps,), (Npad, cache_threads(P))
 
 
 def contact_substep(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
@@ -414,10 +427,14 @@ def substep_operands(J_t, W_t, Minv_t, pcp_t, gv_t, rh_t, mu_t, e_t, vlim, *,
     """The arguments of `contact_substep_launch` (csrc/contact_substep.cu):
     input pointers, the outputs (gv_new_t, pcp_new_t, lam_t) allocated on
     the inputs' device, the floats and the ints.  Checks every operand's
-    device, dtype, shape and contiguity."""
+    device, dtype, shape and contiguity, and that SUBSTEP_ENVS divides the
+    padded env count."""
     dev = gv_t.device
     nv, Npad = gv_t.shape
     P = pcp_t.shape[0]
+    if Npad % SUBSTEP_ENVS:
+        raise ValueError(f"contact_substep: {Npad} padded envs, not a "
+                         f"multiple of {SUBSTEP_ENVS}")
     ins = [("J_t", J_t, (P, 3, nv, Npad)), ("W_t", W_t, (P, 9, Npad)),
            ("Minv_t", Minv_t, (nv, nv, Npad)), ("pcp_t", pcp_t, (P, 3, Npad)),
            ("gv_t", gv_t, (nv, Npad)), ("rh_t", rh_t, (P, Npad)),
