@@ -45,6 +45,11 @@ the entry points a user calls and checks what comes out:
   exact route (4 x {entry cache, K1, K3b} per step), the exact route held
   against the per-substep exact route, a PPO iteration and the bench on
   rough terrain,
+- the dense route (`sim.use_pallas_contact=False`: stock torch ops, no hand
+  kernel), reuse and exact mode: one control step from one shared state
+  held against the per-substep route, the per-substep exact route, K5 and
+  (rough) the per-substep exact rough route, 24-step rollouts that launch
+  no hand kernel, and a PPO iteration,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
   and the device-busy share).
 
@@ -744,12 +749,15 @@ def team_occupancy(lib, name, variants, envs_per_block=None):
         raise SystemExit(f"{name}_occupancy failed: {rc}")
 
 
-def agreement(phase, what, s_a, s_b, n, max_envs_beyond=0, why=None):
+def agreement(phase, what, s_a, s_b, n, max_envs_beyond=0, why=None,
+              stop=True):
     """PhysicsState of two routes after one control step: the largest
     difference per leaf and the count of elements and of envs beyond the
     tolerance, over the envs that no reset touched.  Passes when at most
     `max_envs_beyond` envs hold an element beyond it (`why` says why a
-    pair is allowed any)."""
+    pair is allowed any).  A failure ends the run, or with `stop=False` is
+    returned for the caller to end it: (ok, the indices of the envs beyond
+    the tolerance)."""
     keep = (s_a.episode_length > 0) & (s_b.episode_length > 0)
     err, bad = {}, 0
     env_bad = torch.zeros_like(keep)
@@ -761,17 +769,123 @@ def agreement(phase, what, s_a, s_b, n, max_envs_beyond=0, why=None):
         bad += int(beyond.sum())
         env_bad[keep] |= beyond.reshape(beyond.shape[0], -1).any(dim=1)
     envs_beyond = int(env_bad.sum())
+    ids = torch.nonzero(env_bad).flatten().tolist()
     ok = envs_beyond <= max_envs_beyond and int(keep.sum()) > n // 2
     say(phase=phase, n_envs=n, envs_compared=int(keep.sum()), what=what,
         atol=ATOL, rtol=RTOL, tolerance=TOLERANCE, max_abs_err=err,
-        beyond_tol=bad, envs_beyond_tol=envs_beyond,
+        beyond_tol=bad, envs_beyond_tol=envs_beyond, envs_beyond_ids=ids[:20],
         max_envs_beyond=max_envs_beyond, allowance=why, ok=ok)
-    if not ok:
+    if not ok and stop:
         raise SystemExit(f"{phase}: the two routes disagree")
+    return ok, ids
 
 
-def trace_phase(env, gen):
-    """One PPO iteration (default route) under utils/profiling.trace."""
+def dense_phase(state, state_r, routes, policy, gen, smi):
+    """The dense route (`sim.use_pallas_contact=False`: stock torch ops, no
+    hand kernel) at 4000 envs.  First one control step from one shared
+    mid-stance state held against the kernel routes, a second oracle for
+    them: dense reuse against the per-substep route (the same algorithm:
+    one cache anchored at the entry state, 16 cold sweeps, contact points
+    advanced at velocity level), dense exact against the per-substep exact
+    route and against K5, and on `rough_train_cfg` dense exact against the
+    per-substep exact rough route (K3b); all four are read before a failure
+    ends the run.  A probe beside them steps dense exact from the same state
+    with the entry velocities scaled by 1 + 1e-7 and names the envs that
+    move beyond the tolerance by that alone: where a pair's envs beyond it
+    are among them, a solver branch, not a fault, parts the routes.  Then a
+    24-step rollout of each mode, which must launch no hand kernel and
+    build no env-minor cache, and one PPO iteration on dense reuse, then one
+    more under the profiler."""
+    N = N_ENVS
+    cfg = mob_train_cfg(N)
+    dense = dict(use_pallas_contact=False, megastep=False)
+    env_d = LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, **dense)), device=DEV)
+    env_dx = LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, reuse_matrices=False, **dense)), device=DEV)
+    cfg_r = rough_train_cfg(N)
+    env_drx = LeggedRobotEnv(dataclasses.replace(
+        cfg_r, sim=dataclasses.replace(cfg_r.sim, reuse_matrices=False,
+                                       **dense)), device=DEV)
+    branch = ("two formulations of exact mode (N-major einsums, the "
+              "kernels' fixed-order lane sums) part where a solver branch "
+              "amplifies a last-bit difference: 1 env of 3996 from this "
+              "state on an NVIDIA H100 80GB HBM3 (PERF.md, section 6), the "
+              "one the branch probe names; at most 0.25 % of the envs may")
+    pairs = (
+        ("dense_reuse_agreement", env_d, routes["substep"], state, 0, None,
+         "dense reuse (N-major cache anchored at the entry state, cold "
+         "solves, points advanced at velocity level; stock torch ops) vs the "
+         "per-substep route (entry cache, K1, 4 x K3)"),
+        ("dense_exact_agreement", env_dx, routes["substep_exact"], state,
+         N // 400, branch, "dense exact (FK, M^-1 and the contact solve anew "
+         "every substep; stock torch ops) vs the per-substep exact route (4 "
+         "x {entry cache, K1, K3})"),
+        ("dense_exact_vs_k5_agreement", env_dx, routes["exact"], state,
+         N // 400, branch, "dense exact vs the control-step kernel in exact "
+         "mode (K5, the cache rebuilt in the launch before every substep)"),
+        ("dense_rough_exact_agreement", env_drx, routes["rough_substep_exact"],
+         state_r, N // 100,
+         "as the two exact rough kernel routes (rough_exact_route_agreement):"
+         " on rough ground a few envs sit where a solver branch amplifies a "
+         "last-bit difference; at most 1 % of the envs may",
+         "dense exact vs the per-substep exact route (4 x {entry cache, K1, "
+         "K3b}) on rough_train_cfg"))
+    def step(env_x, st, a, k, scale=1.0):
+        phys = st.phys._replace(base_lin_vel=st.phys.base_lin_vel * scale,
+                                base_ang_vel=st.phys.base_ang_vel * scale,
+                                qd=st.phys.qd * scale)
+        return env_x.step(st._replace(
+            phys=phys, rng=make_generator(SEED + 6 + k, DEV)), a)[0]
+
+    oks, beyond = [], {}
+    for k, (phase, env_a, env_b, st, allow, why, what) in enumerate(pairs):
+        a = torch.randn((N, 12), generator=gen, device=DEV)
+        s_a, s_b = step(env_a, st, a, k), step(env_b, st, a, k)
+        torch.cuda.synchronize()
+        ok, beyond[phase] = agreement(
+            phase, "PhysicsState after one control step from one state and "
+            "the same actions: " + what, s_a, s_b, N, max_envs_beyond=allow,
+            why=why, stop=False)
+        oks.append(ok)
+        if phase == "dense_exact_agreement":
+            _, sensitive = agreement(
+                "dense_exact_branch_probe", "dense exact from the state of "
+                "dense_exact_agreement with base and joint velocities scaled "
+                "by 1 + 1e-7 vs from the state itself: the envs a last-bit "
+                "change alone moves beyond the tolerance (a measurement, no "
+                "limit)", step(env_a, st, a, k, 1.0 + 1e-7), s_a, N,
+                max_envs_beyond=N, stop=False)
+    say(phase="dense_branch_probe_overlap", envs_sensitive=len(sensitive),
+        pairs={p: dict(envs_beyond=len(ids),
+                       of_them_sensitive=len(set(ids) & set(sensitive)))
+               for p, ids in beyond.items() if "rough" not in p})
+    if not all(oks):
+        raise SystemExit("dense route: an agreement with a kernel route "
+                         "failed")
+    for name, env_x, config in (
+            ("dense_route", env_d, "mob_train_cfg, sim.use_pallas_contact="
+             "False, sim.megastep=False"),
+            ("dense_exact_route", env_dx, "mob_train_cfg, sim.use_pallas_"
+             "contact=False, sim.megastep=False, sim.reuse_matrices=False")):
+        st, obs = env_x.reset(gen)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        st, obs, ro = rollout(env_x, policy, ROLLOUT_STEPS, gen, state=st,
+                              obs=obs)
+        torch.cuda.synchronize()
+        check_rollout(name, env_x, st, obs, ro, ROLLOUT_STEPS,
+                      time.time() - t0, expect(), smi, config=config,
+                      need_resets=False)
+    train_phase("dense", env_d, gen, 1, expect())
+    trace_phase(env_d, gen, "dense", "mob_train_cfg, sim.use_pallas_contact="
+                "False, sim.megastep=False")
+
+
+def trace_phase(env, gen, route="control_step", config="mob_train_cfg"):
+    """One PPO iteration (of the default route unless named) under
+    utils/profiling.trace."""
     ts = ppo.init_train_state(gen, env)
     fn = ppo.make_train_iteration(env, num_steps=ROLLOUT_STEPS)
     state, obs = env.reset(gen)
@@ -783,7 +897,7 @@ def trace_phase(env, gen):
     traced_s = time.time() - t0
     ops, busy, window_ms = profiling.device_summary(prof, 5)
     ok = len(ops) > 0 and 0.0 < busy <= 1.0
-    say(phase="trace", config="mob_train_cfg", n_envs=env.num_envs,
+    say(phase="trace", route=route, config=config, n_envs=env.num_envs,
         what="one PPO iteration (24-step rollout + update) under "
              "torch.profiler: the five device ops with the most device "
              "time, and the share of the traced window in which the device "
@@ -1243,6 +1357,11 @@ def main():
                dynamics_substep=steps * D), smi,
         config="mob_train_cfg, sim.megastep=False, sim.reuse_matrices=False",
         need_resets=False)
+
+    # ---- the dense route: against the kernel routes, rollouts, PPO --------
+    dense_phase(state, state_r, dict(
+        substep=env_sub, substep_exact=env_sub_exact, exact=env_exact,
+        rough_substep_exact=env_rsx), policy, gen, smi)
 
     # ---- P control on the control-step route: K4c ---------------------------
     state_p, obs_p = env_p.reset(gen)

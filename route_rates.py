@@ -14,7 +14,10 @@ control), `rough_p` (`rough_train_cfg` with P control), `substep` and
 and 4 x K3 or K3b), `substep_exact` (its exact mode on `mob_train_cfg`,
 `sim.reuse_matrices=False` too: 4 x {entry cache, K1, K3} a step), `exact`
 and `exact_p` (exact mode on the control-step route,
-`sim.reuse_matrices=False`, of `mob_train_cfg` and `small_train_cfg`).
+`sim.reuse_matrices=False`, of `mob_train_cfg` and `small_train_cfg`),
+`dense` and `dense_exact` (the dense route of `mob_train_cfg`,
+`sim.use_pallas_contact=False`: stock torch ops, no hand kernel; reuse
+mode, and exact mode with `sim.reuse_matrices=False`).
 Prints one JSON line per route with every rollout's
 env-steps/s, the eager cache builds and kernel launches of the timed
 rollouts (the launch counters the measured tree has), then the card's name
@@ -59,7 +62,7 @@ COUNTERS = (
     ("dynamics", ("launches", "normal_launches")),
     ("entry_cache", ("launches", "normal_launches")))
 ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep",
-          "substep_exact", "exact", "exact_p")
+          "substep_exact", "exact", "exact_p", "dense", "dense_exact")
 N_ENVS, STEPS, REPS = 4000, 24, 3
 
 
@@ -78,7 +81,8 @@ def counters():
 
 
 def route_cfg(route, n):
-    if route in ("flat", "substep", "substep_exact", "exact"):
+    if route in ("flat", "substep", "substep_exact", "exact", "dense",
+                 "dense_exact"):
         cfg = mob_train_cfg(n)
     elif route in ("p", "exact_p"):
         cfg = small_train_cfg(n)
@@ -92,6 +96,9 @@ def route_cfg(route, n):
     if "substep" in route:
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, megastep=False))
+    if "dense" in route:
+        cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+            cfg.sim, use_pallas_contact=False, megastep=False))
     if "exact" in route:
         cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
             cfg.sim, reuse_matrices=False))

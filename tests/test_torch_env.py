@@ -243,11 +243,16 @@ def test_masked_reset_and_resample_stay_finite(runs):
 
 def test_unported_branches_raise():
     cfg = t_cfg.mob_train_cfg(4)
-    # the dense physics branches (the per-substep route, sim.megastep=False,
-    # and exact mode inside the control-step kernel are ported)
-    with pytest.raises(NotImplementedError):
-        t_env.LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
-            cfg.sim, use_pallas_contact=False)), device="cpu")
+    # the dense physics branches run (sim.use_pallas_contact off, whatever
+    # sim.megastep says): the env constructs and steps; so do the
+    # per-substep route and exact mode inside the control-step kernel
+    dense = t_env.LeggedRobotEnv(dataclasses.replace(
+        cfg, sim=dataclasses.replace(cfg.sim, use_pallas_contact=False)),
+        device="cpu")
+    s, _ = dense.reset(0)
+    s, _, _, _, info = dense.step(s, torch.zeros(4, 12))
+    assert bool(torch.isfinite(s.phys.q).all())
+    assert float(s.contact_forces.abs().max()) > 1.0
     t_env.LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
         cfg.sim, reuse_matrices=False)), device="cpu")
     with pytest.raises(NotImplementedError):

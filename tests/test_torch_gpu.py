@@ -393,3 +393,49 @@ def test_dynamics_substep_kernel_matches_plain_version_on_the_card(
         dynamics.dynamics_substep(*args[:8], gv[:, :128], *args[9:], **kw)
     with pytest.raises(ValueError):                  # normals of 128 envs
         dynamics.dynamics_substep(*args[:16], em.p_cp_t[..., :128], **kw)
+
+
+@pytest.mark.parametrize("reuse", [True, False])
+def test_dense_route_on_the_card(cuda, reuse):
+    """The dense route (stock torch ops, no hand kernel) on the card: one
+    control step of 256 envs launches no kernel and builds no env-minor
+    cache, and agrees with the same route on the CPU from the same state
+    (both float32; another summation order in the card's products).  A
+    dense substep refuses CUDA tensors while TF32 is on."""
+    cfg = mob_train_cfg(256)
+    cfg = dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, use_pallas_contact=False, megastep=False,
+        reuse_matrices=reuse))
+    env_g = LeggedRobotEnv(cfg, device=cuda)
+    env_c = LeggedRobotEnv(cfg, device="cpu")
+    s_c, _ = env_c.reset(make_generator(0, "cpu"))
+    s_g = s_c._replace(
+        phys=engine.PhysicsState(*[x.to(cuda) for x in s_c.phys]),
+        rng=make_generator(1, cuda),
+        **{k: getattr(s_c, k).to(cuda) for k in s_c._fields
+           if k not in ("phys", "rng", "curriculum", "curriculum_eval")},
+        curriculum=type(s_c.curriculum)(*[x.to(cuda)
+                                          for x in s_c.curriculum]))
+    before = (megastep.launches + megastep.exact_launches
+              + contact.cache_launches + dynamics.launches
+              + entry_cache.launches, envminor.cache_builds)
+    a = torch.randn((256, 12), generator=make_generator(2, "cpu")) * 0.5
+    s_c, *_ = env_c.step(s_c._replace(rng=make_generator(3, "cpu")), a)
+    s_g, *_ = env_g.step(s_g, a.to(cuda))
+    torch.cuda.synchronize()
+    assert (megastep.launches + megastep.exact_launches
+            + contact.cache_launches + dynamics.launches
+            + entry_cache.launches, envminor.cache_builds) == before
+    for leaf in ("base_pos", "base_quat", "q", "qd"):
+        np.testing.assert_allclose(getattr(s_g.phys, leaf).cpu().numpy(),
+                                   getattr(s_c.phys, leaf).numpy(),
+                                   rtol=2e-4, atol=2e-4, err_msg=leaf)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            engine.physics_substep(
+                env_g.model, env_g.sim_params, s_g.phys,
+                torch.zeros((256, 12), device=cuda),
+                env_g.dynamics_params(s_g)[1], env_g.terrain)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -371,11 +371,23 @@ def test_physics_substep_cached_matches_jax_xla_path(envs):
             envt.model, lam_t, envt.sim_params.dt, N)
         assert_close(forces.report_forces, cinfo.report_forces, 1e-4, ATOL_F)
     assert float(np.abs(np.asarray(cinfo.report_forces)).max()) > 1.0
-    with pytest.raises(NotImplementedError):
-        t_engine.build_dynamics_cache(
-            envt.model, dataclasses.replace(envt.sim_params,
-                                            use_pallas_contact=False),
-            st.phys, _dyn_of(envt, st))
+    # without use_pallas_contact the cache is the dense route's N-major
+    # one, the JAX XLA path's own (tests/test_torch_dense.py holds its
+    # substeps); a substep refuses a cache of the other route
+    dense_params = dataclasses.replace(envt.sim_params,
+                                       use_pallas_contact=False)
+    dense = t_engine.build_dynamics_cache(envt.model, dense_params, st.phys,
+                                          _dyn_of(envt, st))
+    assert dense.pallas_ops is None and tuple(dense.J.shape) == (N, 28, 3, 18)
+    for name in ("J", "p_cp", "Sw", "Sv"):
+        assert_close(getattr(dense, name), getattr(cache_j, name), RTOL,
+                     ATOL, err_msg=name)
+    # W = J M^-1 J^T through M^-1 (entries up to 3e2): measured 2.7e-6
+    assert_close(dense.W, cache_j.W, RTOL, 1e-5)
+    with pytest.raises(ValueError):
+        t_engine.physics_substep_cached(
+            envt.model, dense_params, st.phys, t(tau), _dyn_of(envt, st),
+            envt.terrain, cache_t)
 
 
 @pytest.fixture(scope="module")

@@ -22,8 +22,8 @@ physics} -> kinematic quantities -> teleport/resample/gait-clock/push/DR
 callbacks -> termination -> rewards -> masked auto-reset -> observations ->
 shift last_* buffers.
 
-Physics runs on the two env-minor kernel routes (`sim.use_pallas_contact`
-on), on flat ground or a heightfield: with `sim.megastep` one launch of the
+Physics runs on flat ground or a heightfield.  On the two env-minor kernel
+routes (`sim.use_pallas_contact` on): with `sim.megastep` one launch of the
 whole-control-step kernel per control step (ops/megastep.py), in reuse mode
 or, with `sim.reuse_matrices` off, in exact mode (on flat ground the cache
 rebuilt inside the kernel before every substep; on a heightfield
@@ -32,9 +32,12 @@ fresh cache and fresh terrain samples); with `sim.megastep` off one
 contact-cache launch per control step (reuse) or per substep (exact) and
 one dynamics-substep launch per physics substep (ops/contact.py,
 ops/dynamics.py), the torque model evaluated between them
-(`_compute_torques`).  The dense physics branches of the reference
-(`use_pallas_contact` off) and the train/eval env split raise
-NotImplementedError until their slices of the port are written.
+(`_compute_torques`).  With `sim.use_pallas_contact` off (the `SimCfg`
+default, and `go1_cfg()`'s physics), the dense route of physics/engine.py
+in stock torch ops: per substep the torque model, then
+`physics_substep_cached` on a cache built once per control step (reuse
+mode) or `physics_substep` (exact mode).  The train/eval env split raises NotImplementedError until
+its slice of the port is written.
 """
 from __future__ import annotations
 
@@ -153,11 +156,6 @@ class LeggedRobotEnv:
             raise NotImplementedError(
                 "the train/eval env split belongs to the evaluation slice "
                 "of the port, which is not written yet")
-        if not cfg.sim.use_pallas_contact:
-            raise NotImplementedError(
-                "only the env-minor kernel routes are ported "
-                "(sim.use_pallas_contact on); the dense physics branches "
-                "belong to a later slice")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # float32 throughout: products must not drop to TF32
@@ -741,7 +739,38 @@ class LeggedRobotEnv:
 
         # 2. decimation loop (legged_robot.py:74-81)
         D = cfg.control.decimation
-        if cfg.sim.megastep and not self.reuse_matrices and self.rough:
+        if not self.sim_params.use_pallas_contact:
+            # the dense route: stock torch ops, no hand kernel.  Reuse
+            # mode: one N-major cache anchored at the control step's first
+            # geometry, contact points advanced at velocity level, the feet
+            # from them; exact mode: FK, M^-1 and the contact solve anew
+            # every substep, the feet from FK.  Every solve starts cold;
+            # `contact_lam_t` is left untouched.
+            gravity, dyn = self.dynamics_params(state)
+            if self.reuse_matrices:
+                cache = engine.build_dynamics_cache(
+                    m, self.sim_params, state.phys, dyn, self.terrain)
+                p_cp = cache.p_cp
+            for _ in range(D):
+                tau, target, lag, hist = self._compute_torques(state)
+                if self.reuse_matrices:
+                    phys2, cinfo_last, p_cp = engine.physics_substep_cached(
+                        m, self.sim_params, state.phys, tau, dyn,
+                        self.terrain, cache, p_cp)
+                else:
+                    phys2, cinfo_last = engine.physics_substep(
+                        m, self.sim_params, state.phys, tau, dyn,
+                        self.terrain)
+                state = state._replace(phys=phys2, torques=tau,
+                                       joint_pos_target=target,
+                                       lag_buffer=lag, **hist)
+            if self.reuse_matrices:
+                foot_positions, foot_velocities = \
+                    engine.foot_state_from_cache(m, cache, state.phys, p_cp)
+            else:
+                foot_positions, foot_velocities = \
+                    engine.foot_positions_velocities(m, state.phys)
+        elif cfg.sim.megastep and not self.reuse_matrices and self.rough:
             # exact mode on a heightfield (the kernel's exact variant is
             # flat-ground only): D launches of one substep each in reuse
             # mode, every one from a fresh cache and fresh terrain samples
@@ -805,10 +834,11 @@ class LeggedRobotEnv:
                 state = state._replace(phys=phys2, torques=tau,
                                        joint_pos_target=target,
                                        lag_buffer=lag, **hist)
-        cinfo_last = engine.contact_report_from_lam_t(
-            m, lam_t, self.sim_params.dt, N)
-        foot_positions, foot_velocities = engine.foot_state_from_pcp_t(
-            m, p_cp_t, p_cp_prev_t, self.sim_params.dt, N)
+        if self.sim_params.use_pallas_contact:
+            cinfo_last = engine.contact_report_from_lam_t(
+                m, lam_t, self.sim_params.dt, N)
+            foot_positions, foot_velocities = engine.foot_state_from_pcp_t(
+                m, p_cp_t, p_cp_prev_t, self.sim_params.dt, N)
         contact_forces = cinfo_last.report_forces
 
         # 3. kinematic quantities (legged_robot.py:102-115)
