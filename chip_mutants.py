@@ -4,19 +4,21 @@
     python3 chip_mutants.py [name ...]
     python3 chip_mutants.py --tests [name ...]
 
-For each mutant below (or each one named): copies `chip_smoke.py`, the port's package and
-`resources/` into `build/mutants/<name>/`, makes ONE edit in one source of
-the package there (a kernel source, or the dense route in
-physics/engine.py), runs `python3 chip_smoke.py` in the copy and records
-its exit code and the first check that failed.  The smoke test must exit
-non-zero on every mutant, and at the check named here; kernels that the
-edit does not reach must still pass before it.  Prints one JSON line per
+For each mutant below (or each one named): copies `chip_smoke.py`, the
+port's package and `resources/` into `build/mutants/<name>/`, makes ONE edit
+in one source of the package there (a kernel source, the dense route in
+physics/engine.py, or the train/eval split in envs/go1_env.py), runs
+`python3 chip_smoke.py` in the copy and records its exit code and the first
+check that failed.  The smoke test must exit non-zero on every mutant, and
+at the check named here; kernels that the edit does not reach must still
+pass before it.  Prints one JSON line per
 mutant and a last line `{"ok": ..., "mutants": n}`; exits non-zero if a
 mutant survived.
 
 With `--tests` (on a CPU machine with the JAX package's dependencies) only
-the mutants of Python sources run, each through `tests/test_torch_dense.py`
-in the copy (the tests and the JAX package copied too), which must fail.
+the mutants of Python sources run, each through the parity tests of its
+source in the copy (`TESTS`; the tests and the JAX package copied too),
+which must fail.
 
 The working tree is never edited.
 """
@@ -135,7 +137,15 @@ MUTANTS = (
     # of the base point's acceleration; reuse mode passes
     ("dense_exact_drops_base_w_x_v", "physics/engine.py",
      "qdd[:, 3:6] + base_wxv", "qdd[:, 3:6]", "dense_exact_agreement"),
+    # the train/eval split hands the eval slice the train slice's
+    # domain-randomisation ranges
+    ("eval_slice_gets_the_train_dr_range", "envs/go1_env.py",
+     "ev = self.eval_cfg.domain_rand if self.eval_cfg else tr", "ev = tr",
+     "eval_split_dr"),
 )
+# the CPU parity tests that `--tests` runs on a mutant of each Python source
+TESTS = {"physics/engine.py": "tests/test_torch_dense.py",
+         "envs/go1_env.py": "tests/test_torch_eval.py"}
 
 
 def run_mutant(name, source, old, new, expect, tests=False):
@@ -198,10 +208,10 @@ def run_mutant(name, source, old, new, expect, tests=False):
 
 
 def run_tests(name, source, old, new, work):
-    """The dense route's CPU parity tests on a mutant copy: killed when a
-    test fails (pytest exit code 1, not a collection or usage error)."""
+    """The source's CPU parity tests on a mutant copy: killed when a test
+    fails (pytest exit code 1, not a collection or usage error)."""
     p = subprocess.run(
-        [sys.executable, "-m", "pytest", "tests/test_torch_dense.py", "-q",
+        [sys.executable, "-m", "pytest", TESTS[source], "-q",
          "-p", "no:cacheprovider"],
         cwd=work, env=dict(os.environ, JAX_PLATFORMS="cpu"),
         capture_output=True, text=True)
@@ -210,7 +220,7 @@ def run_tests(name, source, old, new, work):
     ok = p.returncode == 1 and len(failed) > 0
     print(json.dumps(dict(
         mutant=name, source=os.path.join(PACKAGE, source), edit=[old, new],
-        run="tests/test_torch_dense.py", exit_code=p.returncode,
+        run=TESTS[source], exit_code=p.returncode,
         tests_failed=len(failed), first_failed=failed[:5],
         summary=(p.stdout.strip().splitlines() or [""])[-1][:300], ok=ok)),
         flush=True)

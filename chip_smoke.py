@@ -34,9 +34,10 @@ the entry points a user calls and checks what comes out:
 - P control on the control-step route (`small_train_cfg(4000)`, K4c, no
   eager cache build),
 - the training entry point: `learn/runner.Runner` (log, checkpoint, resume,
-  export), then four commands as subprocesses started together:
-  `python -m walk_these_ways_tpu_torch.scripts.train --exact` and
-  `... --terrain rough`, `scripts.play` (on the policy the runner exported)
+  export), then six commands as subprocesses started together:
+  `python -m walk_these_ways_tpu_torch.scripts.train --exact`,
+  `... --terrain rough` and `... --num-eval-envs 400 --eval-dr rand_large`,
+  `scripts.play` and `scripts.evaluate` (on the policy the runner exported)
   and `scripts.test`; the bench's `main`,
 - rough terrain (`rough_train_cfg(4000)`): the default route (one K4b launch
   per step), the P-control route (one K4b-P launch per step), the exact
@@ -48,8 +49,18 @@ the entry points a user calls and checks what comes out:
 - the dense route (`sim.use_pallas_contact=False`: stock torch ops, no hand
   kernel), reuse and exact mode: one control step from one shared state
   held against the per-substep route, the per-substep exact route, K5 and
-  (rough) the per-substep exact rough route, 24-step rollouts that launch
-  no hand kernel, and a PPO iteration,
+  (rough) the per-substep exact rough route, each flat exact pair's envs
+  beyond the tolerance required to be ones a 1 + 1e-7 branch probe names,
+  24-step rollouts that launch no hand kernel, and a PPO iteration,
+- the train/eval env split (`eval_split_phases`): 4000 train + 400 eval
+  envs under the rand_large DR preset, each slice's DR draws in its own
+  range, a 24-step rollout (one K4 launch a step for all 4400 envs), the
+  eval slice's deterministic actions, a PPO iteration, the per-substep
+  route against K4 from one split state, and the eval slice on rough
+  terrain rows appended to the train field (K4b on a 3000 x 1500 field:
+  against its plain version, against the per-substep route, a rollout);
+  `scripts.train --num-eval-envs 400 --eval-dr rand_large` and
+  `scripts.evaluate` run among the commands,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
   and the device-busy share).
 
@@ -82,6 +93,7 @@ from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
 from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
     mob_train_cfg, rough_train_cfg, small_train_cfg)
 from walk_these_ways_tpu_torch.learn import ppo  # noqa: E402
+from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS  # noqa: E402
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
 from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs  # noqa: E402
 from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E402
@@ -109,6 +121,7 @@ TOLERANCE = ("|kernel - plain| <= atol + rtol |plain|; float32 both, "
              "another summation order in the kernel, amplified by M^-1 into "
              "joint velocities of up to 28 rad/s")
 N_ENVS = 4000       # the full width of mob_train_cfg
+N_EVAL = 400        # the eval slice appended to it by the eval_split phases
 ROLLOUT_STEPS = 24  # control steps of each rollout (one PPO iteration's)
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s on CUDA cores
@@ -600,24 +613,32 @@ def runner_phase(env_p):
 
 
 def command_phases():
-    """The port's commands as a user runs them, four subprocesses started
-    together: the train script with --exact (2 iterations) and with
-    --terrain rough (1 iteration), `scripts.play` on the policy the runner
-    phase exported and `scripts.test`.  One phase line for each train
-    script and one for the two scripts."""
+    """The port's commands as a user runs them, six subprocesses started
+    together: the train script with --exact (2 iterations), with --terrain
+    rough (1 iteration) and with 400 eval envs under the rand_large DR
+    preset (2 iterations), `scripts.play` and `scripts.evaluate` (presets
+    rand_regular and static_medium at 4000 envs, 30 steps) on the policy
+    the runner phase exported, and `scripts.test`.  One phase line for each
+    train script, one for play and test, one for evaluate with its rows."""
     mod = "walk_these_ways_tpu_torch.scripts."
     train = [sys.executable, "-m", mod + "train", "--num-envs", str(N_ENVS)]
-    logs = {k: os.path.join(OUT_DIR, k) for k in ("exact", "rough")}
+    logs = {k: os.path.join(OUT_DIR, k) for k in ("exact", "rough", "eval")}
     for d in logs.values():
         shutil.rmtree(d, ignore_errors=True)
     pol = os.path.join(OUT_DIR, "runner", "checkpoints", "policy_latest.npz")
+    presets = ["rand_regular", "static_medium"]
     cmds = dict(
         exact=train + ["--iterations", "2", "--exact",
                        "--log-dir", logs["exact"]],
         rough=train + ["--iterations", "1", "--terrain", "rough",
                        "--log-dir", logs["rough"]],
+        eval=train + ["--iterations", "2", "--num-eval-envs", str(N_EVAL),
+                      "--eval-dr", "rand_large", "--log-dir", logs["eval"]],
         play=[sys.executable, "-m", mod + "play", "--policy", pol,
               "--steps", "24"],
+        evaluate=[sys.executable, "-m", mod + "evaluate", "--policy", pol,
+                  "--settings", *presets, "--num-envs", str(N_ENVS),
+                  "--steps", "30"],
         test=[sys.executable, "-m", mod + "test", "--num-envs", "3",
               "--steps", "50"])
     t0 = time.time()
@@ -638,14 +659,24 @@ def command_phases():
                       stdout_tail=out.strip().splitlines()[-3:],
                       stderr_tail=err.strip().splitlines()[-3:])
     ok_all = True
-    for k in ("exact", "rough"):
+    for k in ("exact", "rough", "eval"):
         files = [f for f in ("provenance.json",
                              "checkpoints/train_state_last.pkl",
                              "checkpoints/policy_latest.npz")
                  if os.path.exists(os.path.join(logs[k], f))]
         ok = res[k]["returncode"] == 0 and len(files) == 3
+        if k == "eval" and ok:
+            prov = json.load(open(os.path.join(logs[k], "provenance.json")))
+            ok = prov["num_envs"] == N_ENVS + N_EVAL
         say(phase="train_script_" + k, **res[k], artifacts=files, ok=ok)
         ok_all = ok_all and ok
+    rows = [ln.split() for ln in res["evaluate"]["stdout_tail"]]
+    ok = (res["evaluate"]["returncode"] == 0
+          and [r[0] for r in rows if r] == presets
+          and all(np.isfinite(float(f.split("=")[1])) for r in rows
+                  for f in r[1:] if "=" in f))
+    say(phase="scripts_evaluate", **res["evaluate"], ok=ok)
+    ok_all = ok_all and ok
     ok = (res["play"]["returncode"] == 0
           and any("mean body-frame vx" in ln
                   for ln in res["play"]["stdout_tail"])
@@ -789,10 +820,13 @@ def dense_phase(state, state_r, routes, policy, gen, smi):
     advanced at velocity level), dense exact against the per-substep exact
     route and against K5, and on `rough_train_cfg` dense exact against the
     per-substep exact rough route (K3b); all four are read before a failure
-    ends the run.  A probe beside them steps dense exact from the same state
-    with the entry velocities scaled by 1 + 1e-7 and names the envs that
-    move beyond the tolerance by that alone: where a pair's envs beyond it
-    are among them, a solver branch, not a fault, parts the routes.  Then a
+    ends the run.  A probe (`branch_probe`) beside them steps dense exact
+    from the same state with the entry velocities scaled by 1 + 1e-7 and
+    names the envs that move beyond the tolerance by that alone: each env
+    beyond it in a flat exact pair must be one the probe names (a solver
+    branch, not a fault, parts the routes there), whatever the allowance;
+    on rough ground the probe's overlap is reported beside the 1 %
+    allowance.  Then a
     24-step rollout of each mode, which must launch no hand kernel and
     build no env-minor cache, and one PPO iteration on dense reuse, then one
     more under the profiler."""
@@ -811,7 +845,8 @@ def dense_phase(state, state_r, routes, policy, gen, smi):
               "kernels' fixed-order lane sums) part where a solver branch "
               "amplifies a last-bit difference: 1 env of 3996 from this "
               "state on an NVIDIA H100 80GB HBM3 (PERF.md, section 6), the "
-              "one the branch probe names; at most 0.25 % of the envs may")
+              "one the branch probe names; at most 0.25 % of the envs may, "
+              "each one the probe names")
     pairs = (
         ("dense_reuse_agreement", env_d, routes["substep"], state, 0, None,
          "dense reuse (N-major cache anchored at the entry state, cold "
@@ -831,14 +866,11 @@ def dense_phase(state, state_r, routes, policy, gen, smi):
          "last-bit difference; at most 1 % of the envs may",
          "dense exact vs the per-substep exact route (4 x {entry cache, K1, "
          "K3b}) on rough_train_cfg"))
-    def step(env_x, st, a, k, scale=1.0):
-        phys = st.phys._replace(base_lin_vel=st.phys.base_lin_vel * scale,
-                                base_ang_vel=st.phys.base_ang_vel * scale,
-                                qd=st.phys.qd * scale)
+    def step(env_x, st, a, k):
         return env_x.step(st._replace(
-            phys=phys, rng=make_generator(SEED + 6 + k, DEV)), a)[0]
+            rng=make_generator(SEED + 6 + k, DEV)), a)[0]
 
-    oks, beyond = [], {}
+    oks, beyond, probes = [], {}, {}
     for k, (phase, env_a, env_b, st, allow, why, what) in enumerate(pairs):
         a = torch.randn((N, 12), generator=gen, device=DEV)
         s_a, s_b = step(env_a, st, a, k), step(env_b, st, a, k)
@@ -848,18 +880,24 @@ def dense_phase(state, state_r, routes, policy, gen, smi):
             "the same actions: " + what, s_a, s_b, N, max_envs_beyond=allow,
             why=why, stop=False)
         oks.append(ok)
-        if phase == "dense_exact_agreement":
-            _, sensitive = agreement(
-                "dense_exact_branch_probe", "dense exact from the state of "
-                "dense_exact_agreement with base and joint velocities scaled "
-                "by 1 + 1e-7 vs from the state itself: the envs a last-bit "
-                "change alone moves beyond the tolerance (a measurement, no "
-                "limit)", step(env_a, st, a, k, 1.0 + 1e-7), s_a, N,
-                max_envs_beyond=N, stop=False)
-    say(phase="dense_branch_probe_overlap", envs_sensitive=len(sensitive),
-        pairs={p: dict(envs_beyond=len(ids),
-                       of_them_sensitive=len(set(ids) & set(sensitive)))
-               for p, ids in beyond.items() if "rough" not in p})
+        if phase in ("dense_exact_agreement", "dense_rough_exact_agreement"):
+            # dense exact from the pair's state and actions
+            probes["rough" if "rough" in phase else "flat"] = branch_probe(
+                phase.replace("agreement", "branch_probe"), env_a, st, a,
+                SEED + 6 + k, N)
+    report = {}
+    for p, ids in beyond.items():
+        probe = set(probes["rough" if "rough" in p else "flat"])
+        report[p] = dict(envs_beyond=len(ids),
+                         of_them_probe_named=len(set(ids) & probe),
+                         outside_the_probe=sorted(set(ids) - probe)[:20])
+        if "exact" in p and "rough" not in p and not set(ids) <= probe:
+            # a flat exact pair's envs beyond the tolerance must be branch
+            # envs, whatever the allowance
+            oks.append(False)
+    say(phase="dense_branch_probe_overlap",
+        envs_probe_named={k: len(v) for k, v in probes.items()},
+        pairs=report, ok=all(oks))
     if not all(oks):
         raise SystemExit("dense route: an agreement with a kernel route "
                          "failed")
@@ -881,6 +919,260 @@ def dense_phase(state, state_r, routes, policy, gen, smi):
     train_phase("dense", env_d, gen, 1, expect())
     trace_phase(env_d, gen, "dense", "mob_train_cfg, sim.use_pallas_contact="
                 "False, sim.megastep=False")
+
+
+def check_dr_split(env, state):
+    """Each slice's friction, added mass, COM shift and motor strength:
+    with its randomisation on, inside its own range and spread over at
+    least 90 % of it (a few hundred uniform draws span ~99 %); off, the
+    default.  Returns (ok, a report per field and slice)."""
+    T = env.num_train_envs
+    fields = (("friction_coeffs", "randomize_friction", "friction_range",
+               1.0),
+              ("payloads", "randomize_base_mass", "added_mass_range", 0.0),
+              ("com_displacements", "randomize_com_displacement",
+               "com_displacement_range", 0.0),
+              ("motor_strengths", "randomize_motor_strength",
+               "motor_strength_range", 1.0))
+    ok, out = True, {}
+    for leaf, flag, rng, default in fields:
+        for name, dr, sl in (("train", env.cfg.domain_rand, slice(0, T)),
+                             ("eval", env.eval_cfg.domain_rand,
+                              slice(T, None))):
+            v = getattr(state, leaf)[sl]
+            lo, hi = getattr(dr, rng)
+            vmin, vmax = float(v.min()), float(v.max())
+            on = bool(getattr(dr, flag))
+            good = (lo <= vmin and vmax <= hi and vmax - vmin >= 0.9 * (
+                hi - lo)) if on else bool((v == default).all())
+            out[f"{leaf}/{name}"] = dict(on=on, range=[lo, hi], min=vmin,
+                                         max=vmax, ok=good)
+            ok = ok and good
+    return ok, out
+
+
+def branch_probe(phase, env_x, st, a, seed, n):
+    """The envs that a step of `env_x` from `st` with the entry base and
+    joint velocities scaled by 1 + 1e-7 moves beyond the tolerance, against
+    the step from `st` itself (a measurement, no limit): where a route
+    pair's envs beyond the tolerance are among them, a solver branch, not a
+    fault, parts the routes."""
+    def step(scale):
+        phys = st.phys._replace(base_lin_vel=st.phys.base_lin_vel * scale,
+                                base_ang_vel=st.phys.base_ang_vel * scale,
+                                qd=st.phys.qd * scale)
+        return env_x.step(st._replace(
+            phys=phys, rng=make_generator(seed, DEV)), a)[0]
+
+    return agreement(
+        phase, "the step from a state with its velocities scaled by 1 + "
+        "1e-7 vs from the state itself: the envs a last-bit change alone "
+        "moves beyond the tolerance (a measurement, no limit)",
+        step(1.0 + 1e-7), step(1.0), n, max_envs_beyond=n, stop=False)[1]
+
+
+def eval_split_phases(policy, gen, smi, worst):
+    """The train/eval env split of `mob_train_cfg(4000)` with an eval slice
+    of `mob_train_cfg(400)` under the `rand_large` DR preset (4400 envs):
+    (a) each slice's DR draws in its own range, a 24-step rollout through
+    `ppo.collect` (one K4 launch a step for all 4400 envs; the eval slice
+    acting with the student's mean), the eval actions against `actor_mean`
+    and, with `eval_expert`, `act_teacher` of their observations, a PPO
+    iteration; (b) one control step from one split state on the
+    per-substep route against K4 with warm start off; (c) the eval slice on
+    `rough_train_cfg`'s terrain rows appended to the train field (a 3000 x
+    1500 heightfield, K4b): the eval origins beyond the train rows, K4b
+    against its plain version on that field, one control step of K4b with
+    warm start off against the per-substep route (K1, 4 x K3b), a 24-step
+    rollout.  (d), the train and evaluate commands with eval flags, runs in
+    `command_phases`.  Returns the launch counts of (a)'s and (c)'s
+    rollouts."""
+    N, E = N_ENVS, N_EVAL
+    NT = N + E
+    steps = ROLLOUT_STEPS
+    cfg = mob_train_cfg(N)
+    ev = dataclasses.replace(mob_train_cfg(E),
+                             domain_rand=DR_SETTINGS["rand_large"])
+    ev_r = dataclasses.replace(ev, terrain=rough_train_cfg(E).terrain)
+
+    def split_env(eval_cfg, **sim):
+        s = dataclasses.replace(cfg.sim, **sim)
+        return LeggedRobotEnv(
+            dataclasses.replace(cfg, sim=s),
+            eval_cfg=dataclasses.replace(eval_cfg, sim=s), device=DEV)
+
+    def collect_route(phase, env_x, state, obs, expect_counts, config):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        state, obs, traj, logs = ppo.collect(env_x, state, obs, policy, gen,
+                                             steps, 0.99)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = counts()
+        finite = all(bool(torch.isfinite(v).all()) for v in
+                     list(obs.values()) + list(traj) + list(logs)
+                     + [state.phys.q, state.phys.base_pos])
+        shapes_ok = (tuple(traj.actions.shape) == (steps, N, 12)
+                     and tuple(traj.rewards.shape) == (steps, N)
+                     and tuple(obs["obs_history"].shape) == (NT, 2100))
+        mean_h = float(state.phys.base_pos[:, 2].mean())
+        ok = (finite and shapes_ok and got == expect_counts
+              and 0.10 < mean_h < 0.45)
+        say(phase=phase, config=config, n_envs=NT, n_train_envs=N,
+            n_eval_envs=E, steps=steps, seconds=seconds,
+            env_steps_per_s=NT * steps / seconds, gpu=smi,
+            kernel_launches=got, expected_launches=expect_counts,
+            finite=finite, trajectory_shape=list(traj.actions.shape),
+            shapes_ok=shapes_ok, mean_base_height=mean_h,
+            train_episodes_done=float(logs[1].sum()),
+            eval_episodes_done=float(logs[4].sum()), ok=ok)
+        if not ok:
+            raise SystemExit(f"{phase} phase failed")
+        return state, obs, got
+
+    # ---- (a) flat split: DR, rollout, eval actions, PPO iteration ------
+    env_s = split_env(ev)
+    state, obs = env_s.reset(gen, random_episode_lengths=True)
+    dr_ok, dr = check_dr_split(env_s, state)
+    say(phase="eval_split_dr", n_train_envs=N, n_eval_envs=E,
+        eval_preset="rand_large", fields=dr, ok=dr_ok)
+    if not dr_ok:
+        raise SystemExit("eval_split_dr: a slice's DR draws leave its range")
+    config = "mob_train_cfg(4000) + eval mob_train_cfg(400), rand_large"
+    state, obs, flat_counts = collect_route(
+        "eval_split_route", env_s, state, obs, expect(control_step=steps),
+        config)
+    errs = {}
+    clip = cfg.normalization.clip_actions
+    for expert in (False, True):
+        with torch.no_grad():
+            hist, priv = obs["obs_history"][N:], obs["privileged_obs"][N:]
+            want = (policy.act_teacher(hist, priv) if expert
+                    else policy.actor_mean(hist))
+        st1 = ppo.collect(env_s, state._replace(
+            rng=make_generator(SEED + 7, DEV)), obs, policy,
+            make_generator(SEED + 8, DEV), 1, 0.99, expert)[0]
+        errs["act_teacher" if expert else "actor_mean"] = float(
+            (st1.actions[N:] - torch.clamp(want, -clip, clip)).abs().max())
+    act_ok = max(errs.values()) <= 1e-6
+    say(phase="eval_split_actions", n_eval_envs=E,
+        what="the eval slice's actions in a collect step vs the student's "
+             "mean (actor_mean) and, with eval_expert, the teacher "
+             "(act_teacher) of its observations", max_abs_err=errs,
+        atol=1e-6, ok=act_ok)
+    if not act_ok:
+        raise SystemExit("eval_split_actions: the eval slice does not act "
+                         "deterministically")
+    ts = ppo.init_train_state(gen, env_s)
+    fn = ppo.make_train_iteration(env_s, num_steps=steps)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, _, ts, m = fn(state, obs, ts)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = counts()
+    ev_m = dict(eval_ep_sums_done=m.eval_ep_sums_done.tolist(),
+                eval_ep_count_done=float(m.eval_ep_count_done),
+                eval_ep_len_done=float(m.eval_ep_len_done))
+    ok = (all(np.isfinite(np.asarray(ev_m["eval_ep_sums_done"])))
+          and np.isfinite(ev_m["eval_ep_count_done"])
+          and np.isfinite(ev_m["eval_ep_len_done"])
+          and bool(torch.isfinite(m.value_loss)) and ts.iteration == 1
+          and got == expect(control_step=steps))
+    say(phase="train_iteration", route="eval_split", n_envs=NT,
+        n_train_envs=N, num_steps=steps, seconds=seconds,
+        env_steps_per_s=NT * steps / seconds, lr=m.lr,
+        value_loss=float(m.value_loss), train_episodes_done=float(
+            m.ep_count_done), **ev_m, kernel_launches=got,
+        expected_launches=expect(control_step=steps), ok=ok)
+    if not ok:
+        raise SystemExit("train_iteration (eval_split) failed")
+
+    # K4 at the split's width: 4400 envs, past the 4224 of one wave
+    args, kw = kernel_call_of(env_s, state)
+    timing("control_step_eval_split",
+           lambda: megastep.control_step(*args, **kw),
+           lambda: megastep.control_step_reference(*args, **kw),
+           megastep.work_per_env(env_s.model, cfg.control.decimation,
+                                 kw["warm_iters"], entry=True),
+           NT, launch=megastep_launch(env_s.model, args, kw),
+           threads_per_block=megastep.TEAM_THREADS)
+
+    # ---- (b) one split state, the per-substep route vs K4 cold ---------
+    a = torch.randn((NT, 12), generator=gen, device=DEV)
+    s_sub, *_ = split_env(ev, megastep=False).step(
+        state._replace(rng=make_generator(SEED + 9, DEV)), a)
+    s_k4, *_ = split_env(ev, contact_warm_start=False).step(
+        state._replace(rng=make_generator(SEED + 9, DEV)), a)
+    torch.cuda.synchronize()
+    agreement(
+        "eval_split_route_agreement",
+        "PhysicsState after one control step from one split state (4000 + "
+        "400 envs) and the same actions: per-substep route (K1, 4 x K3) vs "
+        "the control-step kernel with contact_warm_start off", s_sub, s_k4,
+        NT)
+
+    # ---- (c) the eval slice on rough terrain rows: K4b -------------------
+    env_sr = split_env(ev_r)
+    x = env_sr.env_origins[:, 0]
+    field = list(env_sr.terrain.height.shape)
+    rows_ok = (float(x[N:].min()) > float(x[:N].max()) and env_sr.rough
+               and field == [3000, 1500])
+    say(phase="eval_split_rough_terrain", heightfield=field,
+        train_origin_x_max=float(x[:N].max()),
+        eval_origin_x_min=float(x[N:].min()), ok=rows_ok)
+    if not rows_ok:
+        raise SystemExit("eval_split_rough_terrain: the eval rows are not "
+                         "beyond the train rows")
+    state_r, obs_r = env_sr.reset(gen)
+    key = "control_step_normals"
+
+    def k4b_check(st, st_name):
+        args, kw = kernel_call_of(env_sr, st)
+        p_args, p_kw = kernel_call_of(env_sr, st, eager_cache=True)
+        worst[key] = max(worst.get(key, 0.0), compare(
+            key, st_name, OUT_NAMES,
+            lambda: megastep.control_step(*args, **kw),
+            lambda: megastep.control_step_reference(*p_args, **p_kw), NT))
+
+    k4b_check(state_r, "eval_split_rough_after_reset")
+    state_r, obs_r, rough_counts = collect_route(
+        "eval_split_rough_route", env_sr, state_r, obs_r,
+        expect(control_step_normals=steps),
+        config + ", eval terrain rough_train_cfg")
+    k4b_check(state_r, "eval_split_rough_24_steps_in")
+    args, kw = kernel_call_of(env_sr, state_r)
+    timing("control_step_normals_eval_split",
+           lambda: megastep.control_step(*args, **kw),
+           lambda: megastep.control_step_reference(*args, **kw),
+           megastep.work_per_env(env_sr.model, cfg.control.decimation,
+                                 kw["warm_iters"], flat=False, entry=True),
+           NT, launch=megastep_launch(env_sr.model, args, kw),
+           threads_per_block=megastep.TEAM_THREADS)
+    env_srs = split_env(ev_r, megastep=False)
+    a = torch.randn((NT, 12), generator=gen, device=DEV)
+    s_sub, *_ = env_srs.step(
+        state_r._replace(rng=make_generator(SEED + 10, DEV)), a)
+    s_k4b, *_ = split_env(ev_r, contact_warm_start=False).step(
+        state_r._replace(rng=make_generator(SEED + 10, DEV)), a)
+    torch.cuda.synchronize()
+    ok, ids = agreement(
+        "eval_split_rough_route_agreement",
+        "PhysicsState after one control step from one split state with the "
+        "eval slice on rough rows (4000 + 400 envs) and the same actions: "
+        "per-substep route (K1, 4 x K3b) vs the control-step kernel with "
+        "contact_warm_start off (K4b, cold)", s_sub, s_k4b, NT, stop=False)
+    sensitive = branch_probe("eval_split_rough_branch_probe", env_srs,
+                             state_r, a, SEED + 10, NT)
+    say(phase="eval_split_rough_probe_overlap", envs_beyond=len(ids),
+        of_them_probe_named=len(set(ids) & set(sensitive)),
+        envs_probe_named=len(sensitive), ok=ok)
+    if not ok:
+        raise SystemExit("eval_split_rough_route_agreement: the two routes "
+                         "disagree")
+    return flat_counts, rough_counts
 
 
 def trace_phase(env, gen, route="control_step", config="mob_train_cfg"):
@@ -1262,6 +1554,9 @@ def main():
         "vs the control-step kernel with contact_warm_start off (cold "
         "start, 16 sweeps every substep)", s_sub, s_k4, N)
 
+    # ---- the train/eval env split at 4000 + 400 envs: K4, K4b -----------
+    eval_split_phases(policy, gen, smi, worst)
+
     # ---- the contact-substep kernel, driven directly ------------------------
     # No env branch launches it alone (as in the JAX package): a control
     # step's four substeps as {plain dynamics, contact-substep kernel},
@@ -1415,7 +1710,7 @@ def main():
     s_sxb, *_ = env_rsx.step(
         state_r._replace(rng=make_generator(SEED + 5, DEV)), a)
     torch.cuda.synchronize()
-    agreement(
+    ok, ids = agreement(
         "rough_exact_route_agreement",
         "PhysicsState after one control step from one rough_train_cfg state "
         "and the same actions, exact mode: D control-step launches of one "
@@ -1428,7 +1723,16 @@ def main():
             "versions of the two routes, on the CPU from a state made the "
             "same way, differ beyond the tolerance in 8 envs of 3995, and "
             "in 7 of the same 8 with the entry velocities scaled by 1 + "
-            "1e-7 (PERF.md, section 6); at most 1 % of the envs may")
+            "1e-7 (PERF.md, section 6); at most 1 % of the envs may",
+        stop=False)
+    sensitive = branch_probe("rough_exact_branch_probe", env_rsx, state_r, a,
+                             SEED + 5, N)
+    say(phase="rough_exact_probe_overlap", envs_beyond=len(ids),
+        of_them_probe_named=len(set(ids) & set(sensitive)),
+        envs_probe_named=len(sensitive), max_envs_beyond=N // 100, ok=ok)
+    if not ok:
+        raise SystemExit("rough_exact_route_agreement: the two routes "
+                         "disagree")
     train_phase("rough", env_r, gen, 1, expect(control_step_normals=steps))
     row = bench.main(num_envs=N, warmup=1, iters=1, terrain="rough")
     bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0

@@ -17,7 +17,9 @@ and `exact_p` (exact mode on the control-step route,
 `sim.reuse_matrices=False`, of `mob_train_cfg` and `small_train_cfg`),
 `dense` and `dense_exact` (the dense route of `mob_train_cfg`,
 `sim.use_pallas_contact=False`: stock torch ops, no hand kernel; reuse
-mode, and exact mode with `sim.reuse_matrices=False`).
+mode, and exact mode with `sim.reuse_matrices=False`), `eval_split` (the
+default route of `mob_train_cfg(4000)` with 400 eval envs appended under
+the `rand_large` DR preset: 4400 envs, one K4 launch a step).
 Prints one JSON line per route with every rollout's
 env-steps/s, the eager cache builds and kernel launches of the timed
 rollouts (the launch counters the measured tree has), then the card's name
@@ -62,8 +64,10 @@ COUNTERS = (
     ("dynamics", ("launches", "normal_launches")),
     ("entry_cache", ("launches", "normal_launches")))
 ROUTES = ("flat", "p", "rough_p", "substep", "rough_substep",
-          "substep_exact", "exact", "exact_p", "dense", "dense_exact")
+          "substep_exact", "exact", "exact_p", "dense", "dense_exact",
+          "eval_split")
 N_ENVS, STEPS, REPS = 4000, 24, 3
+N_EVAL = 400        # the eval slice of the eval_split route
 
 
 def counters():
@@ -78,6 +82,17 @@ def counters():
         out.update({f"{name}.{a}": getattr(mod, a) for a in attrs
                     if hasattr(mod, a)})
     return out
+
+
+def route_env(route, n, dev):
+    """The route's env: `n` envs, and on `eval_split` N_EVAL more."""
+    if route != "eval_split":
+        return LeggedRobotEnv(route_cfg(route, n), device=dev)
+    # a tree without the train/eval split has no eval_metrics module
+    from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS
+    ev = dataclasses.replace(mob_train_cfg(N_EVAL),
+                             domain_rand=DR_SETTINGS["rand_large"])
+    return LeggedRobotEnv(mob_train_cfg(n), eval_cfg=ev, device=dev)
 
 
 def route_cfg(route, n):
@@ -106,7 +121,8 @@ def route_cfg(route, n):
 
 
 def measure(route, n, steps, reps, dev):
-    env = LeggedRobotEnv(route_cfg(route, n), device=dev)
+    env = route_env(route, n, dev)
+    n = env.num_envs
     gen = make_generator(0, dev)
     policy = ActorCritic(env.num_obs, env.num_privileged_obs,
                          env.num_obs_history, env.num_actions,

@@ -8,10 +8,11 @@ random draw reaches a compared quantity.
 
 On the JAX side `pl.pallas_call` is replaced, inside this module only, by an
 eager runner of the kernel body (input arrays as the refs, a box per output
-ref): the same arithmetic as the TPU kernel without interpret mode.  So the
-comparison is tight: rtol 1e-4 / atol 1e-4 after 3 control steps (12 physics
-substeps of float32 rounding differences); contact forces are impulses / dt
-(x200) and get atol 2e-2 N.
+ref), its dynamics and contact cores jitted (`_jit_kernel_cores`): the same
+arithmetic as the TPU kernel without interpret mode.  So the comparison is
+tight: rtol 1e-4 / atol 1e-4 after 3 control steps (12 physics substeps of
+float32 rounding differences); contact forces are impulses / dt (x200) and
+get atol 2e-2 N.
 """
 import dataclasses
 
@@ -51,16 +52,43 @@ def _eager_pallas_call(kernel, *, out_shape, **_):
     return run
 
 
+def _jit_kernel_cores(mp):
+    """Inside the MonkeyPatch `mp`, the JAX package's in-kernel cores
+    (`pallas_dynamics.dyn_core`, `pallas_contact.contact_core`) become
+    jitted copies, compiled once per set of static arguments: the kernel
+    body run eagerly then compiles each core once instead of each of its
+    thousands of operations, and runs it as one program.  The arrays `n`
+    and `lam0` stay traced arguments."""
+    def jitted(fn):
+        cache = {}
+
+        def call(*args, **kw):
+            traced = {k: kw.pop(k) for k in ("n", "lam0")
+                      if kw.get(k) is not None}
+            key = (tuple(sorted(traced)),) + tuple(sorted(
+                (k, (v.shape, v.dtype.str, v.tobytes())
+                 if isinstance(v, np.ndarray) else repr(v))
+                for k, v in kw.items()))
+            if key not in cache:
+                cache[key] = jax.jit(
+                    lambda a, d, static=dict(kw): fn(*a, **static, **d))
+            return cache[key](args, traced)
+        return call
+
+    mp.setattr(j_pm.pd, "dyn_core", jitted(j_pm.pd.dyn_core))
+    mp.setattr(j_pm.pc, "contact_core", jitted(j_pm.pc.contact_core))
+
+
 def _to_numpy_state(s):
     out = {}
     for name in s._fields:
         v = getattr(s, name)
         if name == "rng":
             continue
-        if name in ("phys", "curriculum"):
-            out[name] = {k: np.asarray(x) for k, x in v._asdict().items()}
-        elif v is None:
+        if v is None:
             out[name] = None
+        elif name in ("phys", "curriculum", "curriculum_eval"):
+            out[name] = {k: np.asarray(x) for k, x in v._asdict().items()}
         else:
             out[name] = np.asarray(v)
     return out
@@ -74,6 +102,7 @@ def runs():
 
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pm.pl, "pallas_call", _eager_pallas_call)
+    _jit_kernel_cores(mp)
     try:
         envj = j_env.LeggedRobotEnv(quiet(j_cfg.mob_train_cfg(N)))
         sj, oj = envj.reset(jax.random.PRNGKey(0))
@@ -255,8 +284,15 @@ def test_unported_branches_raise():
     assert float(s.contact_forces.abs().max()) > 1.0
     t_env.LeggedRobotEnv(dataclasses.replace(cfg, sim=dataclasses.replace(
         cfg.sim, reuse_matrices=False)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_env.LeggedRobotEnv(cfg, eval_cfg=cfg, device="cpu")
+    # the train/eval split is ported: an eval slice may differ only in
+    # domain_rand, commands, terrain and num_envs
+    split = t_env.LeggedRobotEnv(cfg, eval_cfg=t_cfg.mob_train_cfg(2),
+                                 device="cpu")
+    assert (split.num_envs, split.num_train_envs, split.num_eval_envs) == (
+        6, 4, 2)
+    with pytest.raises(ValueError, match="may differ"):
+        t_env.LeggedRobotEnv(cfg, eval_cfg=t_cfg.small_train_cfg(2),
+                             device="cpu")
     # rough terrain is ported: a heightfield with its corner-packed table
     rough = t_env.LeggedRobotEnv(t_cfg.rough_train_cfg(4), device="cpu")
     assert rough.rough and tuple(rough.terrain.height.shape) == (1500, 1500)

@@ -439,3 +439,39 @@ def test_dense_route_on_the_card(cuda, reuse):
                 env_g.dynamics_params(s_g)[1], env_g.terrain)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("eval_terrain", ["flat", "rough"])
+def test_split_env_kernels_match_plain_versions_on_the_card(cuda,
+                                                            eval_terrain):
+    """The train/eval split (256 train + 64 eval envs, the eval slice under
+    the rand_large DR preset): one K4 launch for the whole batch, and with
+    the eval slice on rough_train_cfg's terrain rows one K4b launch on the
+    combined 3000 x 1500 field; each against its plain version fed the
+    eager build, at the tolerance of the unsplit cases."""
+    from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS
+    n, e = 256, 64
+    ev = dataclasses.replace(mob_train_cfg(e),
+                             domain_rand=DR_SETTINGS["rand_large"])
+    if eval_terrain == "rough":
+        ev = dataclasses.replace(ev, terrain=rough_train_cfg(e).terrain)
+    env = LeggedRobotEnv(mob_train_cfg(n), eval_cfg=ev, device=cuda)
+    assert env.rough == (eval_terrain == "rough")
+    if env.rough:
+        assert tuple(env.terrain.height.shape) == (3000, 1500)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    for _ in range(10):
+        state, *_ = env.step(state, torch.randn((n + e, 12), generator=gen,
+                                                device=cuda))
+    args, kwargs = _call(env, state)
+    p_args, p_kwargs = _call(env, state, eager_cache=True)
+    counter = "normal_launches" if env.rough else "launches"
+    before = getattr(megastep, counter)
+    out_k = megastep.control_step(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert getattr(megastep, counter) == before + 1
+    out_r = megastep.control_step_reference(*p_args, **p_kwargs)
+    for a, b in zip(out_k, out_r):
+        a, b = a[..., :n + e].cpu().numpy(), b[..., :n + e].cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4)

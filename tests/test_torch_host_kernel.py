@@ -41,6 +41,7 @@ library functions.
 prints one JSON line per variant and state with the largest errors at that
 width.
 """
+import concurrent.futures
 import ctypes
 import dataclasses
 import json
@@ -160,8 +161,11 @@ void wtw_host_launch_threads(int blocks, int threads, F kernel) {
 def build_host_library(model, out_dir, name="megastep_team"):
     """csrc/<name>.cu (megastep_team, dynamics_substep, entry_cache,
     contact_cache or contact_substep) for the host, with the header the
-    card's build gets; returns the bound ctypes library.  The threads of a
-    block run as std::threads (the stand-in's wtw_host_launch_threads)."""
+    card's build gets, in `out_dir/<name>/`; returns the bound ctypes
+    library.  The threads of a block run as std::threads (the stand-in's
+    wtw_host_launch_threads)."""
+    out_dir = os.path.join(out_dir, name)
+    os.makedirs(out_dir, exist_ok=True)
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
@@ -429,12 +433,22 @@ LIBRARIES = ("megastep_team", "dynamics_substep", "entry_cache",
              "contact_cache", "contact_substep")
 
 
+def build_host_libraries(model, out_dir, then=lambda: None):
+    """Every library of LIBRARIES, one g++ each, all started together;
+    `then()` runs meanwhile.  Returns (libraries by name, what `then`
+    returned)."""
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        builds = {name: pool.submit(build_host_library, model, out_dir, name)
+                  for name in LIBRARIES}
+        out = then()
+        return {name: b.result() for name, b in builds.items()}, out
+
+
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu").model
     d = str(tmp_path_factory.mktemp("host"))
-    libs = {name: build_host_library(model, d, name) for name in LIBRARIES}
-    return libs, cases(N, STEPS)
+    return build_host_libraries(model, d, lambda: cases(N, STEPS))
 
 
 @pytest.mark.parametrize("variant", ["K4", "K4c", "K5", "K5_P", "K4b",
@@ -593,9 +607,9 @@ def main(argv):
     with tempfile.TemporaryDirectory() as d:
         model = t_env.LeggedRobotEnv(t_cfg.small_train_cfg(4),
                                      device="cpu").model
-        libs = {name: build_host_library(model, d, name)
-                for name in LIBRARIES}
-        for variant, state_name, args, kwargs, plain in cases(n, 24):
+        libs, all_cases = build_host_libraries(model, d,
+                                               lambda: cases(n, 24))
+        for variant, state_name, args, kwargs, plain in all_cases:
             if variant in CONTACT_VARIANTS:
                 out_r, names = plain_contact(variant, args, kwargs)
                 errs = errors(host_contact(libs, variant, args, kwargs),

@@ -355,10 +355,76 @@ def test_train_iteration_composes_the_three_parts(runs):
     assert torch.equal(outs[0], outs[1])
 
 
-def test_eval_split_is_not_ported():
+class _SplitStubEnv(_StubEnv):
+    """The stub with its last 2 envs an eval slice, recording the actions
+    each step is given."""
+    num_train_envs, num_eval_envs = N - 2, 2
+
+    def step(self, s, actions):
+        self.given.append(actions.clone())
+        return super().step(s, actions)
+
+
+@pytest.mark.parametrize("eval_expert", [False, True])
+def test_collect_with_eval_envs_on_the_stub(eval_expert):
+    """The eval envs act with the student's mean (the teacher with
+    eval_expert) and draw no noise; the trajectory, the values and the
+    iteration's update cover the train envs only."""
+    args = t_ppo.PPO_Args(**ARGS)
+    envt = _SplitStubEnv(torch)
+    envt.given = []
+    Tr = envt.num_train_envs
+    ts = t_ppo.init_train_state(7, envt, args)
+    s, o = envt.reset()
+    gen = t_env_generator(5)
+    s2, o2, traj, logs = t_ppo.collect(envt, s, o, ts.policy, gen, 3, 0.99,
+                                       eval_expert)
+    assert tuple(traj.actions.shape) == (3, Tr, ACT)
+    assert tuple(traj.obs_history.shape) == (3, Tr, HIST)
+    with torch.no_grad():
+        hist, priv = o["obs_history"][Tr:], o["privileged_obs"][Tr:]
+        want = (ts.policy.act_teacher(hist, priv) if eval_expert
+                else ts.policy.actor_mean(hist))
+    assert torch.equal(envt.given[0][Tr:], want)
+    assert torch.equal(envt.given[0][:Tr], traj.actions[0])
+    # the same draws as a rollout of the train envs alone
+    gen2 = t_env_generator(5)
+    a0, *_ = ts.policy.sample_actions(o["obs_history"][:Tr], gen2)
+    assert torch.equal(a0, traj.actions[0])
+    fn = t_ppo.make_train_iteration(envt, args, num_steps=T,
+                                    eval_expert=eval_expert)
+    s3, o3, ts2, m = fn(s, o, ts)
+    assert ts2.iteration == 1 and bool(torch.isfinite(m.value_loss))
+
+
+def test_collect_without_eval_envs_keeps_the_generator_stream():
+    """With no eval envs, `collect` makes the draws and the trajectory of
+    the loop it had before the split: the whole batch samples, evaluates
+    and steps."""
     envt = _StubEnv(torch)
-    with pytest.raises(NotImplementedError):
-        t_ppo.make_train_iteration(envt, eval_expert=True)
-    envt.num_eval_envs = 2
-    with pytest.raises(NotImplementedError):
-        t_ppo.make_train_iteration(envt)
+    ts = t_ppo.init_train_state(7, envt, t_ppo.PPO_Args(**ARGS))
+    s, o = envt.reset()
+    g_new, g_old = t_env_generator(5), t_env_generator(5)
+    _, _, traj, _ = t_ppo.collect(envt, s, o, ts.policy, g_new, 3, 0.99)
+    rows = []
+    with torch.no_grad():
+        for _ in range(3):
+            hist, priv = o["obs_history"], o["privileged_obs"]
+            actions, logp, mu, sigma = ts.policy.sample_actions(hist, g_old)
+            values = ts.policy.evaluate(hist, priv)
+            s, o, rew, done, info = envt.step(s, actions)
+            rew = rew + 0.99 * values * info.time_outs.to(rew.dtype)
+            rows.append((actions, logp, values, rew, done))
+    for k, (actions, logp, values, rew, done) in enumerate(rows):
+        assert torch.equal(traj.actions[k], actions)
+        assert torch.equal(traj.log_probs[k], logp)
+        assert torch.equal(traj.values[k], values)
+        assert torch.equal(traj.rewards[k], rew)
+        assert torch.equal(traj.dones[k], done)
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+def t_env_generator(seed):
+    g = torch.Generator()
+    g.manual_seed(seed)
+    return g

@@ -11,7 +11,8 @@ iteration, a log row, a checkpoint and a curriculum dump every iteration.
   the JAX `Runner.export_policy`, called on a stand-in holding a JAX
   parameter tree made from the same weights, gives equal arrays;
 - the script and the bench raise without a CUDA device, and the flags of
-  later slices raise naming their ROADMAP item;
+  later slices raise naming their ROADMAP item; the eval flags build their
+  configs and reach the device check;
 - `scripts.play` plays back the policy the runner exported (its actions are
   the runner's policy mean) and `scripts.test` steps a few envs, both with
   device="cpu"; without it, neither runs on a box with no CUDA device.
@@ -94,10 +95,11 @@ def test_runner_writes_the_jax_runners_artifacts(runs):
     assert tree["train_state"]["rng"].dtype == np.uint8
 
 
-def _jax_runner_row_keys(env, commands_shape, log_dir):
+def _jax_runner_row_keys(env, commands_shape, log_dir, eval_count=0.0):
     """The key sets of the rows that the JAX `Runner.learn` writes, one
     iteration with finished episodes and one without: `learn` is run on a
-    stand-in whose iteration returns fixed metrics."""
+    stand-in whose iteration returns fixed metrics (with `eval_count`
+    finished eval episodes in the first)."""
     terms = len(env.reward_names) + 1
     z = np.float32(0.0)
 
@@ -108,7 +110,8 @@ def _jax_runner_row_keys(env, commands_shape, log_dir):
             ep_sums_done=np.zeros(terms, np.float32),
             ep_count_done=np.float32(ep_count), ep_len_done=z,
             eval_ep_sums_done=np.zeros(terms, np.float32),
-            eval_ep_count_done=z, eval_ep_len_done=z,
+            eval_ep_count_done=np.float32(eval_count if ep_count else 0.0),
+            eval_ep_len_done=z,
             curriculum_area=np.zeros(len(j_curr.CATEGORY_NAMES), np.float32),
             envelope_exits=z)
 
@@ -220,10 +223,32 @@ def test_restore_like_refuses_a_mismatched_checkpoint(runs, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--algo", "rma"], "19"),
     (["--mesh"], "22"), (["--multihost"], "22"),
-    (["--num-eval-envs", "4"], "18"), (["--eval-expert"], "18"),
     (["--shared-ckpt", "d"], "22")])
 def test_train_script_flags_of_later_slices_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
+        t_train.main(["--num-envs", "4", "--iterations", "1"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-eval-envs", "4"],
+    ["--num-eval-envs", "4", "--eval-expert"],
+    ["--num-eval-envs", "4", "--eval-dr", "rand_large"],
+    ["--num-eval-envs", "4", "--eval-terrain", "rough", "--exact"],
+    ["--num-eval-envs", "4", "--eval-dr", "static_low", "--eval-terrain",
+     "flat", "--terrain", "rough"]])
+def test_train_script_eval_flags_build_and_need_cuda(flags, tmp_path):
+    """The eval flags build their configs and get as far as the device
+    check (tests/test_torch_eval.py runs them with device="cpu")."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_train.main(["--num-envs", "4", "--iterations", "1",
+                      "--log-dir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--eval-expert"], "--num-eval-envs"),
+    (["--num-eval-envs", "2", "--eval-dr", "bogus"], "not one of")])
+def test_train_script_refuses_eval_flags_it_cannot_use(flags, match):
+    with pytest.raises(ValueError, match=match):
         t_train.main(["--num-envs", "4", "--iterations", "1"] + flags)
 
 
@@ -249,11 +274,13 @@ def test_entry_points_raise_without_a_cuda_device(tmp_path):
         t_test.run_env(num_envs=2, steps=1)
     env = LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu")
     for kw in (dict(algo="rma"), dict(mesh=object()),
-               dict(args=RunnerArgs(eval_expert=True)),
                dict(args=RunnerArgs(render_interval=5)),
                dict(args=RunnerArgs(shared_ckpt_dir="d"))):
         with pytest.raises(NotImplementedError):
             Runner(env, log_dir=str(tmp_path / "r"), **kw)
+    # eval_expert is ported (tests/test_torch_eval.py runs it)
+    assert Runner(env, log_dir=str(tmp_path / "e"),
+                  args=RunnerArgs(eval_expert=True)).args.eval_expert
 
 
 def test_play_script_plays_back_the_exported_policy(runs, capsys):

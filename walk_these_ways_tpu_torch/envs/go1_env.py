@@ -36,11 +36,17 @@ ops/dynamics.py), the torque model evaluated between them
 default, and `go1_cfg()`'s physics), the dense route of physics/engine.py
 in stock torch ops: per substep the torque model, then
 `physics_substep_cached` on a cache built once per control step (reuse
-mode) or `physics_substep` (exact mode).  The train/eval env split raises NotImplementedError until
-its slice of the port is written.
+mode) or `physics_substep` (exact mode).
+
+Train/eval env split (reference base_task.py:43-50): with `eval_cfg`, its
+`env.num_envs` eval envs are appended after the train envs.  The two slices
+may differ in `domain_rand` (per-env ranges), `commands` (a curriculum of
+their own) and `terrain` (the eval rows appended to the train heightfield);
+physics sees one batch of T + E envs on every route.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -119,8 +125,8 @@ class EnvState(NamedTuple):
     # warm start (env-minor (P, 3, Npad) like the kernel carries them;
     # zeroed for reset envs)
     contact_lam_t: torch.Tensor          # (P, 3, Npad)
-    # the eval slice's own command curriculum; the train/eval split is not
-    # ported yet, so this stays None
+    # the eval slice's own command curriculum over eval_cfg.commands' grid
+    # (None unless the eval commands cfg differs from the train one)
     curriculum_eval: "curr.CurriculumState | None" = None
 
 
@@ -147,15 +153,17 @@ def make_generator(seed: int, device) -> torch.Generator:
 
 
 class LeggedRobotEnv:
-    """Static env context on one device (`device` defaults to "cuda")."""
+    """Static env context on one device (`device` defaults to "cuda").
+
+    Train/eval env split: with `eval_cfg`, `eval_cfg.env.num_envs` eval envs
+    follow the `cfg.env.num_envs` train envs.  `eval_cfg` may differ from
+    `cfg` only in `domain_rand`, `commands`, `terrain` and `env.num_envs`;
+    the trainer runs the deterministic student (or teacher) on the eval
+    slice and leaves it out of PPO (reference ppo_cse/__init__.py:140-147)."""
 
     def __init__(self, cfg: Cfg, model: RobotModel | None = None,
                  terrain_seed: int = 0, eval_cfg: Cfg | None = None,
                  device="cuda"):
-        if eval_cfg is not None:
-            raise NotImplementedError(
-                "the train/eval env split belongs to the evaluation slice "
-                "of the port, which is not written yet")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # float32 throughout: products must not drop to TF32
@@ -165,13 +173,31 @@ class LeggedRobotEnv:
                     "the port computes in full float32")
         dev = self.device
         self.cfg = cfg
-        self.eval_cfg = None
+        self.eval_cfg = eval_cfg
         self.model = model or go1()
         m = self.model
         self.num_train_envs = cfg.env.num_envs
-        self.num_eval_envs = 0
-        self.eval_commands_differ = False
-        self.eval_terrain_differs = False
+        self.num_eval_envs = eval_cfg.env.num_envs if eval_cfg else 0
+        if eval_cfg is not None:
+            # the reference's per-split cfg dispatch (_call_train_eval,
+            # legged_robot.py:531-544) covers these sections; the rest of
+            # the config is one for both slices
+            def rest(c):
+                return dataclasses.replace(
+                    c, env=dataclasses.replace(c.env, num_envs=0),
+                    domain_rand=cfg.domain_rand, commands=cfg.commands,
+                    terrain=cfg.terrain)
+            if rest(cfg) != rest(eval_cfg):
+                raise ValueError("eval_cfg may differ from cfg only in "
+                                 "domain_rand, commands, terrain and "
+                                 "env.num_envs")
+            cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+                cfg.env, num_envs=self.num_train_envs + self.num_eval_envs))
+            self.cfg = cfg
+        self.eval_commands_differ = (
+            eval_cfg is not None and eval_cfg.commands != cfg.commands)
+        self.eval_terrain_differs = (
+            eval_cfg is not None and eval_cfg.terrain != cfg.terrain)
         self.num_envs = cfg.env.num_envs
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
@@ -184,16 +210,25 @@ class LeggedRobotEnv:
         # terrain ---------------------------------------------------------
         np_rng = np.random.RandomState(terrain_seed)
         hf_types = ("heightfield", "trimesh")
-        if cfg.terrain.mesh_type in hf_types:
+        if self.eval_terrain_differs and (
+                cfg.terrain.mesh_type in hf_types
+                or eval_cfg.terrain.mesh_type in hf_types):
+            # per-split terrains: the eval rows appended after the train
+            # rows in one heightfield (reference utils/terrain.py:12-30);
+            # the eval envs' origins land on the eval rows
+            combined, ev_shifted = terrain_mod.combine_with_eval(
+                terrain_mod.build(cfg.terrain, seed=terrain_seed),
+                terrain_mod.build(eval_cfg.terrain, seed=terrain_seed + 1))
+            origins = np.concatenate([
+                terrain_mod.assign_env_origins(
+                    cfg.terrain, combined, self.num_train_envs, np_rng),
+                terrain_mod.assign_env_origins(
+                    eval_cfg.terrain, ev_shifted, self.num_eval_envs,
+                    np_rng)], axis=0)
+            self.terrain = self._field(combined, dev)
+        elif cfg.terrain.mesh_type in hf_types:
             arrays = terrain_mod.build(cfg.terrain, seed=terrain_seed)
-            if np.abs(arrays.height).max() == 0.0:
-                # all-flat tiles (the MoB train config): flat ground, no
-                # lookups
-                self.terrain = engine.flat_terrain(dev)
-            else:
-                self.terrain = engine.make_heightfield_terrain(
-                    arrays.height, arrays.horizontal_scale,
-                    arrays.origin_xy, device=dev)
+            self.terrain = self._field(arrays, dev)
             origins = terrain_mod.assign_env_origins(
                 cfg.terrain, arrays, self.num_envs, np_rng)
         else:
@@ -254,8 +289,14 @@ class LeggedRobotEnv:
 
         # curriculum ------------------------------------------------------
         self.curr_grid = curr.make_grid(cfg.commands)
-        self.curr_grid_eval = None
         self._curr_adjacency = f32(self.curr_grid.adjacency)
+        # per-split command curriculum: the eval slice samples from its own
+        # grid over eval_cfg.commands (reference _call_train_eval,
+        # legged_robot.py:531-544, 710-824)
+        self.curr_grid_eval = self._curr_adjacency_eval = None
+        if self.eval_commands_differ:
+            self.curr_grid_eval = curr.make_grid(eval_cfg.commands)
+            self._curr_adjacency_eval = f32(self.curr_grid_eval.adjacency)
         # dt-scaled reward scales (legged_robot.py:1394-1400)
         self.reward_names = rew_mod.active_terms(cfg)
         scales = dict(cfg.reward_scales.items())
@@ -296,12 +337,30 @@ class LeggedRobotEnv:
         # derived intervals (legged_robot.py:1716-1732)
         self.resample_interval = int(cfg.commands.resampling_time / self.dt)
         self.resample_interval_arr = None
+        if self.eval_commands_differ:
+            # per-split resampling cadence
+            ev_interval = int(eval_cfg.commands.resampling_time / self.dt)
+            self.resample_interval_arr = torch.tensor(np.concatenate([
+                np.full(self.num_train_envs, self.resample_interval),
+                np.full(self.num_eval_envs, ev_interval)]),
+                dtype=torch.int32, device=dev)
         self.rand_interval = int(np.ceil(cfg.domain_rand.rand_interval_s / self.dt))
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.gravity_rand_interval = int(
             np.ceil(cfg.domain_rand.gravity_rand_interval_s / self.dt))
         self.gravity_rand_duration = int(np.ceil(
             self.gravity_rand_interval * cfg.domain_rand.gravity_impulse_duration))
+        self._dr_ranges = {}
+
+    @staticmethod
+    def _field(arrays, dev) -> engine.Terrain:
+        """The engine terrain of built tiles: flat ground when every tile
+        is flat (the MoB train config: no lookups), else the heightfield."""
+        if np.abs(arrays.height).max() == 0.0:
+            return engine.flat_terrain(dev)
+        return engine.make_heightfield_terrain(
+            arrays.height, arrays.horizontal_scale, arrays.origin_xy,
+            device=dev)
 
     # -- random draws -------------------------------------------------------
     def _uniform(self, gen, shape, lo=0.0, hi=1.0):
@@ -341,16 +400,37 @@ class LeggedRobotEnv:
         assert vec.shape[0] == self.num_obs, (vec.shape, self.num_obs)
         return torch.tensor(vec, dtype=torch.float32, device=self.device)
 
-    # -- per-env domain-rand ranges ----------------------------------------
+    # -- per-env domain-rand ranges (train/eval split) ---------------------
+    def _dr_split(self, flag_name: str, range_name: str):
+        """(lo, hi, on) per-env tensors of a domain_rand field: the train
+        slice's range, then the eval slice's (reference applies
+        eval_cfg.domain_rand to the eval envs, legged_robot.py:531-544).
+        Built once per field."""
+        key = (flag_name, range_name)
+        if key not in self._dr_ranges:
+            T, E = self.num_train_envs, self.num_eval_envs
+            tr = self.cfg.domain_rand
+            ev = self.eval_cfg.domain_rand if self.eval_cfg else tr
+            tr_r, ev_r = getattr(tr, range_name), getattr(ev, range_name)
+            lo = np.concatenate([np.full(T, tr_r[0]), np.full(E, ev_r[0])])
+            hi = np.concatenate([np.full(T, tr_r[1]), np.full(E, ev_r[1])])
+            on = np.concatenate([
+                np.full(T, bool(getattr(tr, flag_name))),
+                np.full(E, bool(getattr(ev, flag_name)))])
+            self._dr_ranges[key] = tuple(
+                torch.tensor(x, dtype=d, device=self.device)
+                for x, d in ((lo, torch.float32), (hi, torch.float32),
+                             (on, torch.bool)))
+        return self._dr_ranges[key]
+
     def _dr_uniform(self, gen, flag_name, range_name, default, shape_extra=()):
-        """Per-env uniform sample inside the domain_rand range; `default`
-        where that randomization is off."""
-        dr = self.cfg.domain_rand
-        lo, hi = getattr(dr, range_name)
+        """Per-env uniform sample inside the split-aware range; `default`
+        where that randomization is off for the env's slice."""
+        lo, hi, on = self._dr_split(flag_name, range_name)
         u = self._uniform(gen, (self.num_envs,) + tuple(shape_extra))
-        if not bool(getattr(dr, flag_name)):
-            return torch.full_like(u, float(default))
-        return lo + u * (hi - lo)
+        ex = (slice(None),) + (None,) * len(shape_extra)
+        return torch.where(on[ex], lo[ex] + u * (hi[ex] - lo[ex]),
+                           float(default))
 
     # -- initialization ---------------------------------------------------
     def init_state(self, gen: torch.Generator) -> EnvState:
@@ -432,7 +512,10 @@ class LeggedRobotEnv:
             command_sums=z(N, len(COMMAND_SUM_KEYS)),
             curriculum=curr.init_state(cfg.commands, self.curr_grid,
                                        device=dev),
-            curriculum_eval=None,
+            curriculum_eval=(
+                curr.init_state(self.eval_cfg.commands, self.curr_grid_eval,
+                                device=dev)
+                if self.eval_commands_differ else None),
             env_command_bins=z(N, dtype=torch.int32),
             env_command_categories=z(N, dtype=torch.int32),
             obs_history=z(N, self.num_obs_history),
@@ -862,7 +945,9 @@ class LeggedRobotEnv:
             foot_velocities=foot_velocities)
 
         # 5. command resampling w/ curriculum (legged_robot.py:683-686)
-        resample_mask = (episode_length % self.resample_interval) == 0
+        interval = (self.resample_interval if self.resample_interval_arr is None
+                    else self.resample_interval_arr)
+        resample_mask = (episode_length % interval) == 0
         state = self._resample_commands(state, resample_mask, gen)
 
         # 6. gait clocks (legged_robot.py:687)
@@ -952,17 +1037,19 @@ class LeggedRobotEnv:
                                episode_sums=episode_sums,
                                command_sums=command_sums)
 
-        # 12. masked auto-reset (legged_robot.py:150-239)
+        # 12. masked auto-reset (legged_robot.py:150-239); episode stats
+        # split by train/eval slice
+        T = self.num_train_envs
         zero_f = torch.zeros((), device=dev)
         done_sums = torch.where(reset[:, None], state.episode_sums, zero_f)
         done_len = torch.where(reset, episode_length,
                                torch.zeros_like(episode_length))
-        ep_sums_done = torch.sum(done_sums, dim=0)
-        ep_count_done = torch.sum(reset)
-        ep_len_done = torch.sum(done_len)
-        eval_ep_sums_done = torch.zeros_like(ep_sums_done)
-        eval_ep_count_done = torch.zeros_like(ep_count_done)
-        eval_ep_len_done = torch.zeros_like(ep_len_done)
+        ep_sums_done = torch.sum(done_sums[:T], dim=0)
+        ep_count_done = torch.sum(reset[:T])
+        ep_len_done = torch.sum(done_len[:T])
+        eval_ep_sums_done = torch.sum(done_sums[T:], dim=0)
+        eval_ep_count_done = torch.sum(reset[T:])
+        eval_ep_len_done = torch.sum(done_len[T:])
         state = self._reset_envs(state, reset, gen)
 
         # 13. observations (legged_robot.py:302+) on post-reset state
@@ -1015,6 +1102,44 @@ class LeggedRobotEnv:
         return torch.mean(h, dim=-1)
 
     # -- reward assembly ---------------------------------------------------
+    def make_reward_ctx(self, state: EnvState) -> rew_mod.RewardCtx:
+        """A RewardCtx from an EnvState alone (body-frame kinematics
+        recomputed, gravity straight down): the out-of-step entry of the
+        eval-metrics library's per-term rewards (reference
+        eval_metrics/metrics.py:66-73)."""
+        phys = state.phys
+        gravity_vec = torch.tensor([0.0, 0.0, -1.0], device=self.device
+                                   )[None, :].repeat(self.num_envs, 1)
+        return rew_mod.RewardCtx(
+            cfg=self.cfg, dt=self.dt, commands=state.commands,
+            base_pos=phys.base_pos, base_quat=phys.base_quat,
+            base_lin_vel=qops.quat_rotate_inverse(phys.base_quat,
+                                                  phys.base_lin_vel),
+            base_ang_vel=qops.quat_rotate_inverse(phys.base_quat,
+                                                  phys.base_ang_vel),
+            projected_gravity=qops.quat_rotate_inverse(phys.base_quat,
+                                                       gravity_vec),
+            gravity_vec=gravity_vec,
+            dof_pos=phys.q, default_dof_pos=self.default_dof_pos,
+            dof_vel=phys.qd, last_dof_vel=state.last_dof_vel,
+            torques=state.torques, actions=state.actions,
+            last_actions=state.last_actions,
+            last_last_actions=state.last_last_actions,
+            joint_pos_target=state.joint_pos_target,
+            last_joint_pos_target=state.last_joint_pos_target,
+            last_last_joint_pos_target=state.last_last_joint_pos_target,
+            contact_forces=state.contact_forces,
+            foot_velocities=state.foot_velocities,
+            prev_foot_velocities=state.prev_foot_velocities,
+            foot_positions=state.foot_positions,
+            desired_contact_states=state.desired_contact_states,
+            foot_indices=state.foot_indices,
+            last_contacts=state.last_contacts,
+            dof_pos_limits=self.dof_pos_limits,
+            feet_indices=self.feet_indices,
+            penalised_indices=self.penalised_indices,
+        )
+
     def _compute_reward(self, ctx, state, base_lin_vel_b, base_ang_vel_b):
         cfg = self.cfg
         N = self.num_envs
@@ -1060,22 +1185,37 @@ class LeggedRobotEnv:
 
     # -- curriculum + command resampling -----------------------------------
     def _resample_commands(self, state: EnvState, mask, gen):
-        """Masked _resample_commands (legged_robot.py:710-824).
+        """Masked _resample_commands (legged_robot.py:710-824).  With an
+        eval commands cfg of its own, each slice updates and samples its
+        own curriculum, the train slice first (reference _call_train_eval,
+        legged_robot.py:531-544).
 
         Note the reference samples from the curricula unconditionally — the
         command_curriculum flag only gates extras logging."""
-        cfg = self.cfg
-        ep_len = min(self.max_episode_length, self.resample_interval)
-        task_means = state.command_sums[:, :len(curr.TASK_KEYS)] / ep_len
-        cur = curr.update(
-            state.curriculum, self.curr_grid, mask,
-            state.env_command_bins, state.env_command_categories,
-            task_means, self.task_thresholds,
-            adjacency=self._curr_adjacency)
-        new_cmds, new_bins, new_cats = curr.sample(
-            cur, self.curr_grid, gen, self.num_envs)
-        new_cmds = curr.postprocess_gaitwise(new_cmds, new_cats,
-                                             cfg.commands)
+        K = len(curr.TASK_KEYS)
+        lim = self.max_episode_length
+        T = self.num_train_envs
+        splits = [(slice(0, T if self.eval_commands_differ else None),
+                   state.curriculum, self.curr_grid, self._curr_adjacency,
+                   self.cfg.commands, min(lim, self.resample_interval))]
+        if self.eval_commands_differ:
+            ev = self.eval_cfg.commands
+            splits.append((slice(T, None), state.curriculum_eval,
+                           self.curr_grid_eval, self._curr_adjacency_eval, ev,
+                           min(lim, int(ev.resampling_time / self.dt))))
+        curs, parts = [], []
+        for sl, cur, grid, adjacency, _, ep_len in splits:
+            curs.append(curr.update(
+                cur, grid, mask[sl], state.env_command_bins[sl],
+                state.env_command_categories[sl],
+                state.command_sums[sl, :K] / ep_len, self.task_thresholds,
+                adjacency=adjacency))
+        for (sl, _, grid, _, cmd_cfg, _), cur in zip(splits, curs):
+            n = mask[sl].shape[0]
+            cmds, bins, cats = curr.sample(cur, grid, gen, n)
+            parts.append((curr.postprocess_gaitwise(cmds, cats, cmd_cfg),
+                          bins, cats))
+        new_cmds, new_bins, new_cats = (torch.cat(x) for x in zip(*parts))
         commands = torch.where(mask[:, None], new_cmds[:, :15], state.commands)
         bins = torch.where(mask, new_bins, state.env_command_bins)
         cats = torch.where(mask, new_cats, state.env_command_categories)
@@ -1083,7 +1223,9 @@ class LeggedRobotEnv:
         cmd_sums = torch.where(mask[:, None],
                                torch.zeros((), device=self.device),
                                state.command_sums)
-        return state._replace(curriculum=cur,
+        return state._replace(curriculum=curs[0],
+                              curriculum_eval=(curs[1] if len(curs) > 1
+                                               else state.curriculum_eval),
                               commands=commands,
                               env_command_bins=bins,
                               env_command_categories=cats,

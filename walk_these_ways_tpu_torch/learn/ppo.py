@@ -83,7 +83,7 @@ class IterMetrics(NamedTuple):
     ep_sums_done: torch.Tensor         # (n_terms+1,) summed over finished eps
     ep_count_done: torch.Tensor
     ep_len_done: torch.Tensor
-    # eval-slice episode stats (zero: the env has no eval split yet)
+    # eval-slice episode stats (zero without eval envs)
     eval_ep_sums_done: torch.Tensor
     eval_ep_count_done: torch.Tensor
     eval_ep_len_done: torch.Tensor
@@ -146,26 +146,45 @@ def init_train_state(rng, env, args: PPO_Args = PPO_Args()) -> TrainState:
 
 @torch.no_grad()
 def collect(env, env_state, obs_dict, policy: ac.ActorCritic,
-            gen: torch.Generator, num_steps: int, gamma: float):
+            gen: torch.Generator, num_steps: int, gamma: float,
+            eval_expert: bool = False):
     """Roll the sampled policy out for `num_steps` control steps.
 
-    Returns (env_state, obs_dict, traj: Transition stacked over steps,
-    logs: tuple of per-step stacked (ep_sums_done, ep_count_done,
-    ep_len_done, eval_ep_sums_done, eval_ep_count_done, eval_ep_len_done,
-    envelope_exits))."""
+    Train/eval env split (reference ppo_cse/__init__.py:140-147): only the
+    first `env.num_train_envs` envs draw action noise and give values,
+    rewards, dones and the trajectory; the eval envs after them act with
+    the student's mean (`actor_mean`), or with the teacher
+    (`act_teacher`) when `eval_expert`, and count in the eval episode
+    stats only.
+
+    Returns (env_state, obs_dict, traj: Transition stacked over steps (the
+    train envs), logs: tuple of per-step stacked (ep_sums_done,
+    ep_count_done, ep_len_done, eval_ep_sums_done, eval_ep_count_done,
+    eval_ep_len_done, envelope_exits))."""
+    T = env.num_train_envs
     steps, logs = [], []
     for _ in range(num_steps):
-        hist = obs_dict["obs_history"]
-        priv = obs_dict["privileged_obs"]
+        hist = obs_dict["obs_history"][:T]
+        priv = obs_dict["privileged_obs"][:T]
         actions, logp, mu, sigma = policy.sample_actions(hist, gen)
+        env_actions = actions
+        if env.num_eval_envs > 0:
+            hist_ev = obs_dict["obs_history"][T:]
+            if eval_expert:
+                actions_ev = policy.act_teacher(
+                    hist_ev, obs_dict["privileged_obs"][T:])
+            else:
+                actions_ev = policy.actor_mean(hist_ev)
+            env_actions = torch.cat([actions, actions_ev], dim=0)
         values = policy.evaluate(hist, priv)
-        env_state, obs_dict, rew, done, info = env.step(env_state, actions)
+        env_state, obs_dict, rew, done, info = env.step(env_state,
+                                                        env_actions)
         # timeout bootstrap (ppo.py:84-86)
-        rew = rew + gamma * values * info.time_outs.to(rew.dtype)
+        rew = rew[:T] + gamma * values * info.time_outs[:T].to(rew.dtype)
         steps.append(Transition(
             obs_history=hist, privileged_obs=priv, actions=actions,
-            rewards=rew, dones=done, values=values, log_probs=logp, mu=mu,
-            sigma=sigma.contiguous()))
+            rewards=rew, dones=done[:T], values=values, log_probs=logp,
+            mu=mu, sigma=sigma.contiguous()))
         logs.append((info.ep_sums_done, info.ep_count_done, info.ep_len_done,
                      info.eval_ep_sums_done, info.eval_ep_count_done,
                      info.eval_ep_len_done, info.envelope_exits))
@@ -315,23 +334,22 @@ def make_train_iteration(env, args: PPO_Args = PPO_Args(),
     Returns fn: (env_state, obs_dict, train_state) ->
                 (env_state, obs_dict, train_state, IterMetrics)
 
-    The train/eval env split of the reference (eval envs acting
-    deterministically beside the training envs) is not ported yet."""
-    if eval_expert or env.num_eval_envs > 0:
-        raise NotImplementedError(
-            "eval envs and eval_expert belong to the evaluation slice of "
-            "the port (ROADMAP queue 1, item 18), which is not written yet")
+    The first `env.num_train_envs` envs act with the sampled student and
+    feed PPO; eval envs after them act deterministically (see `collect`,
+    `eval_expert`) and give only the eval episode metrics."""
+    T = env.num_train_envs
 
     def train_iteration(env_state, obs_dict, ts: TrainState):
         policy = ts.policy
         # -- rollout (ppo_cse/__init__.py:138-186) ------------------------
         env_state, obs_dict, traj, logs = collect(
-            env, env_state, obs_dict, policy, ts.rng, num_steps, args.gamma)
+            env, env_state, obs_dict, policy, ts.rng, num_steps, args.gamma,
+            eval_expert)
 
-        # -- GAE (ppo.py:93-95) -------------------------------------------
+        # -- GAE (ppo.py:93-95) over the train envs -----------------------
         with torch.no_grad():
-            last_values = policy.evaluate(obs_dict["obs_history"],
-                                          obs_dict["privileged_obs"])
+            last_values = policy.evaluate(obs_dict["obs_history"][:T],
+                                          obs_dict["privileged_obs"][:T])
             returns, advantages = compute_gae(traj, last_values, args.gamma,
                                               args.lam)
 

@@ -14,9 +14,13 @@ Artifacts in `log_dir`, under the JAX package's names: `metrics.jsonl`,
 `.charts.yml`, `provenance.json`, `checkpoints/train_state_*.pkl`,
 `checkpoints/policy_latest.npz`, `curriculum/distribution_*.npz`.
 
+With eval envs in the env (its train/eval split), the eval slice acts
+deterministically (the teacher with `RunnerArgs.eval_expert`) and its
+finished episodes are logged under `eval/episode/*`.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-`algo="rma"` (19), a device `mesh` and `shared_ckpt_dir` (22), videos
-(`render_interval`, 20) and `eval_expert` (18).
+`algo="rma"` (19), a device `mesh` and `shared_ckpt_dir` (22) and videos
+(`render_interval`, 20).
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ class RunnerArgs:
     # curriculum weight-grid + per-bin reward-mean dump cadence (reference
     # curriculum_dump_freq=500, ppo_cse/__init__.py:107,193-202)
     curriculum_dump_freq: int = 500
-    # eval envs act with the teacher (ROADMAP item 18)
+    # eval envs act with the teacher (act_teacher) instead of the student
     eval_expert: bool = False
     # render a short student-policy rollout every N iterations (0 = off;
     # ROADMAP item 20)
@@ -100,10 +104,6 @@ class Runner:
             raise NotImplementedError(
                 "a device mesh and shared-storage checkpoints belong to the "
                 "multi-device slice of the port (ROADMAP item 22)")
-        if args.eval_expert:
-            raise NotImplementedError(
-                "eval_expert and the train/eval env split belong to the "
-                "evaluation slice of the port (ROADMAP item 18)")
         if args.render_interval:
             raise NotImplementedError(
                 "videos (log_video) belong to a later slice of the port "

@@ -21,7 +21,9 @@ import os
 
 def load_policy(path, device="cuda"):
     """Student policy from the flat npz export (Runner.export_policy):
-    obs_dict -> actions.
+    obs_dict -> actions.  The returned callable also has the student's
+    `adaptation_forward(obs_history)` and, for a cse export,
+    `actor_mean(obs_history)`, which learn/eval_metrics.py takes.
 
     Variant-aware (meta/variant): 'cse' actor consumes obs_history+latent,
     'rma' consumes obs+latent; artifacts without meta keys are cse."""
@@ -53,6 +55,10 @@ def load_policy(path, device="cuda"):
             latent = adaptation(hist)
             body_in = obs_dict["obs"] if variant == "rma" else hist
             return actor(torch.cat([body_in, latent], dim=-1))
+
+    policy.adaptation_forward = adaptation
+    if variant == "cse":
+        policy.actor_mean = lambda hist: policy({"obs_history": hist})
     return policy
 
 

@@ -11,10 +11,19 @@ raises.
 Usage: python -m walk_these_ways_tpu_torch.scripts.train
            [--num-envs 4000] [--iterations 1500] [--exact]
            [--terrain rough] [--resume CKPT]
+           [--num-eval-envs 400 [--eval-dr rand_large]
+            [--eval-terrain rough] [--eval-expert]]
+
+`--num-eval-envs` appends eval envs after the train envs (the reference's
+train/eval split): they act deterministically, stay out of PPO and are
+logged under `eval/episode/*`; `--eval-dr` puts them under a DR preset of
+learn/eval_metrics.DR_SETTINGS, `--eval-terrain` on terrain rows of their
+own, `--eval-expert` hands them to the teacher.
 
 The flags of later slices of the port raise NotImplementedError naming their
-ROADMAP item: `--algo rma` (19), `--mesh` and `--multihost` (22), the eval
-flags (18) and `--shared-ckpt` (22).
+ROADMAP item: `--algo rma` (19), `--mesh` and `--multihost` (22) and
+`--shared-ckpt` (22).  `train_go1` runs on a CUDA device; without one it
+raises unless `device="cpu"` is asked for.
 """
 import argparse
 import dataclasses
@@ -29,20 +38,20 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
               terrain: str = "flat", warm_start: bool | None = None,
               warm_iters: int | None = None, resume: str | None = None,
               eval_dr: str | None = None, eval_terrain: str | None = None,
-              shared_ckpt: str | None = None, config: str = "mob"):
+              shared_ckpt: str | None = None, config: str = "mob",
+              device="cuda"):
     import torch
 
     from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv
     from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
                                                       rough_train_cfg,
                                                       small_train_cfg)
+    from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS
     from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
 
     later = (
         (algo == "rma", "--algo rma", 19),
         (use_mesh or multihost, "--mesh / --multihost", 22),
-        (bool(num_eval_envs or eval_expert or eval_dr or eval_terrain),
-         "--num-eval-envs / --eval-expert / --eval-dr / --eval-terrain", 18),
         (shared_ckpt is not None, "--shared-ckpt", 22),
     )
     for given, flag, item in later:
@@ -53,17 +62,30 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
     if terrain == "rough" and config == "small":
         raise ValueError("--terrain rough runs rough_train_cfg; there is no "
                          "small configuration on rough terrain")
-    if not torch.cuda.is_available():
-        raise RuntimeError("the PyTorch port trains on a CUDA device: "
-                           "torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if not num_eval_envs and (eval_expert or eval_dr or eval_terrain):
+        raise ValueError("--eval-expert, --eval-dr and --eval-terrain need "
+                         "--num-eval-envs")
+    if eval_dr is not None and eval_dr not in DR_SETTINGS:
+        raise ValueError(f"--eval-dr {eval_dr!r}: not one of "
+                         f"{sorted(DR_SETTINGS)}")
 
     if terrain == "rough":
         cfg_fn = rough_train_cfg
     else:
         cfg_fn = small_train_cfg if config == "small" else mob_train_cfg
     cfg = cfg_fn(num_envs=num_envs)
+    eval_cfg = cfg_fn(num_envs=num_eval_envs) if num_eval_envs else None
+    if eval_cfg is not None and eval_dr is not None:
+        # the eval slice under a DR sweep preset (reference eval_metrics
+        # DR_SETTINGS applied to the eval env while training continues)
+        eval_cfg = dataclasses.replace(eval_cfg,
+                                       domain_rand=DR_SETTINGS[eval_dr])
+    if eval_cfg is not None and eval_terrain is not None:
+        # the eval slice on terrain rows of its own, appended to the train
+        # heightfield (reference utils/terrain.py:12-30)
+        ev_fn = rough_train_cfg if eval_terrain == "rough" else mob_train_cfg
+        eval_cfg = dataclasses.replace(
+            eval_cfg, terrain=ev_fn(num_envs=num_eval_envs).terrain)
     sim = cfg.sim
     if warm_start is not None:
         sim = dataclasses.replace(sim, contact_warm_start=warm_start)
@@ -74,9 +96,20 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
         # inside the control-step kernel before every substep
         sim = dataclasses.replace(sim, reuse_matrices=False)
     cfg = dataclasses.replace(cfg, sim=sim)
-    env = LeggedRobotEnv(cfg)
+    if eval_cfg is not None:
+        eval_cfg = dataclasses.replace(eval_cfg, sim=sim)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("the PyTorch port trains on a CUDA device: "
+                               "torch.cuda.is_available() is False (pass "
+                               "device='cpu' to run on the CPU)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    env = LeggedRobotEnv(cfg, eval_cfg=eval_cfg, device=dev)
     runner = Runner(env, log_dir=log_dir, seed=seed,
                     args=RunnerArgs(max_iterations=iterations,
+                                    eval_expert=eval_expert,
                                     resume=resume is not None,
                                     resume_path=resume))
     runner.learn(num_learning_iterations=iterations,
@@ -94,9 +127,10 @@ def main(argv=None):
                    help="mob = go1_config.mob_train_cfg (default); small = "
                         "small_train_cfg (flat, no DR, P control)")
     p.add_argument("--num-eval-envs", type=int, default=0,
-                   help="extra eval envs (ROADMAP item 18: not ported yet)")
+                   help="extra eval envs (deterministic policy, excluded "
+                        "from PPO; reference train/eval split)")
     p.add_argument("--eval-expert", action="store_true",
-                   help="eval envs use the teacher head (item 18)")
+                   help="eval envs use the teacher head")
     p.add_argument("--algo", choices=["cse", "rma"], default="cse",
                    help="cse = concurrent state estimation (default); "
                         "rma = teacher-student (item 19)")
@@ -120,10 +154,13 @@ def main(argv=None):
                    help="warm-started solver iterations per substep "
                         "(SimCfg.num_contact_iters_warm)")
     p.add_argument("--eval-dr", type=str, default=None,
-                   help="DR preset for the eval slice (item 18)")
+                   help="DR preset for the eval slice "
+                        "(learn.eval_metrics.DR_SETTINGS key, e.g. "
+                        "static_high); requires --num-eval-envs")
     p.add_argument("--eval-terrain", type=str, default=None,
                    choices=["flat", "rough"],
-                   help="the eval slice's own terrain rows (item 18)")
+                   help="give the eval slice its own terrain rows "
+                        "(appended after the train rows)")
     p.add_argument("--resume", type=str, default=None, metavar="CKPT",
                    help="a train_state_*.pkl to resume from: restores the "
                         "full train state incl. env/curriculum/generator "

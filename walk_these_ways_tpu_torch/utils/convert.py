@@ -103,43 +103,42 @@ def physics_state_from_numpy(arrays: Mapping[str, np.ndarray],
 def env_state_from_numpy(arrays: Mapping, generator: torch.Generator,
                          device="cuda") -> EnvState:
     """Every EnvState leaf from numpy: `arrays` maps the EnvState field
-    names to arrays, with `phys` and `curriculum` as nested mappings of
-    their own field names.  The random stream does not carry across:
-    `generator` (on `device`) becomes the state's `rng`."""
+    names to arrays, with `phys`, `curriculum` and `curriculum_eval` (or
+    None) as nested mappings of their own field names.  The random stream
+    does not carry across: `generator` (on `device`) becomes the state's
+    `rng`."""
     out = {}
     for name in EnvState._fields:
         if name == "rng":
             out[name] = generator
         elif name == "phys":
             out[name] = physics_state_from_numpy(arrays["phys"], device)
-        elif name == "curriculum":
-            out[name] = curr.CurriculumState(**{
-                k: _tensor(arrays["curriculum"][k], device)
+        elif name in ("curriculum", "curriculum_eval"):
+            # the eval curriculum is None without an eval commands cfg
+            c = arrays.get(name)
+            out[name] = None if c is None else curr.CurriculumState(**{
+                k: _tensor(c[k], device)
                 for k in curr.CurriculumState._fields})
-        elif name == "curriculum_eval":
-            if arrays.get("curriculum_eval") is not None:
-                raise NotImplementedError(
-                    "the eval curriculum belongs to the evaluation slice")
-            out[name] = None
         else:
             out[name] = _tensor(arrays[name], device)
     return EnvState(**out)
 
 
 def env_state_to_numpy(state: EnvState) -> dict:
-    """Inverse of `env_state_from_numpy`: every leaf as numpy, `phys` and
-    `curriculum` as nested dicts of their fields, and the state of the
-    generator in `rng` (a uint8 array, `torch.Generator.get_state`)."""
+    """Inverse of `env_state_from_numpy`: every leaf as numpy, `phys`,
+    `curriculum` and `curriculum_eval` as nested dicts of their fields (the
+    last None without an eval curriculum), and the state of the generator
+    in `rng` (a uint8 array, `torch.Generator.get_state`)."""
     out = {}
     for name in EnvState._fields:
         v = getattr(state, name)
         if name == "rng":
             out[name] = v.get_state().numpy()
-        elif name in ("phys", "curriculum"):
-            out[name] = {k: x.detach().cpu().numpy()
-                         for k, x in v._asdict().items()}
         elif v is None:
             out[name] = None
+        elif name in ("phys", "curriculum", "curriculum_eval"):
+            out[name] = {k: x.detach().cpu().numpy()
+                         for k, x in v._asdict().items()}
         else:
             out[name] = v.detach().cpu().numpy()
     return out
