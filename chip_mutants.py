@@ -7,7 +7,8 @@
 For each mutant below (or each one named): copies `chip_smoke.py`, the
 port's package and `resources/` into `build/mutants/<name>/`, makes ONE edit
 in one source of the package there (a kernel source, the dense route in
-physics/engine.py, or the train/eval split in envs/go1_env.py), runs
+physics/engine.py, the train/eval split in envs/go1_env.py or the RMA
+update in learn/ppo_rma.py), runs
 `python3 chip_smoke.py` in the copy and records its exit code and the first
 check that failed.  The smoke test must exit non-zero on every mutant, and
 at the check named here; kernels that the edit does not reach must still
@@ -142,10 +143,27 @@ MUTANTS = (
     ("eval_slice_gets_the_train_dr_range", "envs/go1_env.py",
      "ev = self.eval_cfg.domain_rand if self.eval_cfg else tr", "ev = tr",
      "eval_split_dr"),
+    # the RMA update takes the adaptation module's target from the encoder
+    # as it stood BEFORE the minibatch's main Adam step
+    ("rma_target_before_the_main_step", "learn/ppo_rma.py",
+     "            lr, kl_mean = ppo.main_step(main_opt, lr, loss, mean, std,\n"
+     "                                        old_mu_mb, old_sigma_mb, args)\n"
+     "            lrs.append(float(lr))\n\n"
+     "            # distillation: adaptation(hist) -> encoder(priv), the encoder\n"
+     "            # as the main step left it (ppo.py:157-163)\n"
+     "            with torch.no_grad():\n"
+     "                target = policy.encoder(priv_mb)\n",
+     "            with torch.no_grad():\n"
+     "                target = policy.encoder(priv_mb)\n"
+     "            lr, kl_mean = ppo.main_step(main_opt, lr, loss, mean, std,\n"
+     "                                        old_mu_mb, old_sigma_mb, args)\n"
+     "            lrs.append(float(lr))\n\n",
+     "rma_adaptation_target"),
 )
 # the CPU parity tests that `--tests` runs on a mutant of each Python source
 TESTS = {"physics/engine.py": "tests/test_torch_dense.py",
-         "envs/go1_env.py": "tests/test_torch_eval.py"}
+         "envs/go1_env.py": "tests/test_torch_eval.py",
+         "learn/ppo_rma.py": "tests/test_torch_rma.py"}
 
 
 def run_mutant(name, source, old, new, expect, tests=False):

@@ -61,6 +61,19 @@ the entry points a user calls and checks what comes out:
   against its plain version, against the per-substep route, a rollout);
   `scripts.train --num-eval-envs 400 --eval-dr rand_large` and
   `scripts.evaluate` run among the commands,
+- RMA teacher-student training (`rma_train_phase`): `Runner(algo="rma")`
+  on `mob_train_cfg(4000)` at the reference's widths, 2 iterations of 24
+  K4 launches each (seconds, rollout and update), a video of env 0 after
+  the second (`log_video`: the FK skeleton on the card against the CPU's,
+  drawn when matplotlib and imageio import), the export played back, a
+  resumed Runner against the uninterrupted one, and the update's two
+  steps in their order (`rma_adaptation_target`); one RMA iteration on
+  4000 + 400 envs (`rma_eval_split`, the eval slice on `student_mean`,
+  then `teacher_mean`); among the commands `scripts.train --algo rma`,
+  `scripts.profile_train --rollout-only` (flat, exact, rough) in one
+  process, and `scripts.play --video`, `scripts.actuator_net_train` +
+  `actuator_net_eval` and `scripts.validate_adaptation_cross_engine` in
+  another, each reporting its launches,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
   and the device-busy share).
 
@@ -92,7 +105,7 @@ from walk_these_ways_tpu_torch.envs.go1_env import (  # noqa: E402
     LeggedRobotEnv, make_generator)
 from walk_these_ways_tpu_torch.go1_config import (  # noqa: E402
     mob_train_cfg, rough_train_cfg, small_train_cfg)
-from walk_these_ways_tpu_torch.learn import ppo  # noqa: E402
+from walk_these_ways_tpu_torch.learn import ppo, ppo_rma  # noqa: E402
 from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS  # noqa: E402
 from walk_these_ways_tpu_torch.learn.rollout import rollout  # noqa: E402
 from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs  # noqa: E402
@@ -100,7 +113,9 @@ from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E
 from walk_these_ways_tpu_torch.ops import (  # noqa: E402
     _build, contact, dynamics, entry_cache, megastep)
 from walk_these_ways_tpu_torch.physics import engine, envminor  # noqa: E402
-from walk_these_ways_tpu_torch.utils import convert, profiling  # noqa: E402
+from walk_these_ways_tpu_torch.scripts import play  # noqa: E402
+from walk_these_ways_tpu_torch.utils import (  # noqa: E402
+    convert, profiling, render)
 
 DEV = torch.device("cuda", 0)
 OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
@@ -612,21 +627,65 @@ def runner_phase(env_p):
         raise SystemExit("runner phase failed")
 
 
-def command_phases():
-    """The port's commands as a user runs them, six subprocesses started
+def command_phases(rma_pol, smi):
+    """The port's commands as a user runs them, subprocesses started
     together: the train script with --exact (2 iterations), with --terrain
     rough (1 iteration) and with 400 eval envs under the rand_large DR
     preset (2 iterations), `scripts.play` and `scripts.evaluate` (presets
     rand_regular and static_medium at 4000 envs, 30 steps) on the policy
     the runner phase exported, and `scripts.test`.  One phase line for each
-    train script, one for play and test, one for evaluate with its rows."""
+    train script, one for play and test, one for evaluate with its rows.
+    Then the commands of the RMA and tool scripts, in three processes
+    that each run their commands one after another through `CHILD` (each
+    command's kernel launches and checked videos reported): `train --algo
+    rma` (1 iteration: `rma_train_phase` runs the trainer's iterations);
+    `profile_train --rollout-only` (one 24-step rollout timed, one traced)
+    flat, in exact mode and on rough terrain (the full iteration is what
+    `trace_phase` traces); and `play --video` on the RMA export
+    (`rma_pol`), `actuator_net_train` then `actuator_net_eval` on
+    synthetic deploy logs, and `validate_adaptation_cross_engine` on the
+    runner phase's export at 256 envs.  Returns, for K4, K5 and K4b, the
+    launches of each of these commands that steps the env on its route."""
     mod = "walk_these_ways_tpu_torch.scripts."
     train = [sys.executable, "-m", mod + "train", "--num-envs", str(N_ENVS)]
-    logs = {k: os.path.join(OUT_DIR, k) for k in ("exact", "rough", "eval")}
+    logs = {k: os.path.join(OUT_DIR, k)
+            for k in ("exact", "rough", "eval", "rma_cmd", "tools")}
     for d in logs.values():
         shutil.rmtree(d, ignore_errors=True)
     pol = os.path.join(OUT_DIR, "runner", "checkpoints", "policy_latest.npz")
     presets = ["rand_regular", "static_medium"]
+    tools = logs["tools"]
+    deploy_logs = os.path.join(tools, "deploy_logs")
+    write_deploy_logs(deploy_logs)
+    net = os.path.join(tools, "actuator_net.npz")
+
+    def child(*jobs):
+        return [sys.executable, "-c", CHILD, json.dumps(
+            [[job, mod + name, list(argv)] for job, name, argv in jobs])]
+
+    rollout = ["--iters", "1", "--rollout-only"]
+    children = dict(
+        rma_cmd=child(("rma_cmd", "train", [
+            "--num-envs", str(N_ENVS), "--iterations", "1", "--algo", "rma",
+            "--log-dir", logs["rma_cmd"]])),
+        profile=child(
+            ("profile", "profile_train", rollout),
+            ("profile_exact", "profile_train", rollout + ["--mode", "exact"]),
+            ("profile_rough", "profile_train",
+             rollout + ["--terrain", "rough"])),
+        tools=child(
+            ("play_video", "play", [
+                "--policy", rma_pol, "--steps", "24", "--video",
+                os.path.join(tools, "play.gif")]),
+            ("actuator_net_train", "actuator_net_train", [
+                "--log-dir", deploy_logs, "--out", net, "--epochs", "5"]),
+            ("actuator_net_eval", "actuator_net_eval", [
+                "--log-dir", deploy_logs, "--net", net, "--out",
+                os.path.join(tools, "eval.json")]),
+            ("validate", "validate_adaptation_cross_engine", [
+                "--policy", pol, "--num-envs", "256", "--warmup-steps", "30",
+                "--collect-steps", "60", "--out",
+                os.path.join(tools, "adaptation.json")])))
     cmds = dict(
         exact=train + ["--iterations", "2", "--exact",
                        "--log-dir", logs["exact"]],
@@ -640,7 +699,7 @@ def command_phases():
                   "--settings", *presets, "--num-envs", str(N_ENVS),
                   "--steps", "30"],
         test=[sys.executable, "-m", mod + "test", "--num-envs", "3",
-              "--steps", "50"])
+              "--steps", "50"], **children)
     t0 = time.time()
     env = dict(os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir())
     procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
@@ -653,11 +712,43 @@ def command_phases():
         except subprocess.TimeoutExpired:
             p.kill()
             out, err = p.communicate()
-        res[k] = dict(command=" ".join(cmds[k][1:]),
-                      seconds_to_collected=time.time() - t0,
-                      returncode=p.returncode,
-                      stdout_tail=out.strip().splitlines()[-3:],
-                      stderr_tail=err.strip().splitlines()[-3:])
+        collected = time.time() - t0
+        err_tail = err.strip().splitlines()[-3:]
+        if k not in children:
+            res[k] = dict(command=" ".join(cmds[k][1:]),
+                          seconds_to_collected=collected,
+                          returncode=p.returncode,
+                          stdout_tail=out.strip().splitlines()[-3:],
+                          stderr_tail=err_tail)
+            continue
+        # a child's output: each command's lines after its SMOKE_JOB line,
+        # what it did on its SMOKE_DONE line
+        lines, job, done = {}, None, {}
+        for ln in out.strip().splitlines():
+            if ln.startswith("SMOKE_JOB "):
+                job = ln[len("SMOKE_JOB "):]
+                lines[job] = []
+            elif ln.startswith("SMOKE_DONE "):
+                done[job] = json.loads(ln[len("SMOKE_DONE "):])
+            elif job is not None:
+                lines[job].append(ln)
+        for job, name, argv in json.loads(cmds[k][-1]):
+            rec = dict(command=" ".join([name] + argv), process=k,
+                       seconds_to_collected=collected,
+                       returncode=0 if job in done else (p.returncode or 1),
+                       stdout_tail=lines.get(job, [])[-3:],
+                       stderr_tail=err_tail if job not in done else [])
+            rec.update(done.get(job, {}))
+            for ln in lines.get(job, []):
+                # the last line of the command's output that is a JSON
+                # object of its own
+                try:
+                    row = json.loads(ln)
+                except ValueError:
+                    continue
+                if isinstance(row, dict):
+                    rec["last_json"] = row
+            res[job] = rec
     ok_all = True
     for k in ("exact", "rough", "eval"):
         files = [f for f in ("provenance.json",
@@ -683,8 +774,81 @@ def command_phases():
           and res["test"]["returncode"] == 0
           and res["test"]["stdout_tail"][-1:] == ["OK"])
     say(phase="scripts", play=res["play"], test=res["test"], ok=ok)
-    if not (ok and ok_all):
+    ok_all = ok_all and ok
+
+    def launched(k, **given):
+        return res[k].get("kernel_launches") == expect(**given)
+
+    # each child's own reset steps the env once before its loops
+    files = [f for f in ("provenance.json", "checkpoints/train_state_last.pkl",
+                         "checkpoints/policy_latest.npz")
+             if os.path.exists(os.path.join(logs["rma_cmd"], f))]
+    variant = (str(np.load(os.path.join(logs["rma_cmd"], files[-1]))[
+        "meta/variant"]) if len(files) == 3 else None)
+    want = 1 + ROLLOUT_STEPS
+    ok = (res["rma_cmd"]["returncode"] == 0 and len(files) == 3
+          and variant == "rma" and launched("rma_cmd", control_step=want))
+    say(phase="train_script_rma", **res["rma_cmd"], artifacts=files,
+        export_variant=variant, expected_launches=expect(control_step=want),
+        ok=ok)
+    ok_all = ok_all and ok
+    videos = res["play_video"].get("videos", [])
+    ok = (res["play_video"]["returncode"] == 0 and len(videos) == 1
+          and videos[0]["ok"] and videos[0]["frames"] == 24
+          and launched("play_video", control_step=25))
+    say(phase="scripts_play_video", **res["play_video"],
+        expected_launches=expect(control_step=25), ok=ok)
+    ok_all = ok_all and ok
+    # one warm-up, one timed and one traced rollout
+    for k, given in (("profile", dict(control_step=1 + 3 * ROLLOUT_STEPS)),
+                     ("profile_exact",
+                      dict(control_step_exact=1 + 3 * ROLLOUT_STEPS)),
+                     ("profile_rough",
+                      dict(control_step_normals=1 + 3 * ROLLOUT_STEPS))):
+        row = res[k].get("last_json", {})
+        ok = (res[k]["returncode"] == 0 and launched(k, **given)
+              and row.get("env_steps_per_s", 0) > 0
+              and len(row.get("top_device_ops", [])) > 0
+              and 0.0 < row.get("device_busy_share", 0) <= 1.0)
+        say(phase="scripts_" + k, **res[k], expected_launches=expect(**given),
+            gpu=smi, ok=ok)
+        ok_all = ok_all and ok
+    ev = os.path.join(tools, "eval.json")
+    ev = json.load(open(ev)) if os.path.exists(ev) else {}
+    ok = (all(res[k]["returncode"] == 0 and launched(k) for k in (
+        "actuator_net_train", "actuator_net_eval")) and os.path.exists(net)
+          and ev.get("samples") == 2 * 198 * 12
+          and all(np.isfinite(ev.get(k, np.nan))
+                  for k in ("mse", "r2", "mse_pd_baseline")))
+    say(phase="scripts_actuator_net", train=res["actuator_net_train"],
+        evaluate=res["actuator_net_eval"],
+        eval={k: ev.get(k) for k in ("samples", "mse", "r2",
+                                      "mse_pd_baseline")}, ok=ok)
+    ok_all = ok_all and ok
+    va = os.path.join(tools, "adaptation.json")
+    va = json.load(open(va)) if os.path.exists(va) else {}
+    want = 1 + 30 + 60
+    ok = (res["validate"]["returncode"] == 0 and va.get("samples") == 256 * 6
+          and all(np.isfinite(va.get(k, np.nan)) for k in (
+              "mse_reference_module", "mse_our_module",
+              "mse_predict_mean_baseline"))
+          and launched("validate", control_step=want))
+    say(phase="scripts_validate_adaptation", **res["validate"],
+        result={k: va.get(k) for k in (
+            "samples", "mse_reference_module", "mse_our_module",
+            "mse_predict_mean_baseline", "corr_reference_module",
+            "corr_our_module", "device")},
+        expected_launches=expect(control_step=want), ok=ok)
+    ok_all = ok_all and ok
+    if not ok_all:
         raise SystemExit("a command of the port failed")
+    return {key: {k: res[k].get("kernel_launches", {}).get(key, 0)
+                  for k in names}
+            for key, names in (
+                ("control_step", ("rma_cmd", "play_video", "profile",
+                                  "validate")),
+                ("control_step_exact", ("profile_exact",)),
+                ("control_step_normals", ("profile_rough",)))}
 
 
 def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
@@ -1175,6 +1339,315 @@ def eval_split_phases(policy, gen, smi, worst):
     return flat_counts, rough_counts
 
 
+def drawing_libraries():
+    """(True, versions) when matplotlib and imageio import, which
+    utils/render.py draws with; else (False, the import error)."""
+    try:
+        import imageio
+        import matplotlib
+    except ImportError as e:
+        return False, f"{type(e).__name__}: {e}"
+    return True, dict(matplotlib=matplotlib.__version__,
+                      imageio=imageio.__version__)
+
+
+VIDEOS = []   # what each checked render_trajectory call saw, in order
+
+
+def checked_render(model, phys_states, out_path, fps=50, env_idx=0,
+                   stride=1):
+    """Stands in for utils/render.render_trajectory in the smoke and its
+    commands: the FK skeleton of the recorded frames on their device (the
+    card), held against the same points from copies of the frames on the
+    CPU; then the port's render_trajectory draws the video when matplotlib
+    and imageio import, and else it is not drawn, with the reason."""
+    frames = range(0, len(phys_states), stride)
+    pts = [render._skeleton_points(model, phys_states[t], env_idx)
+           for t in frames]
+    pts_h = [render._skeleton_points(model, type(phys_states[t])(
+        *[x.cpu() for x in phys_states[t]]), env_idx) for t in frames]
+    err = max(float(np.abs(a - b).max()) for u, v in zip(pts, pts_h)
+              for a, b in zip(u, v))
+    drawn, why = drawing_libraries()
+    rec = dict(path=out_path, frames=len(phys_states), points=len(pts),
+               frames_device=str(phys_states[0].q.device),
+               skeleton_max_abs_err=err, skeleton_atol=1e-5,
+               finite=all(bool(np.isfinite(a).all()) for u in pts for a in u),
+               drawn=drawn)
+    if drawn:
+        render_trajectory(model, phys_states, out_path, fps, env_idx, stride)
+        rec["bytes"] = os.path.getsize(out_path)
+    else:
+        rec["why_not_drawn"] = why
+    rec["ok"] = (rec["frames_device"] == str(DEV) and err <= 1e-5
+                 and rec["finite"] and (not drawn or rec["bytes"] > 0))
+    VIDEOS.append(rec)
+    return out_path
+
+
+render_trajectory = render.render_trajectory   # the port's, for drawing
+render.render_trajectory = checked_render
+
+# run by each child process of `command_phases` (python -c CHILD '<json>'):
+# the port's scripts as `python -m` runs them, one after another; each
+# command's output follows a SMOKE_JOB line, and a SMOKE_DONE line after it
+# gives its seconds, its kernels' launch counts and its checked videos
+CHILD = """
+import json, runpy, sys, time
+jobs = json.loads(sys.argv[1])
+sys.argv = sys.argv[:1]
+import chip_smoke as smoke
+for job, mod, argv in jobs:
+    print("SMOKE_JOB " + job, flush=True)
+    smoke.reset_counts()
+    del smoke.VIDEOS[:]
+    sys.argv = [mod] + argv
+    t0 = time.time()
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+    print("SMOKE_DONE " + json.dumps(dict(
+        seconds=time.time() - t0, kernel_launches=smoke.counts(),
+        videos=smoke.VIDEOS)), flush=True)
+"""
+
+
+def rma_train_phase(env, smi):
+    """`Runner(algo="rma")` on mob_train_cfg(4000) at the reference's RMA
+    widths: 2 iterations (launches, seconds, rollout / update split of
+    each), a video of env 0 after the second, the export with
+    meta/variant "rma" played back (scripts/play.load_policy against
+    `student_mean`; play_go1 for 24 steps), a new Runner resumed from the
+    checkpoint against the first for one more iteration, and the order of
+    the update's two steps (`rma_adaptation_target`).  Returns the
+    policy's export path and the K4 launches of each path."""
+    d = os.path.join(OUT_DIR, "rma")
+    shutil.rmtree(d, ignore_errors=True)
+    rows = []
+    split = {}
+    inner_collect, inner_update = ppo_rma.collect, ppo_rma.update
+
+    def timed(name, f):
+        def g(*a, **k):
+            t, out = seconds_of(lambda: f(*a, **k))
+            split[name] = t
+            return out
+        return g
+
+    ppo_rma.collect = timed("rollout_seconds", inner_collect)
+    ppo_rma.update = timed("update_seconds", inner_update)
+    try:
+        r = Runner(env, log_dir=d, seed=SEED, algo="rma", args=RunnerArgs(
+            num_steps_per_env=ROLLOUT_STEPS, log_freq=1, render_interval=2,
+            render_steps=ROLLOUT_STEPS))
+        train_iter, log_video = r.train_iter, r.log_video
+        videos = []
+
+        def counted_iter(*a):
+            reset_counts()
+            t, out = seconds_of(lambda: train_iter(*a))
+            m = out[3]
+            rows.append(dict(seconds=t, **split, lr=m.lr,
+                             kernel_launches=counts(), **{
+                                 k: float(getattr(m, k)) for k in (
+                                     "value_loss", "surrogate_loss",
+                                     "adaptation_loss", "mean_kl",
+                                     "mean_reward")}))
+            return out
+
+        def counted_video(it):
+            reset_counts()
+            n = len(VIDEOS)
+            t, path = seconds_of(lambda: log_video(it))
+            videos.append(dict(VIDEOS[n], seconds=t,
+                               kernel_launches=counts()))
+            return path
+
+        r.train_iter, r.log_video = counted_iter, counted_video
+        r.learn(2)
+    finally:
+        ppo_rma.collect, ppo_rma.update = inner_collect, inner_update
+    want = expect(control_step=ROLLOUT_STEPS)
+    ok_iters = all(
+        row["kernel_launches"] == want
+        and all(np.isfinite(row[k]) for k in (
+            "value_loss", "surrogate_loss", "adaptation_loss", "mean_kl"))
+        and np.float32(1e-5) <= np.float32(row["lr"]) <= np.float32(1e-2)
+        for row in rows) and len(rows) == 2
+    for i, row in enumerate(rows):
+        say(phase="rma_train_iteration", config="mob_train_cfg", algo="rma",
+            n_envs=env.num_envs, iteration=i, num_steps=ROLLOUT_STEPS,
+            expected_launches=want, **row, gpu=smi,
+            ok=row["kernel_launches"] == want)
+    video_ok = videos[0]["ok"] and videos[0]["kernel_launches"] == want
+    say(phase="rma_video", **dict(videos[0], ok=video_ok),
+        expected_launches=want)
+
+    # the export, played back
+    pol_path = os.path.join(d, "checkpoints", "policy_latest.npz")
+    z = np.load(pol_path)
+    student = play.load_policy(pol_path, device=DEV)
+    with torch.no_grad():
+        mine = r.train_state.policy.student_mean(r.obs_dict["obs"],
+                                                 r.obs_dict["obs_history"])
+    play_err = float((student(r.obs_dict) - mine).abs().max())
+    reset_counts()
+    t_play, vxs = seconds_of(lambda: play.play_go1(pol_path, steps=24,
+                                                   device=DEV))
+    play_counts = counts()
+
+    # save, then resume: the same next iteration
+    ck = os.path.join(d, "checkpoints", "train_state_last.pkl")
+    r2 = Runner(env, log_dir=os.path.join(d, "resumed"), seed=SEED,
+                algo="rma", args=RunnerArgs(
+                    num_steps_per_env=ROLLOUT_STEPS, log_freq=1, resume=True,
+                    resume_path=ck))
+    r.train_iter, r.log_video = train_iter, log_video
+    r.learn(1)
+    r2.learn(1)
+    torch.cuda.synchronize()
+    resume_diff = max(float((p - q).detach().abs().max()) for p, q in zip(
+        r.train_state.policy.parameters(), r2.train_state.policy.parameters()))
+    resume_equal = resume_diff == 0.0
+    ok = (ok_iters and video_ok and str(z["meta/variant"]) == "rma" and "encoder/w0" not in z.files
+          and play_err <= 1e-6 and bool(np.isfinite(vxs).all())
+          and play_counts == expect(control_step=25)
+          and r2.train_state.iteration == r.train_state.iteration == 3
+          and resume_diff <= 1e-5
+          and r.train_state.lr == r2.train_state.lr)
+    say(phase="rma_train", config="mob_train_cfg", algo="rma",
+        n_envs=env.num_envs,
+        what="Runner(algo='rma').learn(2) with a video after the second "
+             "iteration, the export played back, a new Runner resumed from "
+             "checkpoints/train_state_last.pkl and both run one iteration "
+             "more",
+        widths=dict(actor=[512, 256, 128], critic=[512, 256, 128],
+                    encoder=[256, 128], adaptation=[256, 32], latent=18),
+        iteration_seconds=[row["seconds"] for row in rows],
+        rollout_seconds=[row["rollout_seconds"] for row in rows],
+        update_seconds=[row["update_seconds"] for row in rows],
+        export_variant=str(z["meta/variant"]),
+        export_student_vs_student_mean=play_err,
+        play_seconds=t_play, play_kernel_launches=play_counts,
+        play_mean_vx=float(np.mean(vxs)),
+        resumed_vs_uninterrupted_max_abs_param_diff=resume_diff,
+        resumed_bit_equal=resume_equal, gpu=smi, ok=ok)
+    if not ok:
+        raise SystemExit("rma_train phase failed")
+
+    # the update's two steps in their order: one minibatch of a fresh
+    # learner; the adaptation loss it reports must be against the encoder
+    # AFTER the main step (the adaptation module itself does not move in
+    # that step: the PPO loss does not reach it)
+    import copy
+    ts = ppo_rma.init_train_state(make_generator(SEED + 8, DEV), env)
+    _, _, traj, _ = ppo_rma.collect(env, r.env_state, r.obs_dict, ts.policy,
+                                    ts.rng, 2, 0.99)
+    with torch.no_grad():
+        last = ts.policy.evaluate(r.obs_dict["obs"],
+                                  r.obs_dict["privileged_obs"])
+    data = ppo_rma.flatten_rollout(traj, *ppo.compute_gae(traj, last, 0.99,
+                                                          0.95))
+    before = copy.deepcopy(ts.policy)
+    _, ms = ppo_rma.update(ts.policy, (ts.optimizer, ts.adapt_optimizer),
+                           ts.lr, data, torch.arange(data[0].shape[0],
+                                                     device=DEV),
+                           ppo.PPO_Args(num_learning_epochs=1,
+                                        num_mini_batches=1))
+    with torch.no_grad():
+        pred = before.adaptation(data[2])
+        after = float(torch.mean(torch.square(
+            pred - ts.policy.encoder(data[1]))))
+        stale = float(torch.mean(torch.square(pred - before.encoder(
+            data[1]))))
+    got = float(ms.adaptation_loss[0])
+    rel = abs(got - after) / after
+    ok = rel <= 1e-5 and abs(stale - after) / after > 1e-3
+    say(phase="rma_adaptation_target", n_samples=int(data[0].shape[0]),
+        what="one minibatch of ppo_rma.update from a fresh learner: its "
+             "adaptation loss against the MSE to the encoder after the main "
+             "Adam step (and, to show that the check tells them apart, to "
+             "the encoder before it)",
+        reported=got, against_encoder_after=after,
+        against_encoder_before=stale, rel_err=rel, rtol=1e-5, ok=ok)
+    if not ok:
+        raise SystemExit("rma_adaptation_target failed")
+    return pol_path, dict(rma_train=sum(
+        row["kernel_launches"]["control_step"] for row in rows),
+        rma_log_video=videos[0]["kernel_launches"]["control_step"],
+        rma_play=play_counts["control_step"])
+
+
+def rma_eval_split_phase(gen, smi):
+    """One RMA iteration on mob_train_cfg(4000) + 400 eval envs under the
+    rand_large DR preset (4400 envs: 24 K4 launches), the eval slice acting
+    with `student_mean`; then one with eval_expert, acting with
+    `teacher_mean`.  Returns the K4 launches."""
+    ev = dataclasses.replace(mob_train_cfg(N_EVAL),
+                             domain_rand=DR_SETTINGS["rand_large"])
+    env = LeggedRobotEnv(mob_train_cfg(N_ENVS), eval_cfg=ev, device=DEV)
+    T = env.num_train_envs
+    ts = ppo_rma.init_train_state(gen, env)
+    state, obs = env.reset(gen)
+    given = []
+    step = env.step
+
+    def recording_step(s, a):
+        if not given:
+            given.append(a[T:].clone())
+        return step(s, a)
+
+    env.step = recording_step
+    launches = 0
+    for expert in (False, True):
+        with torch.no_grad():
+            o, pv, h = (obs[k][T:] for k in ("obs", "privileged_obs",
+                                             "obs_history"))
+            want = (ts.policy.teacher_mean(o, pv)[0] if expert
+                    else ts.policy.student_mean(o, h))
+        del given[:]
+        fn = ppo_rma.make_train_iteration(env, num_steps=ROLLOUT_STEPS,
+                                          eval_expert=expert)
+        reset_counts()
+        t, (state, obs, ts, m) = seconds_of(lambda: fn(state, obs, ts))
+        got = counts()
+        launches += got["control_step"]
+        err = float((given[0] - want).abs().max())
+        ok = (got == expect(control_step=ROLLOUT_STEPS) and err == 0.0
+              and all(bool(torch.isfinite(getattr(m, k))) for k in (
+                  "value_loss", "surrogate_loss", "adaptation_loss"))
+              and float(m.eval_ep_len_done) >= 0)
+        say(phase="rma_eval_split", config=f"mob_train_cfg + {N_EVAL} eval "
+            "envs of mob_train_cfg under rand_large", algo="rma",
+            eval_expert=expert, n_envs=env.num_envs, n_eval=N_EVAL,
+            eval_acts_with="teacher_mean" if expert else "student_mean",
+            eval_actions_max_abs_diff=err, seconds=t, lr=m.lr,
+            value_loss=float(m.value_loss),
+            adaptation_loss=float(m.adaptation_loss),
+            eval_episodes=float(m.eval_ep_count_done),
+            kernel_launches=got,
+            expected_launches=expect(control_step=ROLLOUT_STEPS), gpu=smi,
+            ok=ok)
+        if not ok:
+            raise SystemExit("rma_eval_split phase failed")
+    return launches
+
+
+def write_deploy_logs(log_dir, seed=0, T=200):
+    """Two log*.pkl of PD-behaved joints in the deploy logger's format (no
+    hardware log is in the repo): the actuator-net commands' input."""
+    import pickle
+    rs = np.random.RandomState(seed)
+    os.makedirs(log_dir, exist_ok=True)
+    for f in range(2):
+        q = 0.1 * rs.randn(T, 12)
+        qd = 0.5 * rs.randn(T, 12)
+        q_tgt = q + 0.05 * rs.randn(T, 12)
+        tau = 20.0 * (q_tgt - q) - 0.5 * qd + 0.1 * rs.randn(T, 12)
+        with open(os.path.join(log_dir, f"log_{f}.pkl"), "wb") as fh:
+            pickle.dump({"ep0": {"joint_pos": [q], "joint_vel": [qd],
+                                 "joint_pos_target": [q_tgt],
+                                 "tau_est": [tau], "torques": [tau]}}, fh)
+
+
 def trace_phase(env, gen, route="control_step", config="mob_train_cfg"):
     """One PPO iteration (of the default route unless named) under
     utils/profiling.trace."""
@@ -1211,11 +1684,13 @@ def main():
         raise SystemExit("float32 products must not run in TF32")
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
+    drawn, libs_or_why = drawing_libraries()
     say(phase="environment", python=sys.version.split()[0],
         torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=run([_build.find_nvcc(), "--version"]).splitlines()[-2:],
         gpu=smi, device=torch.cuda.get_device_name(0),
-        device_count=torch.cuda.device_count())
+        device_count=torch.cuda.device_count(),
+        video_drawing_libraries=drawn, drawing=libs_or_why)
 
     N = N_ENVS
     cfg = mob_train_cfg(N)
@@ -1673,7 +2148,11 @@ def main():
 
     # ---- the training entry point ---------------------------------------
     runner_phase(env_p)
-    command_phases()
+    rma_pol, k4_paths = rma_train_phase(env, smi)
+    k4_paths["rma_eval_split"] = rma_eval_split_phase(gen, smi)
+    # launches on the paths of the RMA trainer and the tool scripts
+    paths = command_phases(rma_pol, smi)
+    paths["control_step"].update(k4_paths)
     row = bench.main(num_envs=N, warmup=1, iters=2)
     bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0)
     say(phase="bench", **row, ok=bench_ok)
@@ -1813,7 +2292,8 @@ def main():
         replaces=JAX_PACKAGE + site, launches=launches[key],
         max_abs_err=worst[key], ms=timed[key]["ms"],
         plain_ms=timed[key]["plain_ms"], bound_ms=timed[key]["bound_ms"],
-        bound_by=timed[key]["bound_by"], library_ms=None)
+        bound_by=timed[key]["bound_by"], library_ms=None,
+        **({"launches_on_other_paths": paths[key]} if key in paths else {}))
         for key, title, src, site in rows])), flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -475,3 +475,76 @@ def test_split_env_kernels_match_plain_versions_on_the_card(cuda,
     for a, b in zip(out_k, out_r):
         a, b = a[..., :n + e].cpu().numpy(), b[..., :n + e].cpu().numpy()
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("eval_expert", [False, True])
+def test_rma_iteration_on_the_card(cuda, eval_expert):
+    """One RMA iteration (learn/ppo_rma) on 256 train + 32 eval envs: one K4
+    launch a step for the whole batch, the eval slice acting with
+    `student_mean` (`teacher_mean` with eval_expert), finite losses, the
+    float32 learning rate in its clamps, every parameter in the main Adam
+    with one step count."""
+    from walk_these_ways_tpu_torch.learn import ppo, ppo_rma
+    n, e, steps = 256, 32, 4
+    env = LeggedRobotEnv(mob_train_cfg(n), eval_cfg=mob_train_cfg(e),
+                         device=cuda)
+    gen = make_generator(0, cuda)
+    ts = ppo_rma.init_train_state(gen, env)
+    state, obs = env.reset(gen)
+    given = []
+    step = env.step
+
+    def recording_step(s, a):
+        given.append(a[n:].clone())
+        return step(s, a)
+
+    env.step = recording_step
+    with torch.no_grad():
+        o, pv, h = (obs[k][n:] for k in ("obs", "privileged_obs",
+                                         "obs_history"))
+        want = (ts.policy.teacher_mean(o, pv)[0] if eval_expert
+                else ts.policy.student_mean(o, h))
+    before = megastep.launches
+    fn = ppo_rma.make_train_iteration(env, ppo.PPO_Args(), num_steps=steps,
+                                      eval_expert=eval_expert)
+    state, obs, ts, m = fn(state, obs, ts)
+    torch.cuda.synchronize()
+    assert megastep.launches == before + steps
+    assert torch.equal(given[0], want)
+    for name in ("value_loss", "surrogate_loss", "adaptation_loss",
+                 "mean_kl"):
+        assert bool(torch.isfinite(getattr(m, name))), name
+    assert np.float32(1e-5) <= np.float32(m.lr) <= np.float32(1e-2)
+    assert {int(st["step"]) for st in ts.optimizer.state.values()} == {20}
+    assert len(ts.optimizer.state) == len(list(ts.policy.parameters()))
+
+
+def test_skeleton_points_on_the_card(cuda):
+    """The video's FK skeleton of env 0 from a PhysicsState on the card
+    against the same points from a copy of the state on the CPU."""
+    from walk_these_ways_tpu_torch.utils import render
+    env = LeggedRobotEnv(mob_train_cfg(16), device=cuda)
+    gen = make_generator(0, cuda)
+    state, _ = env.reset(gen)
+    for _ in range(3):
+        state, *_ = env.step(state, torch.randn((16, 12), generator=gen,
+                                                device=cuda))
+    phys_cpu = engine.PhysicsState(*[x.cpu() for x in state.phys])
+    for i in (0, 15):
+        p_c, f_c = render._skeleton_points(env.model, state.phys, i)
+        p_h, f_h = render._skeleton_points(env.model, phys_cpu, i)
+        np.testing.assert_allclose(p_c, p_h, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(f_c, f_h, rtol=1e-5, atol=1e-6)
+
+
+def test_profile_train_full_iteration_on_the_card(cuda):
+    """scripts/profile_train without --rollout-only on 256 envs: a warm-up,
+    a timed and a traced PPO iteration, one K4 launch a step (and one for
+    the reset), its rate and the traced device ops."""
+    from walk_these_ways_tpu_torch.scripts import profile_train
+    before = megastep.launches
+    row = profile_train.main(["--num-envs", "256", "--iters", "1"])
+    assert megastep.launches == before + 1 + 3 * profile_train.STEPS
+    assert row["what"] == "full train iteration"
+    assert row["env_steps_per_s"] > 0 and row["top_device_ops"]
+    assert 0.0 < row["device_busy_share"] <= 1.0

@@ -555,21 +555,17 @@ def test_host_build_of_the_contact_kernels_matches_its_plain_version(
 
 def test_host_build_of_k5_rebuilds_the_cache_before_every_substep(host):
     """K5 (the team kernel in exact mode) at a mid-stance state, feet on
-    the ground, against its plain version, every output within the
-    tolerance.  The same control step with the cache built once, at
-    substep 0 (anchored at the entry base position, every solve cold: the
-    plain version in reuse mode with `warm_iters` 0), lies beyond the
-    tolerance of the exact plain version there, so a kernel that rebuilt
-    its cache only at substep 0 would fail this test."""
-    libs, _ = host
-    n = 8
-    cfg = configs(n)["K5"]
-    env = t_env.LeggedRobotEnv(cfg, device="cpu")
-    gen = t_env.make_generator(3, "cpu")
-    state, _ = env.reset(gen)
-    for _ in range(10):
-        state, *_ = env.step(state, 0.3 * torch.randn((n, 12), generator=gen))
-    args, kwargs = kernel_call(env, state)
+    the ground (K5's case `STEPS` random control steps in), against its
+    plain version, every output within the tolerance.  The same control
+    step with the cache built once, at substep 0 (anchored at the entry
+    base position, every solve cold: the plain version in reuse mode with
+    `warm_iters` 0), lies beyond the tolerance of the exact plain version
+    there, so a kernel that rebuilt its cache only at substep 0 would fail
+    this test."""
+    libs, all_cases = host
+    n = N
+    args, kwargs = next((a, k) for v, st_name, a, k, _ in all_cases
+                        if v == "K5" and st_name != "after_reset")
     assert kwargs["exact_inputs"] is not None and args[-1] is None
     out_k = host_control_step(libs, args, kwargs)
     out_r = t_pm.control_step_reference(*args, **kwargs)

@@ -11,8 +11,9 @@ iteration, a log row, a checkpoint and a curriculum dump every iteration.
   the JAX `Runner.export_policy`, called on a stand-in holding a JAX
   parameter tree made from the same weights, gives equal arrays;
 - the script and the bench raise without a CUDA device, and the flags of
-  later slices raise naming their ROADMAP item; the eval flags build their
-  configs and reach the device check;
+  a later slice raise naming its ROADMAP item; the eval flags build their
+  configs and reach the device check (`--algo rma`, RMA and the videos:
+  tests/test_torch_rma.py and tests/test_torch_tools.py);
 - `scripts.play` plays back the policy the runner exported (its actions are
   the runner's policy mean) and `scripts.test` steps a few envs, both with
   device="cpu"; without it, neither runs on a box with no CUDA device.
@@ -221,7 +222,6 @@ def test_restore_like_refuses_a_mismatched_checkpoint(runs, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--algo", "rma"], "19"),
     (["--mesh"], "22"), (["--multihost"], "22"),
     (["--shared-ckpt", "d"], "22")])
 def test_train_script_flags_of_later_slices_raise(flags, item):
@@ -273,14 +273,20 @@ def test_entry_points_raise_without_a_cuda_device(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_test.run_env(num_envs=2, steps=1)
     env = LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu")
-    for kw in (dict(algo="rma"), dict(mesh=object()),
-               dict(args=RunnerArgs(render_interval=5)),
+    for kw in (dict(mesh=object()),
                dict(args=RunnerArgs(shared_ckpt_dir="d"))):
         with pytest.raises(NotImplementedError):
             Runner(env, log_dir=str(tmp_path / "r"), **kw)
-    # eval_expert is ported (tests/test_torch_eval.py runs it)
+    with pytest.raises(ValueError, match="unknown algo"):
+        Runner(env, log_dir=str(tmp_path / "r"), algo="ppo")
+    # eval_expert, RMA and the videos are ported (tests/test_torch_eval.py,
+    # tests/test_torch_rma.py and tests/test_torch_tools.py run them)
     assert Runner(env, log_dir=str(tmp_path / "e"),
                   args=RunnerArgs(eval_expert=True)).args.eval_expert
+    assert type(Runner(env, log_dir=str(tmp_path / "m"), algo="rma")
+                .train_state.policy).__name__ == "RMAPolicy"
+    assert Runner(env, log_dir=str(tmp_path / "v"), args=RunnerArgs(
+        render_interval=5)).args.render_interval == 5
 
 
 def test_play_script_plays_back_the_exported_policy(runs, capsys):
@@ -295,8 +301,6 @@ def test_play_script_plays_back_the_exported_policy(runs, capsys):
     vxs = t_play.play_go1(path, steps=3, device="cpu")
     assert vxs.shape == (3,) and np.isfinite(vxs).all()
     assert "mean body-frame vx" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 20"):
-        t_play.main(["--policy", path, "--video", "v.mp4"])
 
 
 def test_test_script_steps_envs_on_the_cpu(capsys):

@@ -224,6 +224,79 @@ def _clip_by_global_norm(params, max_norm: float):
         g.mul_(scale)
 
 
+@torch.no_grad()
+def mean_kl(mean, std, old_mu, old_sigma):
+    """Mean over the batch of KL(old || new) of the diagonal Gaussians."""
+    kl = torch.sum(
+        torch.log(std / old_sigma + 1e-5)
+        + (torch.square(old_sigma) + torch.square(old_mu - mean))
+        / (2.0 * torch.square(std)) - 0.5, dim=-1)
+    return torch.mean(kl)
+
+
+def adaptive_lr(lr, kl_mean, args: PPO_Args):
+    """The KL-adaptive learning rate in float32 (ppo.py:118-132): / 1.5 when
+    the KL exceeds twice the desired one, x 1.5 when it is below half of it,
+    clamped to [1e-5, 1e-2]."""
+    f32 = np.float32
+    lr = f32(lr)
+    kl_f = f32(kl_mean.item())
+    if kl_f > f32(args.desired_kl * 2.0):
+        lr = max(f32(1e-5), lr / f32(1.5))
+    if kl_f < f32(args.desired_kl / 2.0) and kl_f > f32(0.0):
+        lr = min(f32(1e-2), lr * f32(1.5))
+    return lr
+
+
+def ppo_loss(mean, std, value, actions, old_log_probs, advantages,
+             target_values, returns, args: PPO_Args):
+    """(loss, surrogate loss, value loss) of one minibatch: the clipped
+    surrogate, the clipped value loss (ppo.py:100-116) and the entropy
+    bonus."""
+    ratio = torch.exp(ac.gaussian_log_prob(actions, mean, std)
+                      - old_log_probs)
+    surr = -advantages * ratio
+    surr_clipped = -advantages * torch.clamp(
+        ratio, 1.0 - args.clip_param, 1.0 + args.clip_param)
+    s_loss = torch.mean(torch.maximum(surr, surr_clipped))
+    if args.use_clipped_value_loss:
+        v_clipped = target_values + torch.clamp(
+            value - target_values, -args.clip_param, args.clip_param)
+        v_loss = torch.maximum(torch.square(value - returns),
+                               torch.square(v_clipped - returns)).mean()
+    else:
+        v_loss = torch.square(returns - value).mean()
+    entropy = ac.gaussian_entropy(std)
+    loss = s_loss + args.value_loss_coef * v_loss \
+        - args.entropy_coef * entropy.mean()
+    return loss, s_loss, v_loss
+
+
+def main_step(main_opt, lr, loss, mean, std, old_mu, old_sigma,
+              args: PPO_Args):
+    """The main Adam step of one minibatch: backward, the KL-adaptive
+    learning rate set BEFORE the step (ppo.py:118-132), the global-norm
+    clip over every parameter, the step.  A parameter the loss does not
+    reach steps on a zero gradient, as in the JAX package's optax Adam,
+    which spans every parameter (torch's Adam would skip one whose grad is
+    None, and its moments and step count would fall behind).  Returns (lr,
+    mean KL)."""
+    params = [p for g in main_opt.param_groups for p in g["params"]]
+    main_opt.zero_grad(set_to_none=True)
+    loss.backward()
+    kl_mean = mean_kl(mean, std, old_mu, old_sigma)
+    lr = adaptive_lr(lr, kl_mean, args)
+    for group in main_opt.param_groups:
+        group["lr"] = float(lr)
+    with torch.no_grad():
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        _clip_by_global_norm(params, args.max_grad_norm)
+    main_opt.step()
+    return lr, kl_mean
+
+
 def flatten_rollout(traj: Transition, returns, advantages):
     """(T, N, ...) -> (T*N, ...): the nine columns `update` consumes."""
     def flat(x):
@@ -243,13 +316,11 @@ def update(policy: ac.ActorCritic, optimizers, lr: float, data, perm,
     Updates `policy` and the optimizers in place.  Returns (lr after the
     last minibatch, UpdateMetrics)."""
     main_opt, adapt_opt = optimizers
-    params = [p for g in main_opt.param_groups for p in g["params"]]
     adapt_params = [p for g in adapt_opt.param_groups for p in g["params"]]
     data = tuple(x[perm] for x in data)
     batch = data[0].shape[0]
     mb = batch // args.num_mini_batches
     lr = np.float32(lr)
-    f32 = np.float32
     rows = []
     lrs = []
     for _ in range(args.num_learning_epochs):
@@ -259,46 +330,12 @@ def update(policy: ac.ActorCritic, optimizers, lr: float, data, perm,
 
             mean = policy.actor_mean(hist_mb)
             std = policy.std.expand_as(mean)
-            logp = ac.gaussian_log_prob(act_mb, mean, std)
-            value = policy.evaluate(hist_mb, priv_mb)
-            ratio = torch.exp(logp - old_logp_mb)
-            surr = -adv_mb * ratio
-            surr_clipped = -adv_mb * torch.clamp(
-                ratio, 1.0 - args.clip_param, 1.0 + args.clip_param)
-            s_loss = torch.mean(torch.maximum(surr, surr_clipped))
-            if args.use_clipped_value_loss:
-                v_clipped = tv_mb + torch.clamp(
-                    value - tv_mb, -args.clip_param, args.clip_param)
-                v_loss = torch.maximum(
-                    torch.square(value - ret_mb),
-                    torch.square(v_clipped - ret_mb)).mean()
-            else:
-                v_loss = torch.square(ret_mb - value).mean()
-            entropy = ac.gaussian_entropy(std)
-            loss = s_loss + args.value_loss_coef * v_loss \
-                - args.entropy_coef * entropy.mean()
-            main_opt.zero_grad(set_to_none=True)
-            loss.backward()
-
-            # KL-adaptive LR BEFORE the gradient step (ppo.py:118-132)
-            with torch.no_grad():
-                kl = torch.sum(
-                    torch.log(std / old_sigma_mb + 1e-5)
-                    + (torch.square(old_sigma_mb)
-                       + torch.square(old_mu_mb - mean))
-                    / (2.0 * torch.square(std)) - 0.5, dim=-1)
-                kl_mean = torch.mean(kl)
-            kl_f = f32(kl_mean.item())
-            if kl_f > f32(args.desired_kl * 2.0):
-                lr = max(f32(1e-5), lr / f32(1.5))
-            if kl_f < f32(args.desired_kl / 2.0) and kl_f > f32(0.0):
-                lr = min(f32(1e-2), lr * f32(1.5))
-            for group in main_opt.param_groups:
-                group["lr"] = float(lr)
+            loss, s_loss, v_loss = ppo_loss(
+                mean, std, policy.evaluate(hist_mb, priv_mb), act_mb,
+                old_logp_mb, adv_mb, tv_mb, ret_mb, args)
+            lr, kl_mean = main_step(main_opt, lr, loss, mean, std, old_mu_mb,
+                                    old_sigma_mb, args)
             lrs.append(float(lr))
-            with torch.no_grad():
-                _clip_by_global_norm(params, args.max_grad_norm)
-            main_opt.step()
 
             # adaptation substep on the updated params (ppo.py:163-192)
             num_train = hist_mb.shape[0] // 5 * 4

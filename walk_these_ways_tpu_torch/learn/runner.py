@@ -16,11 +16,12 @@ Artifacts in `log_dir`, under the JAX package's names: `metrics.jsonl`,
 
 With eval envs in the env (its train/eval split), the eval slice acts
 deterministically (the teacher with `RunnerArgs.eval_expert`) and its
-finished episodes are logged under `eval/episode/*`.
+finished episodes are logged under `eval/episode/*`.  With
+`render_interval`, a short rollout of env 0 under the student policy is
+drawn to `videos/<iteration>.gif` every `render_interval` iterations.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-`algo="rma"` (19), a device `mesh` and `shared_ckpt_dir` (22) and videos
-(`render_interval`, 20).
+Not ported yet, raising NotImplementedError with its ROADMAP item: a device
+`mesh` and `shared_ckpt_dir` (22).
 """
 from __future__ import annotations
 
@@ -34,10 +35,12 @@ import torch
 
 from ..envs import curriculum as curr
 from ..envs.go1_env import make_generator
+from ..physics.engine import PhysicsState
 from ..utils import checkpoint as ckpt
 from ..utils import convert
 from ..utils.metrics_logger import MetricsLogger
 from . import ppo as ppo_mod
+from . import ppo_rma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +60,10 @@ class RunnerArgs:
     curriculum_dump_freq: int = 500
     # eval envs act with the teacher (act_teacher) instead of the student
     eval_expert: bool = False
-    # render a short student-policy rollout every N iterations (0 = off;
-    # ROADMAP item 20)
+    # render a short student-policy rollout every N iterations (0 = off);
+    # analog of the reference's save_video_interval camera capture
     render_interval: int = 0
+    render_steps: int = 100
 
 
 # IterMetrics fields drained at log_freq, in this order
@@ -92,22 +96,19 @@ class Runner:
                  ppo_args: ppo_mod.PPO_Args = ppo_mod.PPO_Args(),
                  algo: str = "cse", mesh=None):
         """algo: 'cse' (concurrent state estimation, the default trainer,
-        reference ppo_cse/); 'rma' is ROADMAP item 19.  `mesh` (sharding
-        the envs over several devices) is item 22."""
-        if algo == "rma":
-            raise NotImplementedError(
-                "algo='rma' (teacher-student, reference ppo/) belongs to a "
-                "later slice of the port (ROADMAP item 19)")
-        if algo != "cse":
+        reference ppo_cse/) or 'rma' (teacher-student with an env-factor
+        encoder, reference ppo/, learn/ppo_rma.py).  Both variants emit the
+        same IterMetrics, so logging, checkpoints and the export are
+        shared.  `mesh` (sharding the envs over several devices) is ROADMAP
+        item 22."""
+        algos = {"cse": ppo_mod, "rma": ppo_rma}
+        if algo not in algos:
             raise ValueError(f"unknown algo {algo!r} (want 'cse' or 'rma')")
         if mesh is not None or args.shared_ckpt_dir:
             raise NotImplementedError(
                 "a device mesh and shared-storage checkpoints belong to the "
                 "multi-device slice of the port (ROADMAP item 22)")
-        if args.render_interval:
-            raise NotImplementedError(
-                "videos (log_video) belong to a later slice of the port "
-                "(ROADMAP item 20)")
+        self._algo_mod = algos[algo]
         self.env = env
         self.args = args
         self.ppo_args = ppo_args
@@ -119,9 +120,9 @@ class Runner:
 
         ts_seed, self._reset_seed = (
             int(x) for x in np.random.SeedSequence(seed).generate_state(2))
-        self.train_state = ppo_mod.init_train_state(
+        self.train_state = self._algo_mod.init_train_state(
             make_generator(ts_seed, env.device), env, ppo_args)
-        self.train_iter = ppo_mod.make_train_iteration(
+        self.train_iter = self._algo_mod.make_train_iteration(
             env, ppo_args, num_steps=args.num_steps_per_env,
             eval_expert=args.eval_expert)
         self.env_state = None
@@ -238,6 +239,10 @@ class Runner:
                 self.save(os.path.join(self.log_dir, "checkpoints",
                                        f"train_state_{it+1:06d}.pkl"))
                 self.export_policy(os.path.join(self.log_dir, "checkpoints"))
+
+            if (self.args.render_interval
+                    and (it + 1) % self.args.render_interval == 0):
+                self.log_video(it + 1)
 
         self.save(os.path.join(self.log_dir, "checkpoints",
                                "train_state_last.pkl"))
@@ -388,8 +393,35 @@ class Runner:
         )
 
     def log_video(self, it: int):
-        raise NotImplementedError(
-            "videos belong to a later slice of the port (ROADMAP item 20)")
+        """Render env 0 of the training env under the current student
+        policy (`student_mean` for rma, `actor_mean` for cse) for
+        `render_steps` control steps into `videos/<it>.gif` (reference
+        log_video, ppo_cse/__init__.py:277-296).  It steps a throwaway
+        copy of the env state with a generator of its own, so neither the
+        training statistics nor the training generators' streams move."""
+        from ..utils.render import render_trajectory
+
+        pol = self.train_state.policy
+        state = self.env_state._replace(rng=make_generator(
+            self._reset_seed + it, self.env.device))
+        obs = self.obs_dict
+        frames = []
+        with torch.no_grad():
+            for _ in range(self.args.render_steps):
+                if self.algo == "rma":
+                    actions = pol.student_mean(obs["obs"], obs["obs_history"])
+                else:
+                    actions = pol.actor_mean(obs["obs_history"])
+                state, obs, _, _, _ = self.env.step(state, actions)
+                frames.append(PhysicsState(*[x[0:1].clone()
+                                             for x in state.phys]))
+        out_dir = os.path.join(self.log_dir, "videos")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{it:05d}.gif")
+        render_trajectory(self.env.model, frames, path,
+                          fps=int(1 / self.env.dt), stride=2)
+        print(f"saved video {path}", flush=True)
+        return path
 
     # -- persistence ------------------------------------------------------
     # *.pkl = a local pickle of numpy arrays (utils/checkpoint); the
@@ -397,6 +429,7 @@ class Runner:
     def _state_tree(self):
         ts = self.train_state
         return {
+            # the one layout holds either learner (convert.py)
             "train_state": dict(convert.train_state_to_numpy(ts),
                                 rng=ts.rng.get_state().numpy()),
             "env_state": convert.env_state_to_numpy(self.env_state),
@@ -424,7 +457,9 @@ class Runner:
                 make_generator(self._reset_seed, dev))
         loaded = ckpt.restore_like(self._state_tree(), ckpt.load(path))
         tsd = loaded["train_state"]
-        self.train_state = convert.train_state_from_numpy(
+        from_numpy = (convert.rma_train_state_from_numpy if self.algo == "rma"
+                      else convert.train_state_from_numpy)
+        self.train_state = from_numpy(
             tsd, convert.generator_from_state(tsd["rng"], dev),
             args=self.ppo_args, device=dev)
         esd = loaded["env_state"]
@@ -439,7 +474,8 @@ class Runner:
         ppo_cse/__init__.py:240-251), key for key the JAX package's.
 
         meta/variant records the actor input wiring — 'cse': actor(history
-        + latent)."""
+        + latent); 'rma': actor(obs + latent) (reference
+        ppo/actor_critic.py:38-56)."""
         os.makedirs(dirpath, exist_ok=True)
         pol = self.train_state.policy
 

@@ -47,6 +47,24 @@ def load(path: str = _DEFAULT_PATH, device="cuda") -> ActuatorNetParams:
                              z["b2"], device=device)
 
 
+def init_random(rng=None, device="cuda") -> ActuatorNetParams:
+    """Random-init weights (for tests / training from scratch): numpy's
+    RandomState(rng or 0), U[-1/sqrt(fan_in), 1/sqrt(fan_in)] drawn in
+    float64 and rounded to float32, in the JAX package's order, so both
+    packages start from the same bits."""
+    rs = np.random.RandomState(0 if rng is None else rng)
+
+    def lin(o, i):
+        lim = 1.0 / np.sqrt(i)
+        return (rs.uniform(-lim, lim, (o, i)).astype(np.float32),
+                rs.uniform(-lim, lim, (o,)).astype(np.float32))
+
+    w0, b0 = lin(32, 6)
+    w1, b1 = lin(32, 32)
+    w2, b2 = lin(1, 32)
+    return ActuatorNetParams(w0, b0, w1, b1, w2, b2, device=device)
+
+
 def _softsign(x):
     return x / (1.0 + torch.abs(x))
 

@@ -8,11 +8,11 @@ scripts/play.py:17-162): load an exported policy artifact
 
 Usage: python -m walk_these_ways_tpu_torch.scripts.play
            [--policy runs/latest/checkpoints/policy_latest.npz]
-           [--steps 250] [--plot] [--plot-path PNG]
+           [--steps 250] [--plot] [--plot-path PNG] [--video GIF]
 
-`--video` belongs to a later slice of the port and raises
-NotImplementedError (ROADMAP item 20).  `play_go1` runs on a CUDA device;
-without one it raises unless `device="cpu"` is asked for.
+`--video` records env 0's PhysicsState each step and draws its skeleton to
+a video (utils/render.py; matplotlib and imageio).  `play_go1` runs on a
+CUDA device; without one it raises unless `device="cpu"` is asked for.
 """
 import argparse
 import dataclasses
@@ -65,10 +65,6 @@ def load_policy(path, device="cuda"):
 def play_go1(policy_path: str, steps: int = 250, plot: bool = False,
              plot_path: str = None, video_path: str = None,
              device="cuda"):
-    if video_path:
-        raise NotImplementedError(
-            "--video belongs to a later slice of the PyTorch port (ROADMAP "
-            "item 20)")
     import numpy as np
     import torch
 
@@ -77,6 +73,7 @@ def play_go1(policy_path: str, steps: int = 250, plot: bool = False,
                                                         make_generator)
     from walk_these_ways_tpu_torch.go1_config import mob_train_cfg
     from walk_these_ways_tpu_torch.ops import quat as qops
+    from walk_these_ways_tpu_torch.physics.engine import PhysicsState
 
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -113,7 +110,7 @@ def play_go1(policy_path: str, steps: int = 250, plot: bool = False,
     cmd_t = torch.as_tensor(cmd, device=dev)[None, :]
 
     state, obs = env.reset(make_generator(42, dev))
-    xs, vxs, qs = [], [], []
+    xs, vxs, qs, phys_frames = [], [], [], []
     for _ in range(steps):
         state = state._replace(commands=cmd_t)
         state, obs, rew, done, info = env.step(state, policy(obs))
@@ -122,12 +119,22 @@ def play_go1(policy_path: str, steps: int = 250, plot: bool = False,
         vxs.append(float(v_body[0, 0]))
         xs.append(float(state.phys.base_pos[0, 0]))
         qs.append(state.phys.q[0].cpu().numpy())
+        if video_path:
+            phys_frames.append(PhysicsState(*[x[0:1].clone()
+                                              for x in state.phys]))
     vxs = np.array(vxs)
     qs = np.stack(qs)
     print(f"mean body-frame vx over rollout: {vxs.mean():.3f} m/s "
           "(target 1.5)")
     print(f"distance covered: {abs(xs[-1] - xs[0]):.2f} m along world-x "
           f"in {steps * env.dt:.1f} s (spawn yaw is randomized)")
+    if video_path:
+        # qualitative gait-inspection artifact (the reference captures its
+        # videos with IsaacGym's camera, legged_robot.py:1592-1673)
+        from walk_these_ways_tpu_torch.utils.render import render_trajectory
+        render_trajectory(env.model, phys_frames, video_path,
+                          fps=int(1 / env.dt), stride=2)
+        print(f"saved gait video to {video_path}")
     if plot:
         # measured-vs-desired velocity + joint positions figure
         # (reference play.py:140-157); matplotlib only when asked for
@@ -164,11 +171,11 @@ def main(argv=None):
                    help="save the reference play.py velocity/joint figure")
     p.add_argument("--plot-path", type=str, default=None)
     p.add_argument("--video", type=str, default=None, metavar="PATH",
-                   help="render the rollout to a video (ROADMAP item 20: "
-                        "not ported yet)")
+                   help="render the rollout to a skeleton video "
+                        "(.gif / .mp4)")
     a = p.parse_args(argv)
-    play_go1(a.policy, a.steps, plot=a.plot, plot_path=a.plot_path,
-             video_path=a.video)
+    return play_go1(a.policy, a.steps, plot=a.plot, plot_path=a.plot_path,
+                    video_path=a.video)
 
 
 if __name__ == "__main__":

@@ -4,13 +4,13 @@ Counterpart of the JAX package's scripts/train.py (reference
 scripts/train.py:1-256, train_go1): the config is the `mob_train_cfg` preset
 (with `--terrain rough`, `rough_train_cfg`: the same stack on a rough
 heightfield; with `--config small`, `small_train_cfg`: flat, no DR, P
-control), the trainer is the PPO-CSE loop of learn/runner.py, logging goes
-to a local JSONL run dir.  Runs on the GPU only: without a CUDA device it
-raises.
+control), the trainer is the PPO-CSE loop of learn/runner.py (with `--algo
+rma`, the teacher-student trainer of learn/ppo_rma.py), logging goes to a
+local JSONL run dir.  Runs on the GPU only: without a CUDA device it raises.
 
 Usage: python -m walk_these_ways_tpu_torch.scripts.train
            [--num-envs 4000] [--iterations 1500] [--exact]
-           [--terrain rough] [--resume CKPT]
+           [--terrain rough] [--algo cse|rma] [--resume CKPT]
            [--num-eval-envs 400 [--eval-dr rand_large]
             [--eval-terrain rough] [--eval-expert]]
 
@@ -20,9 +20,8 @@ logged under `eval/episode/*`; `--eval-dr` puts them under a DR preset of
 learn/eval_metrics.DR_SETTINGS, `--eval-terrain` on terrain rows of their
 own, `--eval-expert` hands them to the teacher.
 
-The flags of later slices of the port raise NotImplementedError naming their
-ROADMAP item: `--algo rma` (19), `--mesh` and `--multihost` (22) and
-`--shared-ckpt` (22).  `train_go1` runs on a CUDA device; without one it
+The flags of a later slice of the port raise NotImplementedError naming its
+ROADMAP item: `--mesh` and `--multihost` (22) and `--shared-ckpt` (22).  `train_go1` runs on a CUDA device; without one it
 raises unless `device="cpu"` is asked for.
 """
 import argparse
@@ -50,7 +49,6 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
     from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
 
     later = (
-        (algo == "rma", "--algo rma", 19),
         (use_mesh or multihost, "--mesh / --multihost", 22),
         (shared_ckpt is not None, "--shared-ckpt", 22),
     )
@@ -111,7 +109,8 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
                     args=RunnerArgs(max_iterations=iterations,
                                     eval_expert=eval_expert,
                                     resume=resume is not None,
-                                    resume_path=resume))
+                                    resume_path=resume),
+                    algo=algo)
     runner.learn(num_learning_iterations=iterations,
                  init_at_random_ep_len=True)
     return runner
@@ -133,7 +132,8 @@ def main(argv=None):
                    help="eval envs use the teacher head")
     p.add_argument("--algo", choices=["cse", "rma"], default="cse",
                    help="cse = concurrent state estimation (default); "
-                        "rma = teacher-student (item 19)")
+                        "rma = teacher-student with an env-factor encoder "
+                        "(learn/ppo_rma.py)")
     p.add_argument("--mesh", action="store_true",
                    help="shard envs over all local devices (item 22)")
     p.add_argument("--multihost", action="store_true",

@@ -168,10 +168,49 @@ def cache_from_numpy(arrays: Mapping[str, np.ndarray], block: int = 256,
     return PallasOps(**out)
 
 
-def _param_names(policy: ActorCritic):
-    """[(key in the JAX package's tree, parameter)] of an ActorCritic."""
+# the MLPs of each policy, in the order of the JAX package's parameter tree
+_CSE_MLPS = ("adaptation", "actor", "critic")
+_RMA_MLPS = ("encoder", "adaptation", "actor", "critic")
+
+
+def rma_policy_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
+    """An RMAPolicy (learn/ppo_rma.py) sized from and loaded with
+    `encoder/*`, `adaptation/*`, `actor/*`, `critic/*` (w{i} (in, out),
+    b{i}) and `std`: the JAX package's RMAParams, flattened."""
+    from ..learn.ppo_rma import RMA_Args, RMAPolicy
+    ws = {name: [arrays[f"{name}/w{i}"]
+                 for i in range(_mlp_keys(arrays, name))]
+          for name in _RMA_MLPS}
+    for name, w in ws.items():
+        if not w:
+            raise KeyError(f"no '{name}/w0' in the arrays")
+    latent = ws["encoder"][-1].shape[1]
+    args = RMA_Args(
+        actor_hidden_dims=tuple(w.shape[1] for w in ws["actor"][:-1]),
+        critic_hidden_dims=tuple(w.shape[1] for w in ws["critic"][:-1]),
+        encoder_hidden_dims=tuple(w.shape[1] for w in ws["encoder"][:-1]),
+        adaptation_hidden_dims=tuple(
+            w.shape[1] for w in ws["adaptation"][:-1]),
+        latent_dim=latent)
+    policy = RMAPolicy(ws["actor"][0].shape[0] - latent,
+                       ws["encoder"][0].shape[0],
+                       ws["adaptation"][0].shape[0],
+                       ws["actor"][-1].shape[1], args, device=device)
+    with torch.no_grad():
+        for key, p in _param_names(policy):
+            x = _tensor(arrays[key], p.device)
+            if x.shape != p.shape:
+                raise ValueError(f"{key}: shape {tuple(x.shape)}, module "
+                                 f"{tuple(p.shape)}")
+            p.copy_(x)
+    return policy
+
+
+def _param_names(policy):
+    """[(key in the JAX package's tree, parameter)] of an ActorCritic or an
+    RMAPolicy."""
     out = []
-    for name in ("adaptation", "actor", "critic"):
+    for name in (_RMA_MLPS if hasattr(policy, "encoder") else _CSE_MLPS):
         mlp = getattr(policy, name)
         for i, (w, b) in enumerate(zip(mlp.weights, mlp.biases)):
             out += [(f"{name}/w{i}", w), (f"{name}/b{i}", b)]
@@ -208,8 +247,28 @@ def train_state_from_numpy(arrays: Mapping, generator: torch.Generator,
     second moments and the step count (optax's names).  The random stream
     does not carry across: `generator` becomes the state's `rng`."""
     from ..learn import ppo
-    args = args or ppo.PPO_Args()
     policy = actor_critic_from_numpy(arrays["params"], device=device)
+    return _train_state(ppo.TrainState, policy, arrays, generator, args,
+                        device)
+
+
+def rma_train_state_from_numpy(arrays: Mapping, generator: torch.Generator,
+                               args=None, device="cuda"):
+    """The RMA learner's state (learn/ppo_rma.RMATrainState) from numpy, in
+    `train_state_from_numpy`'s layout: `params` holds the JAX package's
+    RMAParams flattened (`encoder/*`, `adaptation/*`, `actor/*`,
+    `critic/*`, `std`); `opt` is the main Adam over all of them (the
+    adaptation module's moments included), `adapt_opt` the second Adam over
+    the adaptation module."""
+    from ..learn import ppo_rma
+    policy = rma_policy_from_numpy(arrays["params"], device=device)
+    return _train_state(ppo_rma.RMATrainState, policy, arrays, generator,
+                        args, device)
+
+
+def _train_state(cls, policy, arrays, generator, args, device):
+    from ..learn import ppo
+    args = args or ppo.PPO_Args()
     main_opt, adapt_opt = ppo.make_optimizers(policy, args)
     named = _param_names(policy)
     _set_adam_state(main_opt, named, arrays["opt"], device)
@@ -219,14 +278,14 @@ def train_state_from_numpy(arrays: Mapping, generator: torch.Generator,
     lr = float(np.float32(arrays["lr"]))
     for group in main_opt.param_groups:
         group["lr"] = lr
-    return ppo.TrainState(policy=policy, optimizer=main_opt,
-                          adapt_optimizer=adapt_opt, lr=lr, rng=generator,
-                          iteration=int(arrays.get("iteration", 0)))
+    return cls(policy=policy, optimizer=main_opt, adapt_optimizer=adapt_opt,
+               lr=lr, rng=generator, iteration=int(arrays.get("iteration", 0)))
 
 
 def train_state_to_numpy(ts) -> dict:
-    """Inverse of `train_state_from_numpy` (the generator is left out).  A
-    parameter the optimizer has not stepped yet has zero moments."""
+    """Inverse of `train_state_from_numpy` and of
+    `rma_train_state_from_numpy` (the generator is left out).  A parameter
+    the optimizer has not stepped yet has zero moments."""
     named = _param_names(ts.policy)
 
     def moments(opt, names):
@@ -246,3 +305,6 @@ def train_state_to_numpy(ts) -> dict:
                           [(k, p) for k, p in named
                            if k.startswith("adaptation/")]),
         lr=float(ts.lr), iteration=int(ts.iteration))
+
+
+rma_train_state_to_numpy = train_state_to_numpy
