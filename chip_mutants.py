@@ -7,8 +7,9 @@
 For each mutant below (or each one named): copies `chip_smoke.py`, the
 port's package and `resources/` into `build/mutants/<name>/`, makes ONE edit
 in one source of the package there (a kernel source, the dense route in
-physics/engine.py, the train/eval split in envs/go1_env.py or the RMA
-update in learn/ppo_rma.py), runs
+physics/engine.py, the train/eval split in envs/go1_env.py, the RMA
+update in learn/ppo_rma.py, the MuJoCo state mapping in models/mjcf.py or
+the deploy loader in deploy/deploy_policy.py), runs
 `python3 chip_smoke.py` in the copy and records its exit code and the first
 check that failed.  The smoke test must exit non-zero on every mutant, and
 at the check named here; kernels that the edit does not reach must still
@@ -159,11 +160,23 @@ MUTANTS = (
      "                                        old_mu_mb, old_sigma_mb, args)\n"
      "            lrs.append(float(lr))\n\n",
      "rma_adaptation_target"),
+    # the state mapping to MuJoCo writes the engine's xyzw quaternion where
+    # MuJoCo keeps wxyz
+    ("mjcf_quat_order_kept_xyzw", "models/mjcf.py",
+     "    mjd.qpos[3:7] = [w, x, y, z]\n",
+     "    mjd.qpos[3:7] = [x, y, z, w]\n", "mujoco_state_mapping"),
+    # the deploy loader ignores meta/variant: an rma export's actor is fed
+    # the history (cse's input) instead of obs
+    ("deploy_rma_export_read_as_cse", "deploy/deploy_policy.py",
+     '    variant = str(z["meta/variant"]) if "meta/variant" in z else "cse"\n',
+     '    variant = "cse"\n', "deploy_export"),
 )
 # the CPU parity tests that `--tests` runs on a mutant of each Python source
 TESTS = {"physics/engine.py": "tests/test_torch_dense.py",
          "envs/go1_env.py": "tests/test_torch_eval.py",
-         "learn/ppo_rma.py": "tests/test_torch_rma.py"}
+         "learn/ppo_rma.py": "tests/test_torch_rma.py",
+         "models/mjcf.py": "tests/test_torch_formats.py",
+         "deploy/deploy_policy.py": "tests/test_torch_deploy.py"}
 
 
 def run_mutant(name, source, old, new, expect, tests=False):

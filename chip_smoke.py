@@ -74,6 +74,20 @@ the entry points a user calls and checks what comes out:
   process, and `scripts.play --video`, `scripts.actuator_net_train` +
   `actuator_net_eval` and `scripts.validate_adaptation_cross_engine` in
   another, each reporting its launches,
+- the deploy stack (`deploy_phase`, `deploy_loopback`): the runner's (cse)
+  and the RMA trainer's (rma) exports read by the port's numpy deploy
+  loader against `actor_mean` / `student_mean` on the card; among the
+  commands, the port's UDP bridge built on the host and run with `--sim`,
+  and `deploy_policy.load_and_run_policy` on the cse export for 100 steps
+  against it (leg data back, the policy's PD targets inside the joint
+  limits),
+- the MuJoCo cross-check's engine halves (`mujoco_engine_phase`,
+  `scripts/mujoco_parity.py --engine-only`: the seven experiments on the
+  dense route at N = 1) on the card, in a child process started after the
+  last kernel timings, against the same halves on the CPU in a child
+  started first: the analytic gates on the card, the first 10 rows elementwise,
+  the full horizons reported; the state mapping to MuJoCo's conventions;
+  where mujoco imports, the script's whole `main()` on the card,
 - one PPO iteration under `utils/profiling.trace` (the longest device ops
   and the device-busy share).
 
@@ -83,11 +97,13 @@ non-zero if any phase fails or no CUDA device is present.
 The last line of the output is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": n}}
 """
+import atexit
 import ctypes
 import dataclasses
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -145,6 +161,11 @@ PEAK_FP32_S = 67e12
 # directory of the JAX package, which this script names and never imports
 JAX_PACKAGE = "walk_these_ways_" + "tpu"
 CSRC = "walk_these_ways_tpu_torch/csrc/"
+SCRIPTS = "walk_these_ways_tpu_torch.scripts."
+DEPLOY_PORT = 7821   # the deploy loopback's bus port (the robot's is 7667)
+# the deploy loader (numpy on the host) against the actors on the card:
+# float32 products in other orders (measured 1.5e-7 on an H100)
+DEPLOY_ATOL = 1e-6
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(_build.build_dir(), "smoke")
 
@@ -586,7 +607,8 @@ def train_phase(route, env, gen, iterations, expect_per_iter):
 def runner_phase(env_p):
     """`Runner` on small_train_cfg: 2 iterations logged each, the
     checkpoint it saves at the end, a new Runner resumed from it for one
-    more, and the exported policy."""
+    more, and the exported policy.  Returns the resumed Runner (its export
+    is the deploy phases' cse policy) and its K4c launches."""
     d = os.path.join(OUT_DIR, "runner")
     shutil.rmtree(d, ignore_errors=True)
     reset_counts()
@@ -625,6 +647,7 @@ def runner_phase(env_p):
             "train/episode/rew_tracking_lin_vel/mean")}, ok=ok)
     if not ok:
         raise SystemExit("runner phase failed")
+    return r2, got["control_step_p"]
 
 
 def command_phases(rma_pol, smi):
@@ -644,24 +667,22 @@ def command_phases(rma_pol, smi):
     `trace_phase` traces); and `play --video` on the RMA export
     (`rma_pol`), `actuator_net_train` then `actuator_net_eval` on
     synthetic deploy logs, and `validate_adaptation_cross_engine` on the
-    runner phase's export at 256 envs.  Returns, for K4, K5 and K4b, the
+    runner phase's export at 256 envs; and the deploy loopback
+    (`DEPLOY_CHILD`) on that export.  Returns, for K4, K5 and K4b, the
     launches of each of these commands that steps the env on its route."""
-    mod = "walk_these_ways_tpu_torch.scripts."
+    mod = SCRIPTS
     train = [sys.executable, "-m", mod + "train", "--num-envs", str(N_ENVS)]
     logs = {k: os.path.join(OUT_DIR, k)
             for k in ("exact", "rough", "eval", "rma_cmd", "tools")}
     for d in logs.values():
         shutil.rmtree(d, ignore_errors=True)
     pol = os.path.join(OUT_DIR, "runner", "checkpoints", "policy_latest.npz")
+    shutil.rmtree(os.path.join(OUT_DIR, "deploy_logs"), ignore_errors=True)
     presets = ["rand_regular", "static_medium"]
     tools = logs["tools"]
     deploy_logs = os.path.join(tools, "deploy_logs")
     write_deploy_logs(deploy_logs)
     net = os.path.join(tools, "actuator_net.npz")
-
-    def child(*jobs):
-        return [sys.executable, "-c", CHILD, json.dumps(
-            [[job, mod + name, list(argv)] for job, name, argv in jobs])]
 
     rollout = ["--iters", "1", "--rollout-only"]
     children = dict(
@@ -699,56 +720,24 @@ def command_phases(rma_pol, smi):
                   "--settings", *presets, "--num-envs", str(N_ENVS),
                   "--steps", "30"],
         test=[sys.executable, "-m", mod + "test", "--num-envs", "3",
-              "--steps", "50"], **children)
+              "--steps", "50"],
+        deploy_loopback=[sys.executable, "-c", DEPLOY_CHILD, json.dumps(
+            [pol, os.path.join(OUT_DIR, "deploy_logs")])], **children)
     t0 = time.time()
-    env = dict(os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir())
-    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True, env=env)
-             for k, c in cmds.items()}
+    procs = {k: start(c) for k, c in cmds.items()}
     res = {}
     for k, p in procs.items():
-        try:
-            out, err = p.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            out, err = p.communicate()
+        out, err = finish(p)
         collected = time.time() - t0
-        err_tail = err.strip().splitlines()[-3:]
         if k not in children:
             res[k] = dict(command=" ".join(cmds[k][1:]),
                           seconds_to_collected=collected,
                           returncode=p.returncode,
                           stdout_tail=out.strip().splitlines()[-3:],
-                          stderr_tail=err_tail)
+                          stderr_tail=err.strip().splitlines()[-3:])
             continue
-        # a child's output: each command's lines after its SMOKE_JOB line,
-        # what it did on its SMOKE_DONE line
-        lines, job, done = {}, None, {}
-        for ln in out.strip().splitlines():
-            if ln.startswith("SMOKE_JOB "):
-                job = ln[len("SMOKE_JOB "):]
-                lines[job] = []
-            elif ln.startswith("SMOKE_DONE "):
-                done[job] = json.loads(ln[len("SMOKE_DONE "):])
-            elif job is not None:
-                lines[job].append(ln)
-        for job, name, argv in json.loads(cmds[k][-1]):
-            rec = dict(command=" ".join([name] + argv), process=k,
-                       seconds_to_collected=collected,
-                       returncode=0 if job in done else (p.returncode or 1),
-                       stdout_tail=lines.get(job, [])[-3:],
-                       stderr_tail=err_tail if job not in done else [])
-            rec.update(done.get(job, {}))
-            for ln in lines.get(job, []):
-                # the last line of the command's output that is a JSON
-                # object of its own
-                try:
-                    row = json.loads(ln)
-                except ValueError:
-                    continue
-                if isinstance(row, dict):
-                    rec["last_json"] = row
-            res[job] = rec
+        for job, rec in child_records(cmds[k], out, err, p.returncode).items():
+            res[job] = dict(rec, process=k, seconds_to_collected=collected)
     ok_all = True
     for k in ("exact", "rough", "eval"):
         files = [f for f in ("provenance.json",
@@ -775,6 +764,7 @@ def command_phases(rma_pol, smi):
           and res["test"]["stdout_tail"][-1:] == ["OK"])
     say(phase="scripts", play=res["play"], test=res["test"], ok=ok)
     ok_all = ok_all and ok
+    ok_all = check_deploy_loopback(res["deploy_loopback"]) and ok_all
 
     def launched(k, **given):
         return res[k].get("kernel_launches") == expect(**given)
@@ -1388,6 +1378,87 @@ def checked_render(model, phys_states, out_path, fps=50, env_idx=0,
 render_trajectory = render.render_trajectory   # the port's, for drawing
 render.render_trajectory = checked_render
 
+def child(*jobs):
+    """The command of a child process that runs the port's scripts `jobs`
+    ([(job, module under walk_these_ways_tpu_torch.scripts, argv)]) one
+    after another through `CHILD`."""
+    return [sys.executable, "-c", CHILD, json.dumps(
+        [[job, SCRIPTS + name, list(argv)] for job, name, argv in jobs])]
+
+
+STARTED = []   # every child process `start` made; ended at exit
+
+
+def _kill(p):
+    """End a started child and whatever it started (its session)."""
+    if p.poll() is None:
+        os.killpg(p.pid, signal.SIGKILL)
+
+
+@atexit.register
+def _end_children():
+    """A phase that fails ends the smoke while children still run (the
+    MuJoCo engine halves start early): none outlives it."""
+    for p in STARTED:
+        _kill(p)
+        p.wait()
+
+
+def start(cmd):
+    """Start `cmd` from the repo root in a session of its own, its output
+    piped, on the smoke's build directory."""
+    p = subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True,
+        env=dict(os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir()))
+    STARTED.append(p)
+    return p
+
+
+def finish(p, timeout=600):
+    """(stdout, stderr) of a started process; killed after `timeout` s."""
+    try:
+        return p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill(p)
+        return p.communicate()
+
+
+def child_records(cmd, out, err, returncode, keep_lines=False):
+    """{job: record} from a `child` process's output: each command's lines
+    after its SMOKE_JOB line (all of them under "lines" with
+    `keep_lines`), what it did on its SMOKE_DONE line, and the last line of
+    its output that is a JSON object of its own."""
+    err_tail = err.strip().splitlines()[-3:]
+    lines, job, done = {}, None, {}
+    for ln in out.strip().splitlines():
+        if ln.startswith("SMOKE_JOB "):
+            job = ln[len("SMOKE_JOB "):]
+            lines[job] = []
+        elif ln.startswith("SMOKE_DONE "):
+            done[job] = json.loads(ln[len("SMOKE_DONE "):])
+        elif job is not None:
+            lines[job].append(ln)
+    res = {}
+    for job, name, argv in json.loads(cmd[-1]):
+        rec = dict(command=" ".join([name] + argv),
+                   returncode=0 if job in done else (returncode or 1),
+                   stdout_tail=lines.get(job, [])[-3:],
+                   stderr_tail=err_tail if job not in done else [])
+        if keep_lines:
+            rec["lines"] = lines.get(job, [])
+        rec.update(done.get(job, {}))
+        for ln in lines.get(job, []):
+            try:
+                row = json.loads(ln)
+            except ValueError:
+                continue
+            if isinstance(row, dict):
+                rec["last_json"] = row
+        res[job] = rec
+    return res
+
+
 # run by each child process of `command_phases` (python -c CHILD '<json>'):
 # the port's scripts as `python -m` runs them, one after another; each
 # command's output follows a SMOKE_JOB line, and a SMOKE_DONE line after it
@@ -1403,7 +1474,11 @@ for job, mod, argv in jobs:
     del smoke.VIDEOS[:]
     sys.argv = [mod] + argv
     t0 = time.time()
-    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+    try:
+        runpy.run_module(mod, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise
     print("SMOKE_DONE " + json.dumps(dict(
         seconds=time.time() - t0, kernel_launches=smoke.counts(),
         videos=smoke.VIDEOS)), flush=True)
@@ -1418,7 +1493,8 @@ def rma_train_phase(env, smi):
     `student_mean`; play_go1 for 24 steps), a new Runner resumed from the
     checkpoint against the first for one more iteration, and the order of
     the update's two steps (`rma_adaptation_target`).  Returns the
-    policy's export path and the K4 launches of each path."""
+    policy's export path, the Runner that wrote it and the K4 launches of
+    each path."""
     d = os.path.join(OUT_DIR, "rma")
     shutil.rmtree(d, ignore_errors=True)
     rows = []
@@ -1570,7 +1646,7 @@ def rma_train_phase(env, smi):
         against_encoder_before=stale, rel_err=rel, rtol=1e-5, ok=ok)
     if not ok:
         raise SystemExit("rma_adaptation_target failed")
-    return pol_path, dict(rma_train=sum(
+    return pol_path, r, dict(rma_train=sum(
         row["kernel_launches"]["control_step"] for row in rows),
         rma_log_video=videos[0]["kernel_launches"]["control_step"],
         rma_play=play_counts["control_step"])
@@ -1631,6 +1707,317 @@ def rma_eval_split_phase(gen, smi):
     return launches
 
 
+def mujoco_version():
+    """(True, version) when mujoco imports, else (False, the import
+    error)."""
+    try:
+        import mujoco
+    except ImportError as e:
+        return False, f"{type(e).__name__}: {e}"
+    return True, mujoco.__version__
+
+
+def start_mujoco_engine(device):
+    """Start the engine halves of scripts/mujoco_parity.py's seven
+    experiments (`--engine-only`) on `device` in a child process; on the
+    card, where mujoco imports, the script's whole `main()` after them."""
+    out = os.path.join(OUT_DIR, "mujoco_" + device)
+    shutil.rmtree(out, ignore_errors=True)
+    jobs = [("mujoco_engine_" + device, "mujoco_parity",
+             ["--device", device, "--engine-only", "--out", out])]
+    if device == "cuda" and mujoco_version()[0]:
+        jobs.append(("mujoco_parity_main", "mujoco_parity",
+                     ["--device", device, "--out", out + "_main"]))
+    cmd = child(*jobs)
+    return dict(cmd=cmd, proc=start(cmd), out=out, t0=time.time())
+
+
+class _StandInMjData:
+    """The two arrays of MuJoCo's MjData that set_mj_state and
+    get_mj_state touch (a free joint, then the hinges)."""
+
+    def __init__(self, nj):
+        self.qpos = np.zeros(7 + nj)
+        self.qvel = np.zeros(6 + nj)
+
+
+def _rotate_inverse(quat_xyzw, v):
+    """v in the frame of the unit quaternion q (xyzw): q^-1 v q."""
+    x, y, z, w = quat_xyzw
+    u = -np.array([x, y, z])
+    t = 2.0 * np.cross(u, v)
+    return v + w * t + np.cross(u, t)
+
+
+def mujoco_state_mapping(row, real):
+    """models/mjcf.set_mj_state / get_mj_state on an engine state `row`
+    (pos, quat, lin, ang, q, qd) of the card's run: MuJoCo's conventions
+    written (quaternion wxyz, free-joint angular velocity in the body
+    frame) and the state read back.  On a stand-in MjData, and on a real
+    one where mujoco imports (`real`)."""
+    from walk_these_ways_tpu_torch.models import mjcf, robot
+    st = [np.asarray(x, dtype=np.float64) for x in row[:6]]
+    st[1] = st[1] / np.linalg.norm(st[1])
+    datas = [("stand_in", _StandInMjData(len(st[4])))]
+    if real:
+        import mujoco
+        mjm = mujoco.MjModel.from_xml_string(mjcf.go1_mjcf(robot.go1()))
+        datas.append(("mujoco", mujoco.MjData(mjm)))
+    x, y, z, w = st[1]
+    errs = {}
+    for name, d in datas:
+        mjcf.set_mj_state(d, *st)
+        written = np.concatenate([
+            d.qpos[:3] - st[0], d.qpos[3:7] - [w, x, y, z],
+            d.qpos[7:] - st[4], d.qvel[:3] - st[2],
+            d.qvel[3:6] - _rotate_inverse(st[1], st[3]), d.qvel[6:] - st[5]])
+        back = np.concatenate([np.ravel(a - b) for a, b in zip(
+            mjcf.get_mj_state(d), st)])
+        errs[name] = dict(written_max_abs_err=float(np.abs(written).max()),
+                          read_back_max_abs_err=float(np.abs(back).max()))
+    ok = all(e["written_max_abs_err"] <= 1e-12
+             and e["read_back_max_abs_err"] <= 1e-12 for e in errs.values())
+    say(phase="mujoco_state_mapping",
+        what="set_mj_state then get_mj_state on the card's last "
+             "go1_standing state: qpos[3:7] = (w, x, y, z), qvel[3:6] the "
+             "world angular velocity in the body frame, and the state read "
+             "back", atol=1e-12, **errs, ok=ok)
+    return ok
+
+
+def _engine_lines(rec):
+    """{experiment: its PASS / FAIL line} of a `--engine-only` job."""
+    out = {}
+    for ln in rec.get("lines", []):
+        if ln.startswith(("PASS ", "FAIL ")):
+            row = json.loads(ln[5:])
+            out[row["experiment"]] = row
+    return out
+
+
+def mujoco_engine_phase(cpu, card):
+    """The seven experiments' engine halves (scripts/mujoco_parity.py
+    `--engine-only`, the dense route at N = 1) from their two children: on
+    the card each held to its analytic gate where it has one (the slide's
+    mu g, the incline's stick and g(sin - mu cos), rest penetration within
+    contact_slop + 1e-3, the bounce's e^2 h0, standing fz within 5 % of
+    the weight), and elementwise to the same half on the CPU over its first
+    10 rows (substeps; control steps in reuse mode) at 2e-4 + 2e-4 |cpu|
+    (report forces as impulses, F dt); the full horizons, chaotic, between
+    card and CPU by `_traj_metrics` without a gate.  Then the state mapping
+    to MuJoCo's conventions on the card's last standing state."""
+    from walk_these_ways_tpu_torch.scripts import mujoco_parity as mp
+    recs = {}
+    for side in (cpu, card):
+        out, err = finish(side["proc"])
+        side["wall_seconds"] = time.time() - side["t0"]
+        recs.update(child_records(side["cmd"], out, err,
+                                  side["proc"].returncode, keep_lines=True))
+    rec_c, rec_g = recs["mujoco_engine_cpu"], recs["mujoco_engine_cuda"]
+    lines_c, lines_g = _engine_lines(rec_c), _engine_lines(rec_g)
+    ok_all = (rec_g["returncode"] == 0 and rec_c["returncode"] == 0
+              and rec_g.get("kernel_launches") == expect())
+    last = None
+    for name in mp.ENGINE_HALVES:
+        g_line, c_line = lines_g.get(name, {}), lines_c.get(name, {})
+        fg = os.path.join(card["out"], f"{name}.engine.npz")
+        fc = os.path.join(cpu["out"], f"{name}.engine.npz")
+        if not (os.path.exists(fg) and os.path.exists(fc)):
+            say(phase="mujoco_engine", experiment=name, ok=False,
+                card=g_line, cpu=c_line)
+            ok_all = False
+            continue
+        zg, zc = np.load(fg), np.load(fc)
+        dt = mp.SETUPS[name]["DT"]
+        modes = sorted({k.split("/")[0] for k in zc.files})
+        first, full = {}, {}
+        ok = g_line.get("analytic_ok") is not False
+        for mode in modes:
+            errs, beyond = {}, 0
+            for f in mp.ROW_FIELDS:
+                a, b = zg[f"{mode}/{f}"][:10], zc[f"{mode}/{f}"][:10]
+                if f == "report_forces":
+                    a, b = a * dt, b * dt
+                d = np.abs(a - b)
+                errs[f] = float(d.max()) if d.size else 0.0
+                beyond += int((d > 2e-4 + 2e-4 * np.abs(b)).sum())
+            first[mode] = dict(max_abs_err=errs, beyond=beyond)
+            ok = ok and beyond == 0 and len(zg[f"{mode}/pos"]) == \
+                len(zc[f"{mode}/pos"])
+
+            def arrays(z):
+                q = z[f"{mode}/q"]
+                if q.shape[1] == 0:          # the box has no joints
+                    q = np.zeros((len(q), 1))
+                return z[f"{mode}/pos"], z[f"{mode}/quat"], q
+            full[mode] = mp._traj_metrics(*arrays(zg), *arrays(zc))
+        metric_keys = [k for k in g_line if k not in (
+            "experiment", "device", "seconds", "rows", "analytic_ok")]
+        say(phase="mujoco_engine", experiment=name, device="cuda",
+            rows=g_line.get("rows"), seconds_card=g_line.get("seconds"),
+            seconds_cpu=c_line.get("seconds"),
+            analytic_ok=g_line.get("analytic_ok"),
+            card={k: g_line[k] for k in metric_keys},
+            cpu={k: c_line.get(k) for k in metric_keys},
+            first_10_rows_card_vs_cpu=first, tolerance="2e-4 + 2e-4 |cpu|",
+            full_horizon_card_vs_cpu=full, ok=ok)
+        ok_all = ok_all and ok
+        if name == "go1_standing":
+            last = [zg[f"run/{f}"][-1] for f in mp.ROW_FIELDS[:6]]
+    if "mujoco_parity_main" in recs:
+        rec = dict(recs["mujoco_parity_main"])
+        rec.pop("lines")
+        ok = rec["returncode"] == 0
+        say(phase="mujoco_parity_main", **rec, ok=ok)
+        ok_all = ok_all and ok
+    say(phase="mujoco_engine_total",
+        seconds_card=rec_g.get("seconds"), seconds_cpu=rec_c.get("seconds"),
+        wall_seconds_card=card["wall_seconds"],
+        wall_seconds_cpu=cpu["wall_seconds"],
+        card_kernel_launches=rec_g.get("kernel_launches"),
+        stderr_tail=rec_g["stderr_tail"] + rec_c["stderr_tail"], ok=ok_all)
+    mapped = last is not None and mujoco_state_mapping(
+        last, mujoco_version()[0])
+    if not (ok_all and mapped):
+        raise SystemExit("mujoco_engine phase failed")
+
+
+def deploy_phase(runner_cse, runner_rma, n=64):
+    """The exports of the runner phase (cse) and the rma_train phase (rma),
+    read by the port's numpy deploy loader (deploy/deploy_policy.py, the
+    robot's side: no torch, no card), against the trained actors on the
+    card (`actor_mean` / `student_mean`) on `n` observation rows of the
+    card's rollout."""
+    from walk_these_ways_tpu_torch.deploy.deploy_policy import (
+        load_student_policy)
+    ok_all = True
+    for variant, r in (("cse", runner_cse), ("rma", runner_rma)):
+        path = os.path.join(r.log_dir, "checkpoints", "policy_latest.npz")
+        obs = r.obs_dict["obs"][:n]
+        hist = r.obs_dict["obs_history"][:n]
+        pol = r.train_state.policy
+        with torch.no_grad():
+            want = (pol.actor_mean(hist) if variant == "cse"
+                    else pol.student_mean(obs, hist)).cpu().numpy()
+        policy = load_student_policy(path)
+        o_h, h_h = obs.cpu().numpy(), hist.cpu().numpy()
+        t0 = time.time()
+        try:
+            got = np.stack([policy({"obs": o_h[i:i + 1],
+                                    "obs_history": h_h[i:i + 1]})
+                            for i in range(len(h_h))])
+            err, why = float(np.abs(got - want).max()), None
+        except ValueError as e:       # an actor fed the wrong input width
+            err, why = float("inf"), f"{type(e).__name__}: {e}"
+        seconds = time.time() - t0
+        ok = str(np.load(path)["meta/variant"]) == variant \
+            and err <= DEPLOY_ATOL
+        say(phase="deploy_export", variant=variant, export=path,
+            n_rows=len(h_h), what="load_student_policy (numpy, host) against "
+            + ("actor_mean" if variant == "cse" else "student_mean")
+            + " on the card, the same rows of the card's rollout",
+            max_abs_err=err, atol=DEPLOY_ATOL, error=why,
+            host_seconds=seconds, ok=ok)
+        ok_all = ok_all and ok
+    if not ok_all:
+        raise SystemExit("deploy phase failed")
+
+
+def deploy_loopback(policy_path, log_root, port=DEPLOY_PORT, max_steps=100):
+    """Run in a child process (`DEPLOY_CHILD`): the port's UDP bridge built
+    on this host for `port` and started with `--sim`, a second bus
+    listening, then deploy_policy.load_and_run_policy on the export for
+    `max_steps` steps; prints a JSON line: leg data received, the policy
+    loop's PD targets heard on the wire (SDK joint order) among those it
+    logged, the logged targets against the joint limits, the log's rows.
+    The calibration walk before the loop starts from the sim robot's
+    q = 0, outside the calf range (the bridge clamps those targets)."""
+    import pickle
+    from walk_these_ways_tpu_torch.deploy import bridge
+    from walk_these_ways_tpu_torch.deploy import messages as msg
+    from walk_these_ways_tpu_torch.deploy.bus import Bus
+    from walk_these_ways_tpu_torch.deploy.deploy_policy import (
+        load_and_run_policy)
+    from walk_these_ways_tpu_torch.deploy.state_estimator import (
+        StateEstimator)
+    from walk_these_ways_tpu_torch.models.robot import go1
+    t0 = time.time()
+    exe = bridge.build(port)
+    build_s = time.time() - t0
+    proc = subprocess.Popen([exe, "--sim", "--ticks", "10000"],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    mon = Bus(port=port)
+    targets, legs = [], []
+    mon.subscribe(msg.CHANNEL_PD_TARGETS,
+                  lambda p: targets.append(msg.PdTauTargets.decode(p)))
+    mon.subscribe(msg.CHANNEL_LEG_CONTROL, lambda p: legs.append(1))
+    mon.spin()
+    t1 = time.time()
+    try:
+        log = load_and_run_policy(policy_path, max_steps=max_steps,
+                                  wait_for_button=False, port=port,
+                                  log_root=log_root)
+    finally:
+        mon.close()
+        proc.terminate()
+        proc.wait(timeout=5)
+    loop_s = time.time() - t1
+    with open(log, "rb") as f:
+        rec = pickle.load(f)["hardware_closed_loop"]
+    m = go1()
+    q = np.concatenate(rec["joint_pos"])
+    q_tgt = np.concatenate(rec["joint_pos_target"])
+    # the policy loop's targets, SDK joint order, as published; a datagram
+    # the listener drops under load is not matched, none is mismatched
+    sent = q_tgt[:, StateEstimator.JOINT_IDXS]
+    heard = np.array([t.q_des for t in targets])
+    matched = int((np.abs(heard[:, None] - sent[None]).max(-1)
+                   <= 1e-6).any(-1).sum())
+    print(json.dumps(dict(
+        port=port, bridge_build_seconds=build_s, loop_seconds=loop_s,
+        leg_messages=len(legs), targets_heard=len(targets),
+        targets_heard_of_the_policy_loop=matched,
+        log_rows=len(rec["joint_pos"]),
+        targets_inside_limits=bool(np.all(q_tgt >= m.dof_lower)
+                                   and np.all(q_tgt <= m.dof_upper)),
+        last_joint_tracking_err=float(np.abs(q[-1] - q_tgt[-1]).max()),
+        log=log)), flush=True)
+
+
+# the deploy loopback's child process (python -c DEPLOY_CHILD '<json>')
+DEPLOY_CHILD = """
+import json, sys
+import chip_smoke
+chip_smoke.deploy_loopback(*json.loads(sys.argv[1]))
+"""
+
+
+def check_deploy_loopback(res):
+    """The deploy loopback child's record: leg data came back from the
+    bridge, the policy loop's targets were heard on the wire as logged
+    (SDK order, float32), each lies inside the joint limits, the log holds
+    the loop's rows and the sim robot tracked the last target."""
+    row = {}
+    for ln in res["stdout_tail"]:
+        try:
+            row = json.loads(ln)
+        except ValueError:
+            continue
+    ok = (res["returncode"] == 0 and row.get("leg_messages", 0) > 0
+          and row.get("targets_heard_of_the_policy_loop", 0) > 0
+          and row.get("log_rows") == 100
+          and row.get("targets_inside_limits") is True
+          and row.get("last_joint_tracking_err", 1.0) < 0.2)
+    say(phase="deploy_loopback",
+        what="the port's UDP bridge (--sim) built on this host, "
+             "deploy_policy.load_and_run_policy on the runner phase's cse "
+             "export for 100 steps, a second bus listening",
+        command=res["command"], returncode=res["returncode"], **row,
+        stderr_tail=res["stderr_tail"], ok=ok)
+    return ok
+
+
 def write_deploy_logs(log_dir, seed=0, T=200):
     """Two log*.pkl of PD-behaved joints in the deploy logger's format (no
     hardware log is in the repo): the actuator-net commands' input."""
@@ -1685,12 +2072,17 @@ def main():
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
     drawn, libs_or_why = drawing_libraries()
+    has_mujoco, mujoco_or_why = mujoco_version()
     say(phase="environment", python=sys.version.split()[0],
         torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=run([_build.find_nvcc(), "--version"]).splitlines()[-2:],
         gpu=smi, device=torch.cuda.get_device_name(0),
         device_count=torch.cuda.device_count(),
-        video_drawing_libraries=drawn, drawing=libs_or_why)
+        video_drawing_libraries=drawn, drawing=libs_or_why,
+        mujoco_imports=has_mujoco, mujoco=mujoco_or_why)
+    # the MuJoCo experiments' engine halves on the CPU, the reference of
+    # the card's: a host process from the start (it never touches the card)
+    mujoco_cpu = start_mujoco_engine("cpu")
 
     N = N_ENVS
     cfg = mob_train_cfg(N)
@@ -2032,6 +2424,12 @@ def main():
     # ---- the train/eval env split at 4000 + 400 envs: K4, K4b -----------
     eval_split_phases(policy, gen, smi, worst)
 
+    # ---- the MuJoCo experiments' engine halves on the card: N = 1, in a --
+    # child process that runs beside the phases below, after the last
+    # kernel timings (the split's): its launches would share the card with
+    # them and lengthen them by a third
+    mujoco_card = start_mujoco_engine("cuda")
+
     # ---- the contact-substep kernel, driven directly ------------------------
     # No env branch launches it alone (as in the JAX package): a control
     # step's four substeps as {plain dynamics, contact-substep kernel},
@@ -2147,12 +2545,16 @@ def main():
         config="small_train_cfg", need_resets=False)
 
     # ---- the training entry point ---------------------------------------
-    runner_phase(env_p)
-    rma_pol, k4_paths = rma_train_phase(env, smi)
+    runner_cse, runner_k4c = runner_phase(env_p)
+    rma_pol, runner_rma, k4_paths = rma_train_phase(env, smi)
+    deploy_phase(runner_cse, runner_rma)
     k4_paths["rma_eval_split"] = rma_eval_split_phase(gen, smi)
     # launches on the paths of the RMA trainer and the tool scripts
     paths = command_phases(rma_pol, smi)
+    mujoco_engine_phase(mujoco_cpu, mujoco_card)
     paths["control_step"].update(k4_paths)
+    # the runner's K4c launches trained the cse export the deploy phases read
+    paths["control_step_p"] = dict(runner_cse_export=runner_k4c)
     row = bench.main(num_envs=N, warmup=1, iters=2)
     bench_ok = bool(np.isfinite(row["value"]) and row["value"] > 0)
     say(phase="bench", **row, ok=bench_ok)

@@ -548,3 +548,23 @@ def test_profile_train_full_iteration_on_the_card(cuda):
     assert row["what"] == "full train iteration"
     assert row["env_steps_per_s"] > 0 and row["top_device_ops"]
     assert 0.0 < row["device_busy_share"] <= 1.0
+
+
+@pytest.mark.parametrize("name", ["box_slide", "box_incline", "box_rest",
+                                  "box_bounce"])
+def test_box_engine_halves_on_the_card(cuda, name):
+    """scripts/mujoco_parity.py's box experiments, engine halves only (the
+    dense route at N = 1, `torch.linalg.inv` for the box's M^-1): on the
+    card against the CPU over the first 10 substeps (2e-4 + 2e-4 |cpu|,
+    impulses as F dt), and the analytic gate on the card."""
+    from walk_these_ways_tpu_torch.scripts import mujoco_parity as mp
+    card = mp.ENGINE_HALVES[name](cuda)
+    host = mp.ENGINE_HALVES[name]("cpu")
+    assert card["analytic_ok"] is True
+    dt = mp.BOUNCE["DT"] if name == "box_bounce" else 0.005
+    for mode, rows in host["trajs"].items():
+        for a, b in zip(card["trajs"][mode][:10], rows[:10]):
+            for i, (x, y) in enumerate(zip(a, b)):
+                scale = dt if mp.ROW_FIELDS[i] == "report_forces" else 1.0
+                np.testing.assert_allclose(x * scale, y * scale, rtol=2e-4,
+                                           atol=2e-4)

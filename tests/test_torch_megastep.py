@@ -476,17 +476,26 @@ ATOL_ENTRY = 1e-5
 
 
 @pytest.fixture(scope="module")
-def entry_variants(both_states, rough):
+def entry_variants(world, both_states, rough):
     """The wrapper's entry form (what the team kernel takes on the card:
     state, payload, COM shift and the heightfield in; the cache built and
     the field sampled inside) against the JAX kernel body fed the JAX
     package's eager build: flat ground and the slope, with the actuator
     network (K4, K4b) and with P control (K4c, K4b-P, keys ending in
-    "_P"), both states side by side."""
-    return {ground + suffix: _control_step_both(
-                inputs, control_type, seeded=range(N, 2 * N), entry=True)
-            for ground, inputs in (("flat", both_states), ("rough", rough))
-            for suffix, control_type in (("", "actuator_net"), ("_P", "P"))}
+    "_P"), both states side by side; K4 on each state of `world` alone,
+    the JAX body's runs that K4's plain version is held against."""
+    out = {ground + suffix: _control_step_both(
+               inputs, control_type, seeded=range(N, 2 * N), entry=True)
+           for ground, inputs, suffixes in (
+               ("flat", both_states, ("_P",)),
+               ("rough", rough, ("", "_P")))
+           for suffix, control_type in (("", "actuator_net"), ("_P", "P"))
+           if suffix in suffixes}
+    for which in ("reset", "stance"):
+        out["flat", which] = _control_step_both(
+            world[which], seeded=range(N) if which == "stance" else (),
+            entry=True)
+    return out
 
 
 @pytest.mark.parametrize("which", ["reset", "stance"])
@@ -496,8 +505,12 @@ def test_control_step_entry_inputs_match_jax_kernel_body(entry_variants,
     """The team kernel's arithmetic as the card runs it, from the entry
     state (K4, K4b; K4c, K4b-P with P control): within the tolerances of
     the flat-ground and the normals cases."""
-    j_out, t_out = entry_variants[ground]
-    envs = slice(0, N) if which == "reset" else slice(N, 2 * N)
+    if ground == "flat":
+        j_out, t_out = entry_variants["flat", which]
+        envs = slice(0, N)
+    else:
+        j_out, t_out = entry_variants[ground]
+        envs = slice(0, N) if which == "reset" else slice(N, 2 * N)
     assert len(t_out) == (10 if ground.endswith("_P") else len(OUT_NAMES))
     if which == "stance":
         assert float(np.abs(j_out[8][..., envs]).max()) > 1e-3

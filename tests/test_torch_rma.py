@@ -39,6 +39,7 @@ from walk_these_ways_tpu.learn import ppo_rma as j_rma
 from walk_these_ways_tpu.learn import traj_utils as j_traj
 
 from walk_these_ways_tpu_torch import go1_config as t_cfg
+from walk_these_ways_tpu_torch.deploy import deploy_policy as t_deploy
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv
 from walk_these_ways_tpu_torch.learn import ppo as t_ppo
 from walk_these_ways_tpu_torch.learn import ppo_rma as t_rma
@@ -416,6 +417,22 @@ def test_rma_export_is_read_by_the_jax_deploy_loader(rma_runs):
     obs = rs.randn(1, env.num_obs).astype(np.float32)
     hist = rs.randn(1, env.num_obs_history).astype(np.float32)
     action = load_student_policy(path)({"obs": obs, "obs_history": hist})
+    with torch.no_grad():
+        want = a.train_state.policy.student_mean(t(obs), t(hist))[0]
+    assert_close(want, action, 1e-5, 1e-5)
+
+
+def test_rma_export_is_read_by_the_port_deploy_loader(rma_runs):
+    """The port's own numpy loader on the same export: the JAX loader's
+    bits, and the student's actions."""
+    env, a, _ = rma_runs
+    path = os.path.join(a.log_dir, "checkpoints", "policy_latest.npz")
+    rs = np.random.RandomState(1)
+    obs = rs.randn(1, env.num_obs).astype(np.float32)
+    hist = rs.randn(1, env.num_obs_history).astype(np.float32)
+    inputs = {"obs": obs, "obs_history": hist}
+    action = t_deploy.load_student_policy(path)(inputs)
+    np.testing.assert_array_equal(action, load_student_policy(path)(inputs))
     with torch.no_grad():
         want = a.train_state.policy.student_mean(t(obs), t(hist))[0]
     assert_close(want, action, 1e-5, 1e-5)
