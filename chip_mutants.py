@@ -7,8 +7,9 @@
 For each mutant below (or each one named): copies `chip_smoke.py`, the
 port's package and `resources/` into `build/mutants/<name>/`, makes ONE edit
 in one source of the package there (a kernel source, the dense route in
-physics/engine.py, the train/eval split in envs/go1_env.py, the RMA
-update in learn/ppo_rma.py, the MuJoCo state mapping in models/mjcf.py or
+physics/engine.py, the train/eval split or the data-parallel draws in
+envs/go1_env.py, the RMA update in learn/ppo_rma.py, the data-parallel
+gradient sum in learn/ppo.py, the MuJoCo state mapping in models/mjcf.py or
 the deploy loader in deploy/deploy_policy.py), runs
 `python3 chip_smoke.py` in the copy and records its exit code and the first
 check that failed.  The smoke test must exit non-zero on every mutant, and
@@ -19,8 +20,8 @@ mutant survived.
 
 With `--tests` (on a CPU machine with the JAX package's dependencies) only
 the mutants of Python sources run, each through the parity tests of its
-source in the copy (`TESTS`; the tests and the JAX package copied too),
-which must fail.
+source in the copy (`TESTS`, or the mutant's own in `TESTS_OF`; the tests
+and the JAX package copied too), which must fail.
 
 The working tree is never edited.
 """
@@ -148,7 +149,8 @@ MUTANTS = (
     # as it stood BEFORE the minibatch's main Adam step
     ("rma_target_before_the_main_step", "learn/ppo_rma.py",
      "            lr, kl_mean = ppo.main_step(main_opt, lr, loss, mean, std,\n"
-     "                                        old_mu_mb, old_sigma_mb, args)\n"
+     "                                        old_mu_mb, old_sigma_mb, args,\n"
+     "                                        rows, mb)\n"
      "            lrs.append(float(lr))\n\n"
      "            # distillation: adaptation(hist) -> encoder(priv), the encoder\n"
      "            # as the main step left it (ppo.py:157-163)\n"
@@ -157,9 +159,36 @@ MUTANTS = (
      "            with torch.no_grad():\n"
      "                target = policy.encoder(priv_mb)\n"
      "            lr, kl_mean = ppo.main_step(main_opt, lr, loss, mean, std,\n"
-     "                                        old_mu_mb, old_sigma_mb, args)\n"
+     "                                        old_mu_mb, old_sigma_mb, args,\n"
+     "                                        rows, mb)\n"
      "            lrs.append(float(lr))\n\n",
      "rma_adaptation_target"),
+    # data parallel: each rank steps Adam on its own part of the gradient
+    # (the sum over the ranks is made, and dropped), so the ranks' replicated
+    # parameters part (multi_rank: checksums differ)
+    ("gradient_not_all_reduced", "learn/ppo.py",
+     "        for p, g in zip(params, grads):\n"
+     "            p.grad = g\n",
+     "", "multi_rank"),
+    # data parallel: the gradient sum takes rank 0's part only, so every
+    # rank steps on the gradient of half of each minibatch (the checksums
+    # still agree; multi_rank: the parameters' distance from the 1-rank
+    # update, which the record's failed line reports)
+    ("rank_gradient_of_half_the_minibatch", "learn/ppo.py",
+     "            [p.grad for p in params] + [kl_mean])\n",
+     "            [p.grad * float(rows.mesh.rank == 0) for p in params]\n"
+     "            + [kl_mean])\n", "multi_rank"),
+    # data parallel: each rank draws its own rows' shape from the generator
+    # every rank holds alike, so rank 1's envs take rank 0's draws and the
+    # 2-rank run parts from the 1-rank run (multi_rank: the gathered reset
+    # differs)
+    ("rank_draws_local_rows", "envs/go1_env.py",
+     "        u = torch.rand((self.num_envs_global,) + tuple(shape_extra),\n"
+     "                       generator=gen, device=self.device)\n"
+     "        return lo + self.rows.take(u) * (hi - lo)\n",
+     "        u = torch.rand((self.num_envs,) + tuple(shape_extra),\n"
+     "                       generator=gen, device=self.device)\n"
+     "        return lo + u * (hi - lo)\n", "multi_rank"),
     # the state mapping to MuJoCo writes the engine's xyzw quaternion where
     # MuJoCo keeps wxyz
     ("mjcf_quat_order_kept_xyzw", "models/mjcf.py",
@@ -175,8 +204,12 @@ MUTANTS = (
 TESTS = {"physics/engine.py": "tests/test_torch_dense.py",
          "envs/go1_env.py": "tests/test_torch_eval.py",
          "learn/ppo_rma.py": "tests/test_torch_rma.py",
+         "learn/ppo.py":
+         "tests/test_torch_ppo.py tests/test_torch_parallel.py",
          "models/mjcf.py": "tests/test_torch_formats.py",
          "deploy/deploy_policy.py": "tests/test_torch_deploy.py"}
+# a mutant whose source's tests above do not run what it breaks
+TESTS_OF = {"rank_draws_local_rows": "tests/test_torch_parallel.py"}
 
 
 def run_mutant(name, source, old, new, expect, tests=False):
@@ -200,7 +233,8 @@ def run_mutant(name, source, old, new, expect, tests=False):
     with open(path, "w") as fh:
         fh.write(text.replace(old, new))
     if tests:
-        return run_tests(name, source, old, new, work)
+        return run_tests(name, TESTS_OF.get(name, TESTS[source]), source,
+                         old, new, work)
     env = dict(os.environ, WTW_TORCH_BUILD_DIR=os.path.join(work, "build"))
     p = subprocess.run([sys.executable, "chip_smoke.py"], cwd=work, env=env,
                        capture_output=True, text=True)
@@ -222,7 +256,9 @@ def run_mutant(name, source, old, new, expect, tests=False):
         elif rec.get("ok") is False:
             # another check than a kernel's (the dense route's agreements)
             failed_at = dict(kernel=rec.get("phase"), state=None,
-                             max_abs_err=rec.get("max_abs_err"))
+                             max_abs_err=rec.get("max_abs_err"),
+                             failed_checks=rec.get("failed_checks"),
+                             readings=rec.get("readings"))
             break
     err_tail = p.stderr.strip().splitlines()[-1:] or [""]
     where = failed_at["kernel"] if failed_at else (
@@ -238,11 +274,11 @@ def run_mutant(name, source, old, new, expect, tests=False):
     return ok
 
 
-def run_tests(name, source, old, new, work):
-    """The source's CPU parity tests on a mutant copy: killed when a test
+def run_tests(name, tests, source, old, new, work):
+    """The CPU parity tests `tests` of a mutant copy: killed when a test
     fails (pytest exit code 1, not a collection or usage error)."""
     p = subprocess.run(
-        [sys.executable, "-m", "pytest", TESTS[source], "-q",
+        [sys.executable, "-m", "pytest", *tests.split(), "-q",
          "-p", "no:cacheprovider"],
         cwd=work, env=dict(os.environ, JAX_PLATFORMS="cpu"),
         capture_output=True, text=True)
@@ -251,7 +287,7 @@ def run_tests(name, source, old, new, work):
     ok = p.returncode == 1 and len(failed) > 0
     print(json.dumps(dict(
         mutant=name, source=os.path.join(PACKAGE, source), edit=[old, new],
-        run=TESTS[source], exit_code=p.returncode,
+        run=tests, exit_code=p.returncode,
         tests_failed=len(failed), first_failed=failed[:5],
         summary=(p.stdout.strip().splitlines() or [""])[-1][:300], ok=ok)),
         flush=True)

@@ -23,6 +23,18 @@ the entry points a user calls and checks what comes out:
   entry-cache and one contact-cache launch per control step, one
   dynamics-substep launch per physics substep, no eager cache build), and
   one control step of both routes held against each other,
+- env-axis data parallelism (parallel/mesh.py, `multi_rank_phase`):
+  `scripts/multihost_smoke.py` in a child, 2 ranks of 2000 envs of
+  `mob_train_cfg(4000)` sharing the card over gloo, each launching K4 24
+  times an iteration; their reset and step, gathered, against the same on
+  one rank here, bit for bit; their first iteration against a 1-rank
+  Runner's (the logged losses within 1e-3, the learning rates equal, the
+  parameters' distance from the 1-rank ones at most 5 % of the 1-rank
+  update's length) and an RMA iteration likewise, the ranks' checksums
+  equal, and a fresh cluster resumed from the shared checkpoint
+  bit-exactly; then `scripts.train --mesh --multihost --shared-ckpt` on an
+  NCCL group of one and `--resume` from its directory
+  (`train_script_mesh_phase`),
 - the contact-substep kernel driven directly (no env branch reaches it),
 - PPO training iterations (`learn/ppo.make_train_iteration`) on both routes,
 - exact mode on the control-step route (`sim.reuse_matrices=False`: one K5
@@ -129,9 +141,10 @@ from walk_these_ways_tpu_torch.models.actor_critic import ActorCritic  # noqa: E
 from walk_these_ways_tpu_torch.ops import (  # noqa: E402
     _build, contact, dynamics, entry_cache, megastep)
 from walk_these_ways_tpu_torch.physics import engine, envminor  # noqa: E402
-from walk_these_ways_tpu_torch.scripts import play  # noqa: E402
+from walk_these_ways_tpu_torch.scripts import (  # noqa: E402
+    multihost_smoke, play)
 from walk_these_ways_tpu_torch.utils import (  # noqa: E402
-    convert, profiling, render)
+    checkpoint as ckpt_mod, convert, profiling, render)
 
 DEV = torch.device("cuda", 0)
 OUT_NAMES = ("q", "qd", "pos", "quat", "lin", "ang", "pcp", "pcp_prev",
@@ -841,6 +854,265 @@ def command_phases(rma_pol, smi):
                 ("control_step_normals", ("profile_rough",)))}
 
 
+# the 2-rank parameters after one iteration may stand from the 1-rank ones
+# at most this share of the 1-rank update's length
+MULTI_RANK_UPDATE_RATIO = 0.05
+
+
+def multi_rank_phase(env, smi):
+    """`scripts/multihost_smoke.py --device cuda --backend gloo
+    --num-processes 2 --num-envs 4000 --iters 2 --shared-resume` in a
+    child: 2 ranks of 2000 envs of mob_train_cfg(4000) sharing the card
+    (gloo; NCCL refuses two ranks on one device), each stepping its rows
+    through K4.  Then here, on one rank: the same reset and step (the
+    gathered 2-rank states must be these, bit for bit), the same RMA
+    iteration and the same Runner for 2 iterations (the first iteration's
+    logged losses within 1e-3 and its learning rates equal; the parameters
+    read against the 1-rank update's length: Adam's normalised step moves
+    an entry whose gradient is rounding noise by up to the learning rate
+    either way, so at 4000 envs tests/test_sharding.py's elementwise
+    tolerances, which it reports, do not hold for every entry).  Returns
+    {path: K4 launches}."""
+    rec_dir = os.path.join(OUT_DIR, "multi_rank")
+    shutil.rmtree(rec_dir, ignore_errors=True)
+    iters = 2
+    cmd = [sys.executable, "-m", SCRIPTS + "multihost_smoke", "--device",
+           DEV.type, "--backend", "gloo", "--num-processes", "2",
+           "--num-envs", str(N_ENVS), "--iters", str(iters),
+           "--num-steps", str(ROLLOUT_STEPS), "--shared-resume",
+           "--record", rec_dir]
+    t0 = time.time()
+    p = start(cmd)
+    out, err = finish(p, timeout=900)
+    child_s = time.time() - t0
+    ok_child = p.returncode == 0 and "multihost_smoke: OK" in out
+    if not ok_child:
+        say(phase="multi_rank", command=" ".join(cmd[1:]),
+            returncode=p.returncode, stdout_tail=out.splitlines()[-12:],
+            stderr_tail=err.splitlines()[-12:], ok=False)
+        raise SystemExit("multi_rank phase failed")
+    a = [ckpt_mod.load(os.path.join(rec_dir, f"save_rank{r}.pkl"))
+         for r in range(2)]
+    b = [ckpt_mod.load(os.path.join(rec_dir, f"resume_rank{r}.pkl"))
+         for r in range(2)]
+    # the same work on one rank, here
+    one = multihost_smoke.env_checks(env, ROLLOUT_STEPS)
+    differ = {k: multihost_smoke.differing_leaves(
+        a[0][k], one[k], N_ENVS, close=("bin_task_sums",))
+              for k in ("reset", "step")}
+    d = os.path.join(OUT_DIR, "multi_rank_one")
+    shutil.rmtree(d, ignore_errors=True)
+    big = 10 ** 9
+    runner = Runner(env, log_dir=d, seed=multihost_smoke.SEED,
+                    args=RunnerArgs(
+                        num_steps_per_env=ROLLOUT_STEPS, log_freq=1,
+                        save_interval=big, curriculum_dump_freq=big))
+    before = multihost_smoke.params_numpy(runner.train_state)
+    reset_counts()
+    t1 = time.time()
+    runner.learn(1)       # as each rank did: the first iteration alone
+    first = multihost_smoke.params_numpy(runner.train_state)
+    runner.learn(iters - 1)
+    torch.cuda.synchronize()
+    one_s = time.time() - t1
+    one_launches = counts()["control_step"]
+    rows_one = [json.loads(ln) for ln in open(os.path.join(d,
+                                                           "metrics.jsonl"))]
+    last = multihost_smoke.params_numpy(runner.train_state)
+    # one iteration against one rank: the losses, KL and reward its 20
+    # minibatches logged (the ranks' sums) and its learning rates, then the
+    # parameters.  Adam's normalised step moves an entry whose gradient is
+    # rounding noise by up to the learning rate either way, so the
+    # parameters are read as the 2-rank result's distance from the 1-rank
+    # one over the 1-rank update's length; tests/test_sharding.py's
+    # elementwise tolerances (rtol 3e-3, atol 4e-4) are reported beside it
+    m2, m1 = a[0]["metrics"][0], rows_one[0]
+    loss_rel = {k: abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in (
+        "mean_value_loss", "mean_surrogate_loss", "adaptation_loss",
+        "mean_adaptation_module_test_loss", "mean_kl",
+        "mean_reward_per_step")}
+    lr_equal = ([r["lr"] for r in a[0]["metrics"]]
+                == [r["lr"] for r in rows_one])
+    got1 = a[0]["params_first"]
+
+    def norm(x):
+        return float(np.sqrt(sum(float(np.sum(np.square(
+            v.astype(np.float64)))) for v in x)))
+
+    def over_update(got, want, start):
+        """The distance of `got` from `want` over `want`'s update from
+        `start`, all parameters."""
+        return norm([got[k] - v for k, v in want.items()]) / norm(
+            [v - start[k] for k, v in want.items()])
+
+    update_ratio = {k: norm([got1[k] - v]) / max(norm([v - before[k]]),
+                                                 1e-30)
+                    for k, v in first.items()}
+    ratio_all = over_update(got1, first, before)
+    # the RMA learner's iteration from the stepped state (env_checks)
+    rma = [r["rma"] for r in a]
+    rma_ratio = over_update(rma[0]["params"], one["rma"]["params"],
+                            one["rma"]["before"])
+    rma_rel = {k: abs(rma[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+               for k, v in one["rma"]["metrics"].items()}
+    beyond = sum(int((~np.isclose(got1[k], v, rtol=3e-3, atol=4e-4)).sum())
+                 for k, v in first.items())
+    entries = sum(v.size for v in first.values())
+    worst = {k: float(np.abs(got1[k] - v).max()) for k, v in first.items()}
+    worst_last = {k: float(np.abs(a[0]["params"][k] - v).max())
+                  for k, v in last.items()}
+    k4 = "megastep.launches"
+    per_rank = [int(r["launches"][k4]) for r in a]
+    others = [sum(int(v) for k, v in r["launches"].items() if k != k4)
+              for r in a + b]
+    resumed = [int(r["launches"][k4]) for r in b]
+    want_a = 1 + iters * ROLLOUT_STEPS       # the reset's step, then 2 x 24
+    checks = dict(
+        k4_launches=(per_rank == [want_a, want_a] and not any(others)
+                     and resumed == [ROLLOUT_STEPS] * 2
+                     and one_launches == want_a),
+        checksums_equal=a[0]["checksum"] == a[1]["checksum"],
+        resume_bit_exact=(a[0]["continued_checksum"] == b[0]["checksum"]
+                          == b[1]["checksum"]),
+        generator_states_equal=(a[0]["generator_checksums"]
+                                == a[1]["generator_checksums"]),
+        shard_gather_round_trip=all(r["roundtrip_bit_exact"] for r in a),
+        env_equals_one_rank=not any(differ.values()),
+        logged_losses=max(loss_rel.values()) <= 1e-3,
+        learning_rates_equal=lr_equal,
+        params_distance_over_update=ratio_all <= MULTI_RANK_UPDATE_RATIO,
+        rma_checksums_equal=rma[0]["checksum"] == rma[1]["checksum"],
+        rma_params_distance_over_update=(
+            rma_ratio <= MULTI_RANK_UPDATE_RATIO),
+        rma_logged_losses=max(rma_rel.values()) <= 1e-3,
+        backend_gloo="backend=gloo" in a[0]["mesh"])
+    ok = ok_child and all(checks.values())
+    say(phase="multi_rank", command=" ".join(cmd[1:]),
+        failed_checks=[k for k, v in checks.items() if not v],
+        readings=dict(params_distance_over_update=ratio_all,
+                      rma_params_distance_over_update=rma_ratio,
+                      logged_rel_diff_max=max(loss_rel.values()),
+                      learning_rates_equal=lr_equal),
+        config=f"mob_train_cfg({N_ENVS}) on 2 ranks of {N_ENVS // 2} envs, "
+               "one card",
+        mesh=[r["mesh"] for r in a], child_seconds=child_s,
+        k4_launches_per_rank=per_rank,
+        k4_launches_per_rank_per_iteration=[
+            (n - 1) / iters for n in per_rank],
+        k4_launches_resumed_per_rank=resumed,
+        checksums=[r["checksum"] for r in a],
+        continued_checksum=a[0]["continued_checksum"],
+        resumed_checksums=[r["checksum"] for r in b],
+        generator_states_equal=a[0]["generator_checksums"]
+        == a[1]["generator_checksums"],
+        shard_gather_round_trip_bit_exact=[r["roundtrip_bit_exact"]
+                                           for r in a],
+        leaves_differing_from_one_rank=differ,
+        logged_rel_diff_vs_one_rank=loss_rel, logged_rtol=1e-3,
+        learning_rates_equal=lr_equal,
+        params_distance_over_update=ratio_all,
+        params_distance_over_update_max=MULTI_RANK_UPDATE_RATIO,
+        params_distance_over_update_by_leaf=update_ratio,
+        rma_checksums=[r["checksum"] for r in rma],
+        rma_params_distance_over_update=rma_ratio,
+        rma_logged_rel_diff_vs_one_rank=rma_rel,
+        params_after_one_iteration_max_abs_diff_vs_one_rank=max(
+            worst.values()),
+        params_beyond_test_sharding_tolerance=[beyond, entries],
+        params_after_one_iteration_worst_leaves=sorted(
+            worst.items(), key=lambda kv: -kv[1])[:4],
+        params_after_two_iterations_max_abs_diff_vs_one_rank=max(
+            worst_last.values()),
+        params_after_two_iterations_worst_leaves=sorted(
+            worst_last.items(), key=lambda kv: -kv[1])[:4],
+        lr_two_ranks=[r["lr"] for r in a[0]["metrics"]],
+        lr_one_rank=[r["lr"] for r in rows_one],
+        mean_kl_two_ranks=[r["mean_kl"] for r in a[0]["metrics"]],
+        mean_kl_one_rank=[r["mean_kl"] for r in rows_one],
+        one_rank_k4_launches=one_launches,
+        seconds_per_iteration_two_ranks=[r["time_iter"]
+                                         for r in a[0]["metrics"]],
+        seconds_per_iteration_one_rank=[r["time_iter"] for r in rows_one],
+        learn_seconds_two_ranks=a[0]["learn_seconds"],
+        learn_seconds_one_rank=one_s, gpu=smi, ok=ok)
+    if not ok:
+        raise SystemExit("multi_rank phase failed")
+    return dict(multi_rank_rank0=per_rank[0], multi_rank_rank1=per_rank[1],
+                multi_rank_resumed_rank0=resumed[0],
+                multi_rank_resumed_rank1=resumed[1])
+
+
+def train_script_mesh_phase(env, smi):
+    """`scripts.train --mesh --multihost --shared-ckpt DIR --num-envs 4000
+    --iterations 1` in a child whose launcher variables say one rank
+    (WORLD_SIZE=1: an NCCL group of one, K4), then, in the same child,
+    `--resume DIR` for one more iteration (the second `maybe_init_distributed`
+    finds the group up).  Here: the committed directory holds the state of
+    the run's last pickle, and a Runner resumed from it holds that state
+    bit for bit.  Returns {path: K4 launches}."""
+    logs = os.path.join(OUT_DIR, "train_mesh")
+    shared = os.path.join(OUT_DIR, "train_mesh_shared")
+    for x in (logs, shared):
+        shutil.rmtree(x, ignore_errors=True)
+    port = multihost_smoke.free_port()
+    base = ["--mesh", "--multihost", "--num-envs", str(N_ENVS),
+            "--iterations", "1"]
+    cmd = child(("train_mesh", "train", base + [
+                    "--shared-ckpt", shared, "--log-dir",
+                    os.path.join(logs, "first")]),
+                ("train_mesh_resume", "train", base + [
+                    "--resume", shared, "--log-dir",
+                    os.path.join(logs, "resumed")]))
+    t0 = time.time()
+    p = start(cmd, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+              LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+              MASTER_PORT=str(port))
+    out, err = finish(p)
+    res = child_records(cmd, out, err, p.returncode, keep_lines=True)
+    seconds = time.time() - t0
+    first, again = res["train_mesh"], res["train_mesh_resume"]
+    mesh_lines = [ln for ln in first.get("lines", [])
+                  if ln.startswith("mesh:")]
+    pkl = os.path.join(logs, "first", "checkpoints", "train_state_last.pkl")
+    differ = ["no checkpoint"]
+    if os.path.exists(pkl) and os.path.exists(shared):
+        saved = ckpt_mod.load(pkl)
+        r = Runner(env, log_dir=os.path.join(logs, "check"), seed=SEED,
+                   args=RunnerArgs(resume=True, resume_path=shared))
+        differ = multihost_smoke.differing_leaves(r._state_tree(), saved,
+                                                  N_ENVS)
+    # the resumed command's last checkpoint: one iteration past the first's
+    last = os.path.join(logs, "resumed", "checkpoints",
+                        "train_state_last.pkl")
+    resumed_at = (int(ckpt_mod.load(last)["train_state"]["iteration"])
+                  if os.path.exists(last) else None)
+
+    def launched(rec):
+        return rec.get("kernel_launches") == expect(
+            control_step=1 + ROLLOUT_STEPS)
+
+    ok = (first["returncode"] == 0 and again["returncode"] == 0
+          and len(mesh_lines) == 1 and "backend=nccl" in mesh_lines[0]
+          and "world_size=1" in mesh_lines[0] and launched(first)
+          and launched(again) and not differ and resumed_at == 2)
+    say(phase="train_script_mesh", commands=[first["command"],
+                                             again["command"]],
+        mesh_line=mesh_lines, seconds=seconds,
+        kernel_launches=[first.get("kernel_launches"),
+                         again.get("kernel_launches")],
+        expected_launches=expect(control_step=1 + ROLLOUT_STEPS),
+        resumed_state_leaves_differing=differ,
+        resumed_run_ends_at_iteration=resumed_at,
+        stdout_tail=[first["stdout_tail"], again["stdout_tail"]],
+        stderr_tail=[first["stderr_tail"], again["stderr_tail"]],
+        gpu=smi, ok=bool(ok))
+    if not ok:
+        raise SystemExit("train_script_mesh phase failed")
+    return dict(train_script_mesh=first["kernel_launches"]["control_step"],
+                train_script_mesh_resume=again["kernel_launches"][
+                    "control_step"])
+
+
 def rough_kernel_checks(env_r, env_rp, env_rs, gen, worst):
     """K4b (actuator net), K4b with P control and K3b against their plain
     versions on rough_train_cfg states: after the reset and after 24 random
@@ -1404,13 +1676,13 @@ def _end_children():
         p.wait()
 
 
-def start(cmd):
+def start(cmd, **env):
     """Start `cmd` from the repo root in a session of its own, its output
-    piped, on the smoke's build directory."""
+    piped, on the smoke's build directory (and `env` set)."""
     p = subprocess.Popen(
         cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True,
-        env=dict(os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir()))
+        env=dict(os.environ, WTW_TORCH_BUILD_DIR=_build.build_dir(), **env))
     STARTED.append(p)
     return p
 
@@ -2421,6 +2693,11 @@ def main():
         "vs the control-step kernel with contact_warm_start off (cold "
         "start, 16 sweeps every substep)", s_sub, s_k4, N)
 
+    # ---- env-axis data parallel: 2 ranks x 2000 envs on the card (gloo), --
+    # then the train script on an NCCL group of one; K4 on every rank
+    mesh_paths = multi_rank_phase(env, smi)
+    mesh_paths.update(train_script_mesh_phase(env, smi))
+
     # ---- the train/eval env split at 4000 + 400 envs: K4, K4b -----------
     eval_split_phases(policy, gen, smi, worst)
 
@@ -2553,6 +2830,7 @@ def main():
     paths = command_phases(rma_pol, smi)
     mujoco_engine_phase(mujoco_cpu, mujoco_card)
     paths["control_step"].update(k4_paths)
+    paths["control_step"].update(mesh_paths)
     # the runner's K4c launches trained the cse export the deploy phases read
     paths["control_step_p"] = dict(runner_cse_export=runner_k4c)
     row = bench.main(num_envs=N, warmup=1, iters=2)

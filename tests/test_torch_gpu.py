@@ -568,3 +568,33 @@ def test_box_engine_halves_on_the_card(cuda, name):
                 scale = dt if mp.ROW_FIELDS[i] == "report_forces" else 1.0
                 np.testing.assert_allclose(x * scale, y * scale, rtol=2e-4,
                                            atol=2e-4)
+
+
+def test_two_ranks_share_the_card_and_agree_with_one(cuda, tmp_path):
+    """scripts/multihost_smoke on the card: 2 ranks of 128 envs of
+    mob_train_cfg(256) sharing it over gloo, K4 on each, checksums equal,
+    a fresh cluster resumed bit-exactly; their gathered reset and step are
+    the 1-rank env's bit for bit (the curriculum's per-bin task sums,
+    which the card's index_add sums in any order, to 1e-6)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from walk_these_ways_tpu_torch.scripts import multihost_smoke as mh
+    rec = str(tmp_path / "rec")
+    p = subprocess.run(
+        [sys.executable, "-m", mh.MODULE, "--device", "cuda", "--backend",
+         "gloo", "--num-processes", "2", "--num-envs", "256", "--iters", "1",
+         "--num-steps", "4", "--shared-resume", "--record", rec],
+        capture_output=True, text=True, cwd=mh.ROOT, timeout=900)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-2000:]
+    a = [pickle.load(open(os.path.join(rec, f"save_rank{r}.pkl"), "rb"))
+         for r in range(2)]
+    assert [r["launches"]["megastep.launches"] for r in a] == [5, 5]
+    assert a[0]["checksum"] == a[1]["checksum"]
+    env = LeggedRobotEnv(mob_train_cfg(256), device=cuda)
+    one = mh.env_checks(env, 4)
+
+    for what in ("reset", "step"):
+        assert mh.differing_leaves(a[0][what], one[what], 256,
+                                   close=("bin_task_sums",)) == []

@@ -105,10 +105,13 @@ class _ReplayPolicy(t_ac.ActorCritic):
     """ActorCritic whose action noise comes from a list of arrays."""
     noise = ()
 
-    def sample_actions(self, obs_history, generator):
+    def sample_actions(self, obs_history, generator, rows=None):
         mean = self.actor_mean(obs_history)
         std = self.std.expand_as(mean)
         eps, self.noise = self.noise[0], self.noise[1:]
+        if rows is not None:
+            # the rows of a draw over the batch (ActorCritic.sample_actions)
+            eps = eps[rows[1]]
         actions = mean + std * eps
         return actions, t_ac.gaussian_log_prob(actions, mean, std), mean, std
 

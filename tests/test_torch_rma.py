@@ -134,10 +134,13 @@ class _ReplayRMAPolicy(t_rma.RMAPolicy):
     """RMAPolicy whose action noise comes from a list of arrays."""
     noise = ()
 
-    def sample_actions(self, obs, privileged_obs, generator):
+    def sample_actions(self, obs, privileged_obs, generator, rows=None):
         mean, _ = self.teacher_mean(obs, privileged_obs)
         std = self.std.expand_as(mean)
         eps, self.noise = self.noise[0], self.noise[1:]
+        if rows is not None:
+            # the rows of a draw over the batch (ActorCritic.sample_actions)
+            eps = eps[rows[1]]
         actions = mean + std * eps
         return actions, t_ac.gaussian_log_prob(actions, mean, std), mean, std
 

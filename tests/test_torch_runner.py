@@ -10,10 +10,14 @@ iteration, a log row, a checkpoint and a curriculum dump every iteration.
 - `export_policy` writes the JAX runner's `policy_latest.npz` key by key:
   the JAX `Runner.export_policy`, called on a stand-in holding a JAX
   parameter tree made from the same weights, gives equal arrays;
-- the script and the bench raise without a CUDA device, and the flags of
-  a later slice raise naming its ROADMAP item; the eval flags build their
-  configs and reach the device check (`--algo rma`, RMA and the videos:
-  tests/test_torch_rma.py and tests/test_torch_tools.py);
+- the script and the bench raise without a CUDA device; `--mesh` and
+  `--multihost` build their mesh and `--shared-ckpt` its shared directory
+  and reach the device check, as the eval flags build their configs
+  (`--algo rma`, RMA and the videos: tests/test_torch_rma.py and
+  tests/test_torch_tools.py; the mesh and shared checkpoints at work:
+  tests/test_torch_parallel.py);
+- `Runner.save` on a directory writes a shared checkpoint that loads back
+  bit-equal;
 - `scripts.play` plays back the policy the runner exported (its actions are
   the runner's policy mean) and `scripts.test` steps a few envs, both with
   device="cpu"; without it, neither runs on a box with no CUDA device.
@@ -37,6 +41,7 @@ from walk_these_ways_tpu_torch import bench as t_bench
 from walk_these_ways_tpu_torch import go1_config as t_cfg
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv
 from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
+from walk_these_ways_tpu_torch.parallel import mesh as mesh_mod
 from walk_these_ways_tpu_torch.scripts import play as t_play
 from walk_these_ways_tpu_torch.scripts import test as t_test
 from walk_these_ways_tpu_torch.scripts import train as t_train
@@ -217,16 +222,38 @@ def test_restore_like_refuses_a_mismatched_checkpoint(runs, tmp_path):
         t_ckpt.restore_like(tree, dict(tree, extra={"x": np.zeros(1)}))
     with pytest.raises(TypeError):
         t_ckpt.save(str(tmp_path / "g.pkl"), {"g": torch.Generator()})
-    with pytest.raises(NotImplementedError):
-        a.save(str(tmp_path / "shared_dir"))
+    # a directory path is a shared-storage checkpoint: it loads back equal
+    a.save(str(tmp_path / "shared_dir"))
+    back = t_ckpt.load_shared(str(tmp_path / "shared_dir"), tree, a.rows)
+    for key, want in t_ckpt._keyed_leaves(tree).items():
+        got = t_ckpt._keyed_leaves(back)[key]
+        assert (got is None and want is None) or (
+            np.asarray(got).tobytes() == np.asarray(want).tobytes()), key
+    with pytest.raises(ValueError, match="remote"):
+        a.save("gs://bucket/run")
 
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh"], "22"), (["--multihost"], "22"),
     (["--shared-ckpt", "d"], "22")])
-def test_train_script_flags_of_later_slices_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+def test_train_script_flags_of_later_slices_raise(flags, item, monkeypatch):
+    """The flags of ROADMAP item 22 (now ported): `--mesh` and
+    `--multihost` build the env mesh, which needs a CUDA device unless the
+    CPU is asked for, and `--shared-ckpt` resolves its shared directory
+    before the device check.  No flag raises naming its item any more."""
+    resolved = []
+    real = t_ckpt._shared_path
+    monkeypatch.setattr(t_ckpt, "_shared_path",
+                        lambda p: resolved.append(p) or real(p))
+    with pytest.raises(RuntimeError, match="CUDA") as e:
         t_train.main(["--num-envs", "4", "--iterations", "1"] + flags)
+    assert f"item {item}" not in str(e.value)
+    raised_in = os.path.join(*str(e.traceback[-1].path).split(os.sep)[-2:])
+    if "--shared-ckpt" in flags:
+        assert resolved == ["d"] and raised_in == os.path.join(
+            "scripts", "train.py")
+    else:
+        assert raised_in == os.path.join("parallel", "mesh.py")
 
 
 @pytest.mark.parametrize("flags", [
@@ -273,10 +300,13 @@ def test_entry_points_raise_without_a_cuda_device(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_test.run_env(num_envs=2, steps=1)
     env = LeggedRobotEnv(t_cfg.small_train_cfg(4), device="cpu")
-    for kw in (dict(mesh=object()),
-               dict(args=RunnerArgs(shared_ckpt_dir="d"))):
-        with pytest.raises(NotImplementedError):
-            Runner(env, log_dir=str(tmp_path / "r"), **kw)
+    # a mesh and shared checkpoints are ported (tests/test_torch_parallel.py
+    # runs them): the Runner takes the env's mesh, and refuses another
+    with pytest.raises(ValueError, match="mesh"):
+        Runner(env, log_dir=str(tmp_path / "r"),
+               mesh=mesh_mod.EnvMesh(rank=1, world_size=2))
+    assert Runner(env, log_dir=str(tmp_path / "s"), args=RunnerArgs(
+        shared_ckpt_dir="d")).args.shared_ckpt_dir == "d"
     with pytest.raises(ValueError, match="unknown algo"):
         Runner(env, log_dir=str(tmp_path / "r"), algo="ppo")
     # eval_expert, RMA and the videos are ported (tests/test_torch_eval.py,

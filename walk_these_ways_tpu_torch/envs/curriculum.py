@@ -152,26 +152,36 @@ def _gumbel(shape, generator, device):
     return -torch.log(-torch.log(u))
 
 
+def _keep(x, keep):
+    """`keep(x)`, the rows kept of a draw, or all of them."""
+    return x if keep is None else keep(x)
+
+
 def sample(
     state: CurriculumState,
     grid: CurriculumGrid,
     generator: torch.Generator,
     n: int,
+    keep=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sample (commands, bins, categories) for n envs.
 
     Category ~ uniform over 4 (legged_robot.py:742-746); bin ~ categorical
     over that category's weights (Gumbel-argmax over the weight row);
-    command ~ uniform within the bin cell."""
+    command ~ uniform within the bin cell.  With `keep` (a function of the
+    rows of a draw) the draws are made for all n envs and the rows it keeps
+    returned: a rank of a data-parallel run draws what the whole batch
+    draws (parallel/mesh.EnvRows)."""
     dev = state.weights.device
     C, B = state.weights.shape
-    cats = torch.randint(0, C, (n,), generator=generator, device=dev)
+    cats = _keep(torch.randint(0, C, (n,), generator=generator, device=dev),
+                 keep)
     logw = torch.log(torch.clamp(state.weights, min=1e-12))   # (C, B)
-    g = _gumbel((n, B), generator, dev)
+    g = _keep(_gumbel((n, B), generator, dev), keep)
     bins = torch.argmax(logw[cats] + g, dim=-1)            # (n,)
     centroids = _const(grid.grid, state.weights)[bins]     # (n, 15)
-    jitter = torch.rand((n, grid.grid.shape[1]), generator=generator,
-                        device=dev) - 0.5
+    jitter = _keep(torch.rand((n, grid.grid.shape[1]), generator=generator,
+                              device=dev), keep) - 0.5
     cmds = centroids + jitter * _const(grid.bin_sizes, state.weights)[None, :]
     return cmds, bins.to(torch.int32), cats.to(torch.int32)
 

@@ -43,6 +43,17 @@ Train/eval env split (reference base_task.py:43-50): with `eval_cfg`, its
 may differ in `domain_rand` (per-env ranges), `commands` (a curriculum of
 their own) and `terrain` (the eval rows appended to the train heightfield);
 physics sees one batch of T + E envs on every route.
+
+Env-axis data parallelism (parallel/mesh.py): with `mesh`, the env holds
+its rank's rows of the global batch (`rows`, an `EnvRows`: T / W train
+rows, then E / W eval rows) and steps them through its own kernel
+launches.  Every random draw takes the global batch's shape from the
+state's generator, which is the same on every rank, and keeps the rank's
+rows; the curriculum update gathers every env's scores first and the
+reward terms' signs come from their sums over every env.  So W ranks
+compute what one rank computes.  `StepInfo`'s episode sums are the rank's
+own (the learner sums them over the ranks once an iteration).  With a mesh
+of one rank nothing changes, bit for bit.
 """
 from __future__ import annotations
 
@@ -58,6 +69,7 @@ from ..models import actuator_net
 from ..models.robot import RobotModel, default_dof_pos, go1, pd_gains
 from ..ops import megastep as megastep_ops
 from ..ops import quat as qops
+from ..parallel import mesh as mesh_mod
 from ..physics import engine
 from . import curriculum as curr
 from . import rewards as rew_mod
@@ -153,18 +165,30 @@ def make_generator(seed: int, device) -> torch.Generator:
 
 
 class LeggedRobotEnv:
-    """Static env context on one device (`device` defaults to "cuda").
+    """Static env context on one device (`device` defaults to "cuda", or
+    with `mesh` to the mesh's device).
 
     Train/eval env split: with `eval_cfg`, `eval_cfg.env.num_envs` eval envs
     follow the `cfg.env.num_envs` train envs.  `eval_cfg` may differ from
     `cfg` only in `domain_rand`, `commands`, `terrain` and `env.num_envs`;
     the trainer runs the deterministic student (or teacher) on the eval
-    slice and leaves it out of PPO (reference ppo_cse/__init__.py:140-147)."""
+    slice and leaves it out of PPO (reference ppo_cse/__init__.py:140-147).
+
+    With an env `mesh` (parallel/mesh.make_mesh) the counts `num_envs`,
+    `num_train_envs` and `num_eval_envs` are the rank's, `rows` maps them
+    to the global batch (`num_envs_global`), and each slice's count must
+    divide over the ranks."""
 
     def __init__(self, cfg: Cfg, model: RobotModel | None = None,
                  terrain_seed: int = 0, eval_cfg: Cfg | None = None,
-                 device="cuda"):
+                 device=None, mesh: "mesh_mod.EnvMesh | None" = None):
+        if device is None:
+            device = mesh.device if mesh is not None else "cuda"
         self.device = torch.device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the env is on {self.device}, its mesh on "
+                             f"{mesh.device}")
+        self.mesh = mesh
         if self.device.type == "cuda":
             # float32 throughout: products must not drop to TF32
             if torch.backends.cuda.matmul.allow_tf32 is not False:
@@ -176,8 +200,11 @@ class LeggedRobotEnv:
         self.eval_cfg = eval_cfg
         self.model = model or go1()
         m = self.model
-        self.num_train_envs = cfg.env.num_envs
-        self.num_eval_envs = eval_cfg.env.num_envs if eval_cfg else 0
+        self.rows = mesh_mod.env_rows(
+            mesh, cfg.env.num_envs, eval_cfg.env.num_envs if eval_cfg else 0)
+        self.num_train_envs = self.rows.t
+        self.num_eval_envs = self.rows.e
+        self.num_envs_global = self.rows.num_envs
         if eval_cfg is not None:
             # the reference's per-split cfg dispatch (_call_train_eval,
             # legged_robot.py:531-544) covers these sections; the rest of
@@ -192,13 +219,13 @@ class LeggedRobotEnv:
                                  "domain_rand, commands, terrain and "
                                  "env.num_envs")
             cfg = dataclasses.replace(cfg, env=dataclasses.replace(
-                cfg.env, num_envs=self.num_train_envs + self.num_eval_envs))
+                cfg.env, num_envs=self.num_envs_global))
             self.cfg = cfg
         self.eval_commands_differ = (
             eval_cfg is not None and eval_cfg.commands != cfg.commands)
         self.eval_terrain_differs = (
             eval_cfg is not None and eval_cfg.terrain != cfg.terrain)
-        self.num_envs = cfg.env.num_envs
+        self.num_envs = self.rows.n
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
         self.num_actions = cfg.env.num_actions
@@ -221,21 +248,23 @@ class LeggedRobotEnv:
                 terrain_mod.build(eval_cfg.terrain, seed=terrain_seed + 1))
             origins = np.concatenate([
                 terrain_mod.assign_env_origins(
-                    cfg.terrain, combined, self.num_train_envs, np_rng),
+                    cfg.terrain, combined, self.rows.num_train, np_rng),
                 terrain_mod.assign_env_origins(
-                    eval_cfg.terrain, ev_shifted, self.num_eval_envs,
+                    eval_cfg.terrain, ev_shifted, self.rows.num_eval,
                     np_rng)], axis=0)
             self.terrain = self._field(combined, dev)
         elif cfg.terrain.mesh_type in hf_types:
             arrays = terrain_mod.build(cfg.terrain, seed=terrain_seed)
             self.terrain = self._field(arrays, dev)
             origins = terrain_mod.assign_env_origins(
-                cfg.terrain, arrays, self.num_envs, np_rng)
+                cfg.terrain, arrays, self.num_envs_global, np_rng)
         else:
             self.terrain = engine.flat_terrain(dev)
-            origins = terrain_mod.grid_env_origins(self.num_envs)
-        self.env_origins = torch.tensor(np.asarray(origins),
-                                        dtype=torch.float32, device=dev)
+            origins = terrain_mod.grid_env_origins(self.num_envs_global)
+        # the global batch's origins, then the rank's rows
+        self.env_origins = torch.tensor(
+            self.rows.take(np.asarray(origins)), dtype=torch.float32,
+            device=dev)
         self.rough = tuple(self.terrain.height.shape) != (2, 2)
 
         self.sim_params = engine.SimParams(
@@ -365,9 +394,18 @@ class LeggedRobotEnv:
     # -- random draws -------------------------------------------------------
     def _uniform(self, gen, shape, lo=0.0, hi=1.0):
         """U[lo, hi) of `shape` on the env's device; lo/hi scalars or
-        tensors that broadcast against `shape`."""
+        tensors that broadcast against `shape`.  One draw for the whole
+        batch (gravity): every rank makes the same."""
         u = torch.rand(tuple(shape), generator=gen, device=self.device)
         return lo + u * (hi - lo)
+
+    def _env_uniform(self, gen, shape_extra=(), lo=0.0, hi=1.0):
+        """U[lo, hi) of (num_envs,) + `shape_extra`: the rank's rows of the
+        draw over the global batch, so every rank's stream stays the one
+        rank's (parallel/mesh.py)."""
+        u = torch.rand((self.num_envs_global,) + tuple(shape_extra),
+                       generator=gen, device=self.device)
+        return lo + self.rows.take(u) * (hi - lo)
 
     # -- noise ------------------------------------------------------------
     def _make_noise_vec(self) -> torch.Tensor:
@@ -427,7 +465,7 @@ class LeggedRobotEnv:
         """Per-env uniform sample inside the split-aware range; `default`
         where that randomization is off for the env's slice."""
         lo, hi, on = self._dr_split(flag_name, range_name)
-        u = self._uniform(gen, (self.num_envs,) + tuple(shape_extra))
+        u = self._env_uniform(gen, shape_extra)
         ex = (slice(None),) + (None,) * len(shape_extra)
         return torch.where(on[ex], lo[ex] + u * (hi[ex] - lo[ex]),
                            float(default))
@@ -650,7 +688,7 @@ class LeggedRobotEnv:
                   > 1.0) * 1.0
             obs = torch.cat([obs, cs], dim=-1)
         if cfg.noise.add_noise:
-            noise = 2 * self._uniform(gen, obs.shape) - 1
+            noise = 2 * self._env_uniform(gen, obs.shape[1:]) - 1
             obs = obs + noise * self.noise_scale_vec[None, :]
         return obs
 
@@ -741,22 +779,22 @@ class LeggedRobotEnv:
         cfg = self.cfg
         N = self.num_envs
         dev = self.device
-        q = self.default_dof_pos[None, :] * self._uniform(
-            gen, (N, 12), 0.5, 1.5)
+        q = self.default_dof_pos[None, :] * self._env_uniform(
+            gen, (12,), 0.5, 1.5)
         pos = self.env_origins + torch.tensor(
             cfg.init_state.pos, dtype=torch.float32, device=dev)
         span = torch.tensor([cfg.terrain.x_init_range,
                              cfg.terrain.y_init_range], device=dev)
-        xy = self._uniform(gen, (N, 2), -span, span)
+        xy = self._env_uniform(gen, (2,), -span, span)
         if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
             off = torch.tensor([cfg.terrain.x_init_offset,
                                 cfg.terrain.y_init_offset], device=dev)
             pos = torch.cat([pos[:, :2] + xy + off, pos[:, 2:]], dim=1)
-        yaw = self._uniform(gen, (N,), -cfg.terrain.yaw_init_range,
-                            cfg.terrain.yaw_init_range)
+        yaw = self._env_uniform(gen, (), -cfg.terrain.yaw_init_range,
+                                cfg.terrain.yaw_init_range)
         quat = qops.quat_from_angle_axis(
             yaw, torch.tensor([0.0, 0.0, 1.0], device=dev))
-        vel6 = self._uniform(gen, (N, 6), -0.5, 0.5)
+        vel6 = self._env_uniform(gen, (6,), -0.5, 0.5)
         return engine.PhysicsState(
             base_pos=pos, base_quat=quat,
             base_lin_vel=vel6[:, :3], base_ang_vel=vel6[:, 3:],
@@ -959,9 +997,9 @@ class LeggedRobotEnv:
         # 7. push robots (legged_robot.py:693-694, 1017-1026)
         if cfg.domain_rand.push_robots:
             push_mask = (episode_length % self.push_interval) == 0
-            pv = self._uniform(gen, (N, 2),
-                               -cfg.domain_rand.max_push_vel_xy,
-                               cfg.domain_rand.max_push_vel_xy)
+            pv = self._env_uniform(gen, (2,),
+                                   -cfg.domain_rand.max_push_vel_xy,
+                                   cfg.domain_rand.max_push_vel_xy)
             new_lin = torch.where(
                 push_mask[:, None],
                 torch.cat([pv, state.phys.base_lin_vel[:, 2:]], -1),
@@ -1145,8 +1183,6 @@ class LeggedRobotEnv:
         N = self.num_envs
         dev = self.device
         rew_total = torch.zeros(N, device=dev)
-        rew_pos = torch.zeros(N, device=dev)
-        rew_neg = torch.zeros(N, device=dev)
         zero = torch.zeros(N, device=dev)
         cmd_key_idx = {k: i for i, k in enumerate(COMMAND_SUM_KEYS)}
         ep_cols = []
@@ -1154,9 +1190,6 @@ class LeggedRobotEnv:
         for i, name in enumerate(self.reward_names):
             r = rew_mod.TERMS[name](ctx) * self.reward_scales[i]
             rew_total = rew_total + r
-            s = torch.sum(r)
-            rew_pos = rew_pos + torch.where(s >= 0, r, zero)
-            rew_neg = rew_neg + torch.where(s < 0, r, zero)
             ep_cols.append(r)
             if name in cmd_key_idx:
                 j = cmd_key_idx[name]
@@ -1169,6 +1202,15 @@ class LeggedRobotEnv:
         if cfg.rewards.only_positive_rewards:
             rew_total = torch.clamp(rew_total, min=0.0)
         elif cfg.rewards.only_positive_rewards_ji22_style:
+            # a term counts as positive or negative by the sign of its sum
+            # over the whole batch (every rank's envs)
+            sums = self.rows.all_reduce_sum(
+                [torch.stack([torch.sum(r) for r in ep_cols])])[0]
+            rew_pos = torch.zeros(N, device=dev)
+            rew_neg = torch.zeros(N, device=dev)
+            for i, r in enumerate(ep_cols):
+                rew_pos = rew_pos + torch.where(sums[i] >= 0, r, zero)
+                rew_neg = rew_neg + torch.where(sums[i] < 0, r, zero)
             rew_total = rew_pos * torch.exp(rew_neg / cfg.rewards.sigma_rew_neg)
         ep_cols.append(rew_total)
         ep_sums = state.episode_sums + torch.stack(ep_cols, dim=1)
@@ -1194,25 +1236,36 @@ class LeggedRobotEnv:
         command_curriculum flag only gates extras logging."""
         K = len(curr.TASK_KEYS)
         lim = self.max_episode_length
-        T = self.num_train_envs
-        splits = [(slice(0, T if self.eval_commands_differ else None),
-                   state.curriculum, self.curr_grid, self._curr_adjacency,
-                   self.cfg.commands, min(lim, self.resample_interval))]
+        rows = self.rows
+        T = rows.num_train
+        # (global rows of the split, this rank's rows of a draw over them)
+        if self.eval_commands_differ:
+            whole = [(slice(0, T), rows.take_train),
+                     (slice(T, None), rows.take_eval)]
+        else:
+            whole = [(slice(None), rows.take)]
+        splits = [(whole[0], state.curriculum, self.curr_grid,
+                   self._curr_adjacency, self.cfg.commands,
+                   min(lim, self.resample_interval))]
         if self.eval_commands_differ:
             ev = self.eval_cfg.commands
-            splits.append((slice(T, None), state.curriculum_eval,
+            splits.append((whole[1], state.curriculum_eval,
                            self.curr_grid_eval, self._curr_adjacency_eval, ev,
                            min(lim, int(ev.resampling_time / self.dt))))
+        # the curriculum scores every env of the batch: the ranks' rows
+        # gathered first (one collective)
+        g_mask, g_bins, g_cats, g_sums = rows.gather(
+            [mask, state.env_command_bins, state.env_command_categories,
+             state.command_sums[:, :K]])
         curs, parts = [], []
-        for sl, cur, grid, adjacency, _, ep_len in splits:
+        for (sl, _), cur, grid, adjacency, _, ep_len in splits:
             curs.append(curr.update(
-                cur, grid, mask[sl], state.env_command_bins[sl],
-                state.env_command_categories[sl],
-                state.command_sums[sl, :K] / ep_len, self.task_thresholds,
+                cur, grid, g_mask[sl], g_bins[sl], g_cats[sl],
+                g_sums[sl] / ep_len, self.task_thresholds,
                 adjacency=adjacency))
-        for (sl, _, grid, _, cmd_cfg, _), cur in zip(splits, curs):
-            n = mask[sl].shape[0]
-            cmds, bins, cats = curr.sample(cur, grid, gen, n)
+        for ((sl, keep), _, grid, _, cmd_cfg, _), cur in zip(splits, curs):
+            n = g_mask[sl].shape[0]
+            cmds, bins, cats = curr.sample(cur, grid, gen, n, keep)
             parts.append((curr.postprocess_gaitwise(cmds, cats, cmd_cfg),
                           bins, cats))
         new_cmds, new_bins, new_cats = (torch.cat(x) for x in zip(*parts))
@@ -1307,9 +1360,10 @@ class LeggedRobotEnv:
             state, torch.ones(self.num_envs, dtype=torch.bool,
                               device=self.device), gen)
         if random_episode_lengths:
-            state = state._replace(episode_length=torch.randint(
-                0, self.max_episode_length, (self.num_envs,), generator=gen,
-                device=self.device, dtype=torch.int32))
+            state = state._replace(episode_length=self.rows.take(
+                torch.randint(0, self.max_episode_length,
+                              (self.num_envs_global,), generator=gen,
+                              device=self.device, dtype=torch.int32)))
         state, obs_dict, _, _, _ = self.step(
             state, torch.zeros((self.num_envs, self.num_actions),
                                device=self.device))

@@ -29,6 +29,19 @@ Parity notes (semantics matched to the reference, file:line):
 - a second Adam(1e-3) trains only the adaptation module on MSE(pred, priv)
   over the first 80% of each minibatch, with the remaining 20% as test loss
   (ppo.py:163-192); it runs after the main step on the updated params.
+
+Data parallel over an env mesh (parallel/mesh.py; the env's `rows` split
+over several ranks): each rank rolls out its rows, and the iteration keeps
+the one-rank meaning.  The action noise is drawn for the whole batch and
+the rank keeps its rows; the advantages are normalised with the batch's
+mean and population deviation; the one permutation is of the global
+(steps x train envs) batch, drawn from the replicated generator, and
+minibatch i is its positions [i mb, (i + 1) mb): each rank sums its losses
+over its own samples there and divides by the global mb, and the
+80 / 20 adaptation split is by position in the minibatch.  The gradients
+and the mean KL are summed over the ranks before the clip, the learning
+rate and the Adam step, so every rank takes the same step; the logged
+metrics are global.  Nothing of the rollout leaves its rank.
 """
 from __future__ import annotations
 
@@ -39,6 +52,7 @@ import numpy as np
 import torch
 
 from ..models import actor_critic as ac
+from ..parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,11 +176,12 @@ def collect(env, env_state, obs_dict, policy: ac.ActorCritic,
     ep_count_done, ep_len_done, eval_ep_sums_done, eval_ep_count_done,
     eval_ep_len_done, envelope_exits))."""
     T = env.num_train_envs
+    draw = env_rows(env).train_draw()
     steps, logs = [], []
     for _ in range(num_steps):
         hist = obs_dict["obs_history"][:T]
         priv = obs_dict["privileged_obs"][:T]
-        actions, logp, mu, sigma = policy.sample_actions(hist, gen)
+        actions, logp, mu, sigma = policy.sample_actions(hist, gen, draw)
         env_actions = actions
         if env.num_eval_envs > 0:
             hist_ev = obs_dict["obs_history"][T:]
@@ -193,10 +208,20 @@ def collect(env, env_state, obs_dict, policy: ac.ActorCritic,
     return env_state, obs_dict, traj, logs
 
 
+def env_rows(env) -> mesh_mod.EnvRows:
+    """The env's rows (parallel/mesh.EnvRows); one rank's rows of its train
+    envs for an env that has none."""
+    rows = getattr(env, "rows", None)
+    return rows if rows is not None else mesh_mod.env_rows(
+        None, env.num_train_envs)
+
+
 def compute_gae(traj: Transition, last_values: torch.Tensor,
-                gamma: float, lam: float):
+                gamma: float, lam: float, rows=None):
     """Reverse scan over the (T, N) rollout.  Returns (returns (T, N),
-    advantages normalized over the whole batch (T, N))."""
+    advantages normalized over the whole batch (T, N)): with `rows` (a
+    split env's) over every rank's envs, the mean and the population
+    deviation summed over the ranks."""
     T = traj.rewards.shape[0]
     adv = torch.zeros_like(last_values)
     advs = [None] * T
@@ -210,8 +235,12 @@ def compute_gae(traj: Transition, last_values: torch.Tensor,
         next_values = traj.values[k]
     advs = torch.stack(advs)
     returns = advs + traj.values
-    norm_advs = (advs - advs.mean()) / (advs.std(unbiased=False) + 1e-8)
-    return returns, norm_advs
+    if rows is None:
+        rows = mesh_mod.env_rows(None, advs.shape[1])
+    n = advs.shape[0] * rows.num_train
+    mean = rows.all_reduce_sum([advs.sum()])[0] / n
+    var = rows.all_reduce_sum([torch.sum(torch.square(advs - mean))])[0] / n
+    return returns, (advs - mean) / (torch.sqrt(var) + 1e-8)
 
 
 def _clip_by_global_norm(params, max_norm: float):
@@ -225,13 +254,14 @@ def _clip_by_global_norm(params, max_norm: float):
 
 
 @torch.no_grad()
-def mean_kl(mean, std, old_mu, old_sigma):
-    """Mean over the batch of KL(old || new) of the diagonal Gaussians."""
+def mean_kl(mean, std, old_mu, old_sigma, n: int):
+    """This rank's part of the mean over a minibatch of `n` samples (spread
+    over the ranks) of KL(old || new) of the diagonal Gaussians."""
     kl = torch.sum(
         torch.log(std / old_sigma + 1e-5)
         + (torch.square(old_sigma) + torch.square(old_mu - mean))
         / (2.0 * torch.square(std)) - 0.5, dim=-1)
-    return torch.mean(kl)
+    return torch.sum(kl) / n
 
 
 def adaptive_lr(lr, kl_mean, args: PPO_Args):
@@ -249,49 +279,58 @@ def adaptive_lr(lr, kl_mean, args: PPO_Args):
 
 
 def ppo_loss(mean, std, value, actions, old_log_probs, advantages,
-             target_values, returns, args: PPO_Args):
+             target_values, returns, args: PPO_Args, n: int):
     """(loss, surrogate loss, value loss) of one minibatch: the clipped
     surrogate, the clipped value loss (ppo.py:100-116) and the entropy
-    bonus."""
+    bonus, each this rank's part of the mean over the minibatch's `n`
+    samples (spread over the ranks)."""
     ratio = torch.exp(ac.gaussian_log_prob(actions, mean, std)
                       - old_log_probs)
     surr = -advantages * ratio
     surr_clipped = -advantages * torch.clamp(
         ratio, 1.0 - args.clip_param, 1.0 + args.clip_param)
-    s_loss = torch.mean(torch.maximum(surr, surr_clipped))
+    s_loss = torch.sum(torch.maximum(surr, surr_clipped)) / n
     if args.use_clipped_value_loss:
         v_clipped = target_values + torch.clamp(
             value - target_values, -args.clip_param, args.clip_param)
-        v_loss = torch.maximum(torch.square(value - returns),
-                               torch.square(v_clipped - returns)).mean()
+        v_loss = torch.sum(torch.maximum(
+            torch.square(value - returns),
+            torch.square(v_clipped - returns))) / n
     else:
-        v_loss = torch.square(returns - value).mean()
+        v_loss = torch.sum(torch.square(returns - value)) / n
     entropy = ac.gaussian_entropy(std)
     loss = s_loss + args.value_loss_coef * v_loss \
-        - args.entropy_coef * entropy.mean()
+        - args.entropy_coef * torch.sum(entropy) / n
     return loss, s_loss, v_loss
 
 
 def main_step(main_opt, lr, loss, mean, std, old_mu, old_sigma,
-              args: PPO_Args):
+              args: PPO_Args, rows, n: int):
     """The main Adam step of one minibatch: backward, the KL-adaptive
     learning rate set BEFORE the step (ppo.py:118-132), the global-norm
     clip over every parameter, the step.  A parameter the loss does not
     reach steps on a zero gradient, as in the JAX package's optax Adam,
     which spans every parameter (torch's Adam would skip one whose grad is
-    None, and its moments and step count would fall behind).  Returns (lr,
-    mean KL)."""
+    None, and its moments and step count would fall behind).  The loss is
+    the rank's part of `rows` (a split env's; `n` the minibatch's global
+    size), and the gradients and the KL are summed over the ranks first, in
+    one collective (none on one rank).  Returns (lr, mean KL)."""
     params = [p for g in main_opt.param_groups for p in g["params"]]
     main_opt.zero_grad(set_to_none=True)
     loss.backward()
-    kl_mean = mean_kl(mean, std, old_mu, old_sigma)
-    lr = adaptive_lr(lr, kl_mean, args)
-    for group in main_opt.param_groups:
-        group["lr"] = float(lr)
+    kl_mean = mean_kl(mean, std, old_mu, old_sigma, n)
     with torch.no_grad():
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        *grads, kl_mean = rows.all_reduce_sum(
+            [p.grad for p in params] + [kl_mean])
+        for p, g in zip(params, grads):
+            p.grad = g
+    lr = adaptive_lr(lr, kl_mean, args)
+    for group in main_opt.param_groups:
+        group["lr"] = float(lr)
+    with torch.no_grad():
         _clip_by_global_norm(params, args.max_grad_norm)
     main_opt.step()
     return lr, kl_mean
@@ -306,59 +345,129 @@ def flatten_rollout(traj: Transition, returns, advantages):
         traj.mu, traj.sigma, traj.values, returns, advantages))
 
 
+def minibatches(data, perm, num_mini_batches: int, rows):
+    """([(minibatch columns, positions in the minibatch)], mb): minibatch
+    i is the global positions [i mb, (i + 1) mb) of `perm`, a permutation
+    of the global (steps x train envs) batch of `rows` (the env's), with
+    mb = batch // num_mini_batches; of it, this rank's samples in `data`,
+    its flattened rollout, and their positions there.  On one rank these
+    are the contiguous slices of the data shuffled by `perm`."""
+    T, t, r0 = rows.num_train, rows.t, rows.train.start
+    env = perm % T
+    mine = (env >= r0) & (env < r0 + t)
+    local = (perm // T) * t + (env - r0)
+    mb = perm.shape[0] // num_mini_batches
+    out = []
+    for i in range(num_mini_batches):
+        seg = slice(i * mb, (i + 1) * mb)
+        pos = torch.nonzero(mine[seg]).squeeze(1)
+        out.append((tuple(x[local[seg][pos]] for x in data), pos))
+    return out, mb
+
+
+def split_mse(pred, target, pos, num_train: int, mb: int):
+    """(MSE over the minibatch's first `num_train` positions, MSE over the
+    rest, without gradient): the adaptation module's train and test losses
+    (ppo.py:163-192): the rank's parts of them, `pos` its samples'
+    positions in the minibatch of `mb`."""
+    sq = torch.square(pred - target)
+    first = (pos < num_train)[:, None]
+    zero = torch.zeros((), device=sq.device)
+    width = sq.shape[1]
+    return (torch.sum(torch.where(first, sq, zero)) / (num_train * width),
+            torch.sum(torch.where(first, zero, sq)).detach()
+            / ((mb - num_train) * width))
+
+
+def adapt_step(adapt_opt, adapt_params, loss, rows):
+    """The adaptation module's Adam step on `loss`, its gradients summed
+    over the ranks of `rows`."""
+    grads = rows.all_reduce_sum(torch.autograd.grad(loss, adapt_params))
+    for p, g in zip(adapt_params, grads):
+        p.grad = g
+    adapt_opt.step()
+
+
+def update_metrics(per_mb, lrs, rows):
+    """UpdateMetrics of the (minibatches, 5) rows [value, surrogate,
+    adaptation, adaptation test loss, KL]: the four losses are the ranks'
+    parts, summed here in one collective (the KL is global already)."""
+    m = torch.stack(per_mb)
+    m = torch.cat([rows.all_reduce_sum([m[:, :4]])[0], m[:, 4:]], dim=1)
+    return UpdateMetrics(
+        value_loss=m[:, 0], surrogate_loss=m[:, 1], adaptation_loss=m[:, 2],
+        adaptation_test_loss=m[:, 3], kl=m[:, 4], lr=tuple(lrs))
+
+
 def update(policy: ac.ActorCritic, optimizers, lr: float, data, perm,
-           args: PPO_Args = PPO_Args()):
+           args: PPO_Args = PPO_Args(), rows=None):
     """The PPO update on one flattened rollout: `data` the nine
     (batch, ...) columns of `flatten_rollout`, `perm` one (batch,)
     permutation.  The data is shuffled ONCE; minibatches are contiguous
     slices of it, in the same order in every epoch.  `optimizers` =
     (main Adam over all parameters, Adam over the adaptation module).
-    Updates `policy` and the optimizers in place.  Returns (lr after the
-    last minibatch, UpdateMetrics)."""
+    Updates `policy` and the optimizers in place.  `rows` are the env's
+    (one rank's of `perm`'s batch by default): `data` is the rank's
+    rollout and `perm` the global batch's (see `minibatches`).  Returns (lr
+    after the last minibatch, UpdateMetrics)."""
     main_opt, adapt_opt = optimizers
     adapt_params = [p for g in adapt_opt.param_groups for p in g["params"]]
-    data = tuple(x[perm] for x in data)
-    batch = data[0].shape[0]
-    mb = batch // args.num_mini_batches
+    if rows is None:
+        rows = mesh_mod.env_rows(None, perm.shape[0])
+    batches, mb = minibatches(data, perm, args.num_mini_batches, rows)
     lr = np.float32(lr)
-    rows = []
+    per_mb = []
     lrs = []
     for _ in range(args.num_learning_epochs):
-        for i in range(args.num_mini_batches):
+        for cols, pos in batches:
             (hist_mb, priv_mb, act_mb, old_logp_mb, old_mu_mb, old_sigma_mb,
-             tv_mb, ret_mb, adv_mb) = (x[i * mb:(i + 1) * mb] for x in data)
+             tv_mb, ret_mb, adv_mb) = cols
 
             mean = policy.actor_mean(hist_mb)
             std = policy.std.expand_as(mean)
             loss, s_loss, v_loss = ppo_loss(
                 mean, std, policy.evaluate(hist_mb, priv_mb), act_mb,
-                old_logp_mb, adv_mb, tv_mb, ret_mb, args)
+                old_logp_mb, adv_mb, tv_mb, ret_mb, args, mb)
             lr, kl_mean = main_step(main_opt, lr, loss, mean, std, old_mu_mb,
-                                    old_sigma_mb, args)
+                                    old_sigma_mb, args, rows, mb)
             lrs.append(float(lr))
 
             # adaptation substep on the updated params (ppo.py:163-192)
-            num_train = hist_mb.shape[0] // 5 * 4
+            num_train = mb // 5 * 4
             a_loss = torch.zeros((), device=hist_mb.device)
             a_test = torch.zeros((), device=hist_mb.device)
             for _ in range(args.num_adaptation_module_substeps):
                 pred = policy.adaptation_forward(hist_mb)
-                a_loss = torch.mean(
-                    torch.square(pred[:num_train] - priv_mb[:num_train]))
-                with torch.no_grad():
-                    a_test = torch.mean(
-                        torch.square(pred[num_train:] - priv_mb[num_train:]))
-                grads = torch.autograd.grad(a_loss, adapt_params)
-                for p, g in zip(adapt_params, grads):
-                    p.grad = g
-                adapt_opt.step()
-            rows.append(torch.stack([v_loss.detach(), s_loss.detach(),
-                                     a_loss.detach(), a_test, kl_mean]))
+                a_loss, a_test = split_mse(pred, priv_mb, pos, num_train, mb)
+                adapt_step(adapt_opt, adapt_params, a_loss, rows)
+            per_mb.append(torch.stack([v_loss.detach(), s_loss.detach(),
+                                       a_loss.detach(), a_test, kl_mean]))
     main_opt.zero_grad(set_to_none=True)
-    m = torch.stack(rows)
-    return float(lr), UpdateMetrics(
-        value_loss=m[:, 0], surrogate_loss=m[:, 1], adaptation_loss=m[:, 2],
-        adaptation_test_loss=m[:, 3], kl=m[:, 4], lr=tuple(lrs))
+    return float(lr), update_metrics(per_mb, lrs, rows)
+
+
+def iter_metrics(ms: UpdateMetrics, lr, traj, logs, env_state, rows):
+    """The iteration's IterMetrics from the update's metrics, the rollout
+    and its per-step logs: the reward mean and the episode statistics
+    summed over the ranks of `rows` (the env's) in one collective."""
+    total, *ep = rows.all_reduce_sum([
+        traj.rewards.sum(), logs[0].sum(dim=0), logs[1].sum(), logs[2].sum(),
+        logs[3].sum(dim=0), logs[4].sum(), logs[5].sum(), logs[6].sum()])
+    mean_reward = total / (traj.rewards.shape[0] * rows.num_train)
+    return IterMetrics(
+        value_loss=ms.value_loss.mean(),
+        surrogate_loss=ms.surrogate_loss.mean(),
+        adaptation_loss=ms.adaptation_loss.mean(),
+        adaptation_test_loss=ms.adaptation_test_loss.mean(),
+        mean_kl=ms.kl.mean(),
+        lr=lr,
+        mean_reward=mean_reward,
+        ep_sums_done=ep[0], ep_count_done=ep[1], ep_len_done=ep[2],
+        eval_ep_sums_done=ep[3], eval_ep_count_done=ep[4],
+        eval_ep_len_done=ep[5],
+        curriculum_area=torch.mean(env_state.curriculum.weights, dim=-1),
+        envelope_exits=ep[6],
+    )
 
 
 # -- the iteration -------------------------------------------------------------
@@ -375,6 +484,7 @@ def make_train_iteration(env, args: PPO_Args = PPO_Args(),
     feed PPO; eval envs after them act deterministically (see `collect`,
     `eval_expert`) and give only the eval episode metrics."""
     T = env.num_train_envs
+    rows = env_rows(env)
 
     def train_iteration(env_state, obs_dict, ts: TrainState):
         policy = ts.policy
@@ -388,32 +498,16 @@ def make_train_iteration(env, args: PPO_Args = PPO_Args(),
             last_values = policy.evaluate(obs_dict["obs_history"][:T],
                                           obs_dict["privileged_obs"][:T])
             returns, advantages = compute_gae(traj, last_values, args.gamma,
-                                              args.lam)
+                                              args.lam, rows)
 
         # -- update: one permutation, reused across epochs ----------------
         data = flatten_rollout(traj, returns, advantages)
-        perm = torch.randperm(data[0].shape[0], generator=ts.rng,
+        perm = torch.randperm(num_steps * rows.num_train, generator=ts.rng,
                               device=data[0].device)
         lr, ms = update(policy, (ts.optimizer, ts.adapt_optimizer), ts.lr,
-                        data, perm, args)
+                        data, perm, args, rows)
 
-        metrics = IterMetrics(
-            value_loss=ms.value_loss.mean(),
-            surrogate_loss=ms.surrogate_loss.mean(),
-            adaptation_loss=ms.adaptation_loss.mean(),
-            adaptation_test_loss=ms.adaptation_test_loss.mean(),
-            mean_kl=ms.kl.mean(),
-            lr=lr,
-            mean_reward=traj.rewards.mean(),
-            ep_sums_done=logs[0].sum(dim=0),
-            ep_count_done=logs[1].sum(),
-            ep_len_done=logs[2].sum(),
-            eval_ep_sums_done=logs[3].sum(dim=0),
-            eval_ep_count_done=logs[4].sum(),
-            eval_ep_len_done=logs[5].sum(),
-            curriculum_area=torch.mean(env_state.curriculum.weights, dim=-1),
-            envelope_exits=logs[6].sum(),
-        )
+        metrics = iter_metrics(ms, lr, traj, logs, env_state, rows)
         ts = dataclasses.replace(ts, lr=lr, iteration=ts.iteration + 1)
         return env_state, obs_dict, ts, metrics
 

@@ -27,6 +27,10 @@ Parity notes (semantics matched to the JAX package, file:line there):
   optimizer's do
 - `adaptation_test_loss` is `adaptation_loss`: the RMA update has no 80/20
   split (:239-244)
+
+Data parallel over an env mesh as learn/ppo.py is (its module docstring):
+the teacher's noise over the whole batch, the global permutation's
+minibatches, the losses' parts summed over the ranks with the gradients.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 from torch import nn
 
 from ..models import actor_critic as ac
+from ..parallel import mesh as mesh_mod
 from . import ppo
 
 
@@ -94,12 +99,14 @@ class RMAPolicy(nn.Module):
         latent = self.encoder(privileged_obs)
         return self.critic(torch.cat([obs, latent], dim=-1))[..., 0]
 
-    def sample_actions(self, obs, privileged_obs, generator: torch.Generator):
+    def sample_actions(self, obs, privileged_obs, generator: torch.Generator,
+                       rows=None):
         """Returns (actions, log_prob, mean, std) of the teacher; the noise
-        comes from the explicit `generator` (on the module's device)."""
+        comes from the explicit `generator` (on the module's device), `rows`
+        as in ActorCritic.sample_actions."""
         mean, _ = self.teacher_mean(obs, privileged_obs)
         std = self.std.expand_as(mean)
-        eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+        eps = ac.noise_like(mean, generator, rows)
         actions = mean + std * eps
         return actions, ac.gaussian_log_prob(actions, mean, std), mean, std
 
@@ -153,13 +160,14 @@ def collect(env, env_state, obs_dict, policy: RMAPolicy,
     RMATransition stacked over steps (the train envs), logs), `logs` as
     learn/ppo.collect's."""
     T = env.num_train_envs
+    draw = ppo.env_rows(env).train_draw()
     steps, logs = [], []
     for _ in range(num_steps):
         obs = obs_dict["obs"]
         priv = obs_dict["privileged_obs"]
         hist = obs_dict["obs_history"]
         actions, logp, mu, sigma = policy.sample_actions(obs[:T], priv[:T],
-                                                         gen)
+                                                         gen, draw)
         values = policy.evaluate(obs[:T], priv[:T])
         env_actions = actions
         if env.num_eval_envs > 0:
@@ -195,36 +203,36 @@ def flatten_rollout(traj: RMATransition, returns, advantages):
 
 
 def update(policy: RMAPolicy, optimizers, lr: float, data, perm,
-           args: ppo.PPO_Args = ppo.PPO_Args()):
+           args: ppo.PPO_Args = ppo.PPO_Args(), rows=None):
     """The PPO + distillation update on one flattened rollout: `data` the
     ten (batch, ...) columns of `flatten_rollout`, `perm` one (batch,)
     permutation, shuffled ONCE; minibatches are contiguous slices of it, in
     the same order in every epoch.  `optimizers` = (main Adam over every
     parameter, Adam over the adaptation module).  Updates `policy` and the
-    optimizers in place.  Returns (lr after the last minibatch,
-    learn/ppo.UpdateMetrics; its adaptation_test_loss is the
-    adaptation_loss)."""
+    optimizers in place.  `rows` as in learn/ppo.update.  Returns (lr after
+    the last minibatch, learn/ppo.UpdateMetrics; its adaptation_test_loss
+    is the adaptation_loss)."""
     main_opt, adapt_opt = optimizers
     adapt_params = [p for g in adapt_opt.param_groups for p in g["params"]]
-    data = tuple(x[perm] for x in data)
-    batch = data[0].shape[0]
-    mb = batch // args.num_mini_batches
+    if rows is None:
+        rows = mesh_mod.env_rows(None, perm.shape[0])
+    batches, mb = ppo.minibatches(data, perm, args.num_mini_batches, rows)
     lr = np.float32(lr)
-    rows = []
+    per_mb = []
     lrs = []
     for _ in range(args.num_learning_epochs):
-        for i in range(args.num_mini_batches):
+        for cols, _ in batches:
             (obs_mb, priv_mb, hist_mb, act_mb, old_logp_mb, old_mu_mb,
-             old_sigma_mb, tv_mb, ret_mb, adv_mb) = (
-                 x[i * mb:(i + 1) * mb] for x in data)
+             old_sigma_mb, tv_mb, ret_mb, adv_mb) = cols
 
             mean, _ = policy.teacher_mean(obs_mb, priv_mb)
             std = policy.std.expand_as(mean)
             loss, s_loss, v_loss = ppo.ppo_loss(
                 mean, std, policy.evaluate(obs_mb, priv_mb), act_mb,
-                old_logp_mb, adv_mb, tv_mb, ret_mb, args)
+                old_logp_mb, adv_mb, tv_mb, ret_mb, args, mb)
             lr, kl_mean = ppo.main_step(main_opt, lr, loss, mean, std,
-                                        old_mu_mb, old_sigma_mb, args)
+                                        old_mu_mb, old_sigma_mb, args,
+                                        rows, mb)
             lrs.append(float(lr))
 
             # distillation: adaptation(hist) -> encoder(priv), the encoder
@@ -232,19 +240,14 @@ def update(policy: RMAPolicy, optimizers, lr: float, data, perm,
             with torch.no_grad():
                 target = policy.encoder(priv_mb)
             pred = policy.adaptation(hist_mb)
-            a_loss = torch.mean(torch.square(pred - target))
-            grads = torch.autograd.grad(a_loss, adapt_params)
-            for p, g in zip(adapt_params, grads):
-                p.grad = g
-            adapt_opt.step()
+            a_loss = torch.sum(torch.square(pred - target)) / (
+                mb * pred.shape[1])
+            ppo.adapt_step(adapt_opt, adapt_params, a_loss, rows)
             a_loss = a_loss.detach()
-            rows.append(torch.stack([v_loss.detach(), s_loss.detach(),
-                                     a_loss, a_loss, kl_mean]))
+            per_mb.append(torch.stack([v_loss.detach(), s_loss.detach(),
+                                       a_loss, a_loss, kl_mean]))
     main_opt.zero_grad(set_to_none=True)
-    m = torch.stack(rows)
-    return float(lr), ppo.UpdateMetrics(
-        value_loss=m[:, 0], surrogate_loss=m[:, 1], adaptation_loss=m[:, 2],
-        adaptation_test_loss=m[:, 3], kl=m[:, 4], lr=tuple(lrs))
+    return float(lr), ppo.update_metrics(per_mb, lrs, rows)
 
 
 def make_train_iteration(env, args: ppo.PPO_Args = ppo.PPO_Args(),
@@ -257,6 +260,7 @@ def make_train_iteration(env, args: ppo.PPO_Args = ppo.PPO_Args(),
     The same contract as learn/ppo.make_train_iteration, so the Runner
     drives either variant."""
     T = env.num_train_envs
+    rows = ppo.env_rows(env)
 
     def train_iteration(env_state, obs_dict, ts: RMATrainState):
         policy = ts.policy
@@ -267,29 +271,13 @@ def make_train_iteration(env, args: ppo.PPO_Args = ppo.PPO_Args(),
             last_values = policy.evaluate(obs_dict["obs"][:T],
                                           obs_dict["privileged_obs"][:T])
             returns, advantages = ppo.compute_gae(traj, last_values,
-                                                  args.gamma, args.lam)
+                                                  args.gamma, args.lam, rows)
         data = flatten_rollout(traj, returns, advantages)
-        perm = torch.randperm(data[0].shape[0], generator=ts.rng,
+        perm = torch.randperm(num_steps * rows.num_train, generator=ts.rng,
                               device=data[0].device)
         lr, ms = update(policy, (ts.optimizer, ts.adapt_optimizer), ts.lr,
-                        data, perm, args)
-        metrics = ppo.IterMetrics(
-            value_loss=ms.value_loss.mean(),
-            surrogate_loss=ms.surrogate_loss.mean(),
-            adaptation_loss=ms.adaptation_loss.mean(),
-            adaptation_test_loss=ms.adaptation_test_loss.mean(),
-            mean_kl=ms.kl.mean(),
-            lr=lr,
-            mean_reward=traj.rewards.mean(),
-            ep_sums_done=logs[0].sum(dim=0),
-            ep_count_done=logs[1].sum(),
-            ep_len_done=logs[2].sum(),
-            eval_ep_sums_done=logs[3].sum(dim=0),
-            eval_ep_count_done=logs[4].sum(),
-            eval_ep_len_done=logs[5].sum(),
-            curriculum_area=torch.mean(env_state.curriculum.weights, dim=-1),
-            envelope_exits=logs[6].sum(),
-        )
+                        data, perm, args, rows)
+        metrics = ppo.iter_metrics(ms, lr, traj, logs, env_state, rows)
         ts = dataclasses.replace(ts, lr=lr, iteration=ts.iteration + 1)
         return env_state, obs_dict, ts, metrics
 

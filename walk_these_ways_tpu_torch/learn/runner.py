@@ -20,8 +20,15 @@ finished episodes are logged under `eval/episode/*`.  With
 `render_interval`, a short rollout of env 0 under the student policy is
 drawn to `videos/<iteration>.gif` every `render_interval` iterations.
 
-Not ported yet, raising NotImplementedError with its ROADMAP item: a device
-`mesh` and `shared_ckpt_dir` (22).
+With an env mesh (`mesh`, parallel/mesh.py; the env built on it holds
+its rank's rows), every rank runs this loop on its rows and the learner
+state stays replicated: `Runner(mesh=...)` broadcasts rank 0's after the
+reset, the command and action diagnostics are taken over every rank's
+train rows, and the timesteps count the global batch.  Only rank 0 writes
+`metrics.jsonl`, `.charts.yml`, `provenance.json`, the pickles (of the
+gathered state), the curriculum dumps, the videos and the export; every
+rank takes part in a shared-storage checkpoint (`shared_ckpt_dir`, or a
+directory given to `save` / `load`), which it writes its rows into.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 
 from ..envs import curriculum as curr
 from ..envs.go1_env import make_generator
+from ..parallel import mesh as mesh_mod
 from ..physics.engine import PhysicsState
 from ..utils import checkpoint as ckpt
 from ..utils import convert
@@ -51,9 +59,10 @@ class RunnerArgs:
     save_interval: int = 400
     log_freq: int = 10
     resume: bool = False
-    # *.pkl = local pickle (a shared-storage directory is item 22)
+    # *.pkl = local pickle; anything else = a shared-storage directory
     resume_path: Optional[str] = None
-    # shared-storage checkpoint directory (ROADMAP item 22)
+    # shared-storage checkpoint directory (utils/checkpoint.save_shared),
+    # committed at every save interval and at the end of `learn`
     shared_ckpt_dir: Optional[str] = None
     # curriculum weight-grid + per-bin reward-mean dump cadence (reference
     # curriculum_dump_freq=500, ppo_cse/__init__.py:107,193-202)
@@ -99,24 +108,28 @@ class Runner:
         reference ppo_cse/) or 'rma' (teacher-student with an env-factor
         encoder, reference ppo/, learn/ppo_rma.py).  Both variants emit the
         same IterMetrics, so logging, checkpoints and the export are
-        shared.  `mesh` (sharding the envs over several devices) is ROADMAP
-        item 22."""
+        shared.  `mesh` (parallel/mesh.EnvMesh) is the env's: it splits the
+        envs over its ranks (module docstring)."""
         algos = {"cse": ppo_mod, "rma": ppo_rma}
         if algo not in algos:
             raise ValueError(f"unknown algo {algo!r} (want 'cse' or 'rma')")
-        if mesh is not None or args.shared_ckpt_dir:
-            raise NotImplementedError(
-                "a device mesh and shared-storage checkpoints belong to the "
-                "multi-device slice of the port (ROADMAP item 22)")
+        if mesh is not None and mesh != env.mesh:
+            raise ValueError(f"Runner(mesh={mesh!r}) on an env built on "
+                             f"{env.mesh!r}: build the env with "
+                             "LeggedRobotEnv(..., mesh=mesh)")
+        self.mesh = env.mesh
+        self.rows = env.rows
+        self.rank0 = env.rows.mesh.rank == 0
         self._algo_mod = algos[algo]
         self.env = env
         self.args = args
         self.ppo_args = ppo_args
         self.algo = algo
         self.log_dir = log_dir
-        self.logger = MetricsLogger(log_dir)
-        self._write_chart_spec()
-        self._write_provenance(seed)
+        self.logger = MetricsLogger(log_dir) if self.rank0 else None
+        if self.rank0:
+            self._write_chart_spec()
+            self._write_provenance(seed)
 
         ts_seed, self._reset_seed = (
             int(x) for x in np.random.SeedSequence(seed).generate_state(2))
@@ -136,9 +149,12 @@ class Runner:
               init_at_random_ep_len: bool = True):
         n_iters = num_learning_iterations or self.args.max_iterations
         if self.env_state is None:
+            # an env on a mesh resets to its rank's rows of the one-rank
+            # reset; the learner state is rank 0's on every rank
             self.env_state, self.obs_dict = self.env.reset(
                 make_generator(self._reset_seed, self.env.device),
                 random_episode_lengths=init_at_random_ep_len)
+            mesh_mod.replicate(self.train_state, self.mesh)
 
         term_names = list(self.env.reward_names) + ["total"]
         ep_sums_acc = np.zeros(len(term_names))
@@ -159,12 +175,21 @@ class Runner:
                                 self.train_state)
             pending.append(metrics)
             self.tot_timesteps += self.args.num_steps_per_env \
-                * self.env.num_envs
+                * self.env.num_envs_global
 
             if (it + 1) % self.args.log_freq == 0:
                 iter_time = (time.time() - t_window) / max(len(pending), 1)
                 t_window = time.time()
-                for m in _drain(pending):
+                drained = _drain(pending) if self.rank0 else []
+                pending = []
+                # command/action range diagnostics over every rank's train
+                # rows (reference legged_robot.py:203-227)
+                n_tr = self.env.num_train_envs
+                cmds, acts = (
+                    x.cpu().numpy() for x in self.rows.train_only().gather(
+                        [self.env_state.commands[:n_tr],
+                         self.env_state.actions[:n_tr]]))
+                for m in drained:
                     ep_sums_acc += m["ep_sums_done"]
                     ep_count_acc += float(m["ep_count_done"])
                     ep_len_acc += float(m["ep_len_done"])
@@ -186,16 +211,10 @@ class Runner:
                     for c, name in enumerate(curr.CATEGORY_NAMES):
                         self.logger.store(**{f"command_area_{name}":
                                              float(area[c])})
-                pending = []
                 extra = {"iterations": it + 1, "timesteps": self.tot_timesteps,
                          # cumulative count of integrator-envelope crash
                          # terminations (healthy runs stay at 0)
                          "train/episode/envelope_exits_total": env_exit_acc}
-                # command/action range diagnostics at the same sync point
-                # (reference legged_robot.py:203-227)
-                n_tr = self.env.num_train_envs
-                cmds = self.env_state.commands[:n_tr].cpu().numpy()
-                acts = self.env_state.actions[:n_tr].cpu().numpy()
                 for key, col in (("duration", 8), ("bound", 7),
                                  ("offset", 6), ("phase", 5), ("freq", 4),
                                  ("x_vel", 0), ("y_vel", 1), ("yaw_vel", 2),
@@ -224,21 +243,25 @@ class Runner:
                 ev_sums_acc[:] = 0.0
                 ev_count_acc = 0.0
                 ev_len_acc = 0.0
-                row = self.logger.summary(**extra)
-                steps_s = self.tot_timesteps / max(time.time() - t_start, 1e-9)
-                print(f"it {it+1:5d} | rew/step "
-                      f"{row.get('mean_reward_per_step', 0):.4f} | "
-                      f"vloss {row.get('mean_value_loss', 0):.3f} | "
-                      f"aloss {row.get('adaptation_loss', 0):.5f} | "
-                      f"env-steps/s {steps_s:,.0f}", flush=True)
+                if self.rank0:
+                    row = self.logger.summary(**extra)
+                    steps_s = self.tot_timesteps / max(time.time() - t_start,
+                                                       1e-9)
+                    print(f"it {it+1:5d} | rew/step "
+                          f"{row.get('mean_reward_per_step', 0):.4f} | "
+                          f"vloss {row.get('mean_value_loss', 0):.3f} | "
+                          f"aloss {row.get('adaptation_loss', 0):.5f} | "
+                          f"env-steps/s {steps_s:,.0f}", flush=True)
 
-            if (it + 1) % self.args.curriculum_dump_freq == 0:
+            if self.rank0 and (it + 1) % self.args.curriculum_dump_freq == 0:
                 self.dump_curriculum(it + 1)
 
             if (it + 1) % self.args.save_interval == 0:
                 self.save(os.path.join(self.log_dir, "checkpoints",
                                        f"train_state_{it+1:06d}.pkl"))
                 self.export_policy(os.path.join(self.log_dir, "checkpoints"))
+                if self.args.shared_ckpt_dir:
+                    self.save(self.args.shared_ckpt_dir)
 
             if (self.args.render_interval
                     and (it + 1) % self.args.render_interval == 0):
@@ -247,6 +270,8 @@ class Runner:
         self.save(os.path.join(self.log_dir, "checkpoints",
                                "train_state_last.pkl"))
         self.export_policy(os.path.join(self.log_dir, "checkpoints"))
+        if self.args.shared_ckpt_dir:
+            self.save(self.args.shared_ckpt_dir)
         return self.train_state
 
     def _write_provenance(self, seed: int):
@@ -320,7 +345,7 @@ class Runner:
             "git_dirty": dirty,
             "seed": seed,
             "algo": self.algo,
-            "num_envs": self.env.num_envs,
+            "num_envs": self.env.num_envs_global,
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -398,7 +423,9 @@ class Runner:
         `render_steps` control steps into `videos/<it>.gif` (reference
         log_video, ppo_cse/__init__.py:277-296).  It steps a throwaway
         copy of the env state with a generator of its own, so neither the
-        training statistics nor the training generators' streams move."""
+        training statistics nor the training generators' streams move.  On
+        a mesh every rank steps its copy (the step's collectives need them
+        all) and rank 0, which holds env 0, draws."""
         from ..utils.render import render_trajectory
 
         pol = self.train_state.policy
@@ -415,6 +442,8 @@ class Runner:
                 state, obs, _, _, _ = self.env.step(state, actions)
                 frames.append(PhysicsState(*[x[0:1].clone()
                                              for x in state.phys]))
+        if not self.rank0:
+            return None
         out_dir = os.path.join(self.log_dir, "videos")
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"{it:05d}.gif")
@@ -424,38 +453,49 @@ class Runner:
         return path
 
     # -- persistence ------------------------------------------------------
-    # *.pkl = a local pickle of numpy arrays (utils/checkpoint); the
-    # shared-storage directory format is ROADMAP item 22.
-    def _state_tree(self):
+    # Path convention (the JAX runner's): *.pkl = a local pickle of numpy
+    # arrays of the whole batch (utils/checkpoint.save, written by rank 0
+    # from the gathered state); anything else = a shared-storage DIRECTORY
+    # (utils/checkpoint.save_shared) that every rank writes its rows into
+    # and any mesh resumes from — the analog of the reference Runner's
+    # ml_logger-server resume (ppo_cse/__init__.py:76-91).
+    def _state_tree(self, gathered: bool = False):
+        """The checkpoint tree of the rank's state, or with `gathered` of
+        the whole batch (every rank must call it then)."""
         ts = self.train_state
+        env_state, obs = self.env_state, self.obs_dict
+        if gathered:
+            env_state, obs = mesh_mod.gather_env_state((env_state, obs),
+                                                       self.rows)
         return {
             # the one layout holds either learner (convert.py)
             "train_state": dict(convert.train_state_to_numpy(ts),
                                 rng=ts.rng.get_state().numpy()),
-            "env_state": convert.env_state_to_numpy(self.env_state),
-            "obs_dict": {k: v.cpu().numpy()
-                         for k, v in self.obs_dict.items()},
+            "env_state": convert.env_state_to_numpy(env_state),
+            "obs_dict": {k: v.cpu().numpy() for k, v in obs.items()},
         }
 
-    @staticmethod
-    def _check_local(path: str):
-        if not path.endswith(".pkl"):
-            raise NotImplementedError(
-                "shared-storage checkpoint directories belong to the "
-                "multi-device slice of the port (ROADMAP item 22); give a "
-                "*.pkl path")
-
     def save(self, path: str):
-        self._check_local(path)
-        ckpt.save(path, self._state_tree())
+        if not path.endswith(".pkl"):
+            ckpt.save_shared(path, self._state_tree(), self.rows)
+            return
+        tree = self._state_tree(gathered=self.rows.distributed)
+        if self.rank0:
+            ckpt.save(path, tree)
 
     def load(self, path: str):
-        self._check_local(path)
         dev = self.env.device
         if self.env_state is None:
             self.env_state, self.obs_dict = self.env.reset(
                 make_generator(self._reset_seed, dev))
-        loaded = ckpt.restore_like(self._state_tree(), ckpt.load(path))
+        if path.endswith(".pkl"):
+            # the whole batch's pickle: this rank's rows of it
+            tree = ckpt.load(path)
+            loaded = ckpt.restore_like(self._state_tree(), dict(
+                tree, **{k: mesh_mod.shard_env_state(tree[k], self.rows)
+                         for k in ("env_state", "obs_dict")}))
+        else:
+            loaded = ckpt.load_shared(path, self._state_tree(), self.rows)
         tsd = loaded["train_state"]
         from_numpy = (convert.rma_train_state_from_numpy if self.algo == "rma"
                       else convert.train_state_from_numpy)
@@ -472,10 +512,13 @@ class Runner:
         """Deployment artifact: flat npz of adaptation + actor weights
         (the analog of {adaptation_module,body}_latest.jit,
         ppo_cse/__init__.py:240-251), key for key the JAX package's.
+        Written by rank 0 of a mesh.
 
         meta/variant records the actor input wiring — 'cse': actor(history
         + latent); 'rma': actor(obs + latent) (reference
         ppo/actor_critic.py:38-56)."""
+        if not self.rank0:
+            return
         os.makedirs(dirpath, exist_ok=True)
         pol = self.train_state.policy
 

@@ -97,12 +97,15 @@ class ActorCritic(nn.Module):
         v = self.critic(torch.cat([obs_history, privileged_obs], dim=-1))
         return v[..., 0]
 
-    def sample_actions(self, obs_history, generator: torch.Generator):
+    def sample_actions(self, obs_history, generator: torch.Generator,
+                       rows=None):
         """Returns (actions, log_prob, mean, std); the noise comes from the
-        explicit `generator` (on the module's device)."""
+        explicit `generator` (on the module's device).  With `rows` = (n,
+        slice) the noise is drawn for n envs and the slice's rows used (a
+        rank of a data-parallel run, parallel/mesh.EnvRows.train_draw)."""
         mean = self.actor_mean(obs_history)
         std = self.std.expand_as(mean)
-        eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+        eps = noise_like(mean, generator, rows)
         actions = mean + std * eps
         logp = gaussian_log_prob(actions, mean, std)
         return actions, logp, mean, std
@@ -115,6 +118,14 @@ def gaussian_log_prob(x, mean, std):
     lp = -0.5 * torch.square(x - mean) / var - torch.log(std) \
         - 0.5 * math.log(2 * math.pi)
     return torch.sum(lp, dim=-1)
+
+
+def noise_like(mean, generator, rows=None):
+    """Standard normal noise of `mean`'s shape: the rows `slice` of a draw
+    over n rows, `rows` = (n, slice) (default: all of `mean`'s)."""
+    n, keep = rows if rows is not None else (mean.shape[0], slice(None))
+    return torch.randn((n,) + tuple(mean.shape[1:]), generator=generator,
+                       device=mean.device)[keep]
 
 
 def gaussian_entropy(std):

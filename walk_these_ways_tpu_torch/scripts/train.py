@@ -10,9 +10,12 @@ local JSONL run dir.  Runs on the GPU only: without a CUDA device it raises.
 
 Usage: python -m walk_these_ways_tpu_torch.scripts.train
            [--num-envs 4000] [--iterations 1500] [--exact]
-           [--terrain rough] [--algo cse|rma] [--resume CKPT]
+           [--terrain rough] [--algo cse|rma] [--resume CKPT | DIR]
            [--num-eval-envs 400 [--eval-dr rand_large]
             [--eval-terrain rough] [--eval-expert]]
+           [--mesh] [--shared-ckpt DIR]
+       torchrun --nproc-per-node N -m walk_these_ways_tpu_torch.scripts.train
+           --mesh ...
 
 `--num-eval-envs` appends eval envs after the train envs (the reference's
 train/eval split): they act deterministically, stay out of PPO and are
@@ -20,9 +23,18 @@ logged under `eval/episode/*`; `--eval-dr` puts them under a DR preset of
 learn/eval_metrics.DR_SETTINGS, `--eval-terrain` on terrain rows of their
 own, `--eval-expert` hands them to the teacher.
 
-The flags of a later slice of the port raise NotImplementedError naming its
-ROADMAP item: `--mesh` and `--multihost` (22) and `--shared-ckpt` (22).  `train_go1` runs on a CUDA device; without one it
-raises unless `device="cpu"` is asked for.
+`--mesh` joins the process group that the launcher's variables describe
+(`torchrun` sets them; NCCL when every rank has a card of its own, gloo
+when ranks share one) and splits the envs over its ranks (env-axis data
+parallel, parallel/mesh.py); without the launcher it is one process, a
+mesh of one rank.  `--multihost` is another name for `--mesh`.
+`--num-envs` (and
+`--num-eval-envs`) count the whole batch and must divide over the ranks.
+`--shared-ckpt DIR` commits the train state to a shared-storage directory
+at every save interval and at the end, which every rank writes its rows
+into; `--resume DIR` resumes from one on any number of ranks.  `train_go1`
+runs on a CUDA device; without one it raises unless `device="cpu"` is
+asked for.
 """
 import argparse
 import dataclasses
@@ -33,7 +45,7 @@ from datetime import datetime
 def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
               num_eval_envs: int = 0, eval_expert: bool = False,
               algo: str = "cse", use_mesh: bool = False,
-              multihost: bool = False, exact: bool = False,
+              exact: bool = False,
               terrain: str = "flat", warm_start: bool | None = None,
               warm_iters: int | None = None, resume: str | None = None,
               eval_dr: str | None = None, eval_terrain: str | None = None,
@@ -47,16 +59,11 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
                                                       small_train_cfg)
     from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS
     from walk_these_ways_tpu_torch.learn.runner import Runner, RunnerArgs
+    from walk_these_ways_tpu_torch.parallel import mesh as mesh_mod
+    from walk_these_ways_tpu_torch.utils import checkpoint as ckpt
 
-    later = (
-        (use_mesh or multihost, "--mesh / --multihost", 22),
-        (shared_ckpt is not None, "--shared-ckpt", 22),
-    )
-    for given, flag, item in later:
-        if given:
-            raise NotImplementedError(
-                f"{flag} belongs to a later slice of the PyTorch port "
-                f"(ROADMAP item {item})")
+    if shared_ckpt is not None:
+        shared_ckpt = ckpt._shared_path(shared_ckpt)
     if terrain == "rough" and config == "small":
         raise ValueError("--terrain rough runs rough_train_cfg; there is no "
                          "small configuration on rough terrain")
@@ -97,6 +104,20 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
     if eval_cfg is not None:
         eval_cfg = dataclasses.replace(eval_cfg, sim=sim)
     dev = torch.device(device)
+    mesh = None
+    if use_mesh:
+        # join the launcher's process group (none without the launcher),
+        # so the mesh spans every rank, on the rank's card (make_mesh
+        # raises without CUDA unless the CPU is asked for)
+        mesh_mod.maybe_init_distributed(device=dev)
+        mesh = mesh_mod.make_mesh(device=dev)
+        if num_envs % mesh.world_size or num_eval_envs % mesh.world_size:
+            raise ValueError(f"num_envs ({num_envs}) and num_eval_envs "
+                             f"({num_eval_envs}) must divide over the "
+                             f"{mesh.world_size} ranks")
+        print(f"mesh: {mesh!r}, {num_envs // mesh.world_size} train envs "
+              "a rank", flush=True)
+        dev = mesh.device
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("the PyTorch port trains on a CUDA device: "
@@ -104,13 +125,14 @@ def train_go1(num_envs: int, iterations: int, log_dir: str, seed: int,
                                "device='cpu' to run on the CPU)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    env = LeggedRobotEnv(cfg, eval_cfg=eval_cfg, device=dev)
+    env = LeggedRobotEnv(cfg, eval_cfg=eval_cfg, device=dev, mesh=mesh)
     runner = Runner(env, log_dir=log_dir, seed=seed,
                     args=RunnerArgs(max_iterations=iterations,
                                     eval_expert=eval_expert,
                                     resume=resume is not None,
-                                    resume_path=resume),
-                    algo=algo)
+                                    resume_path=resume,
+                                    shared_ckpt_dir=shared_ckpt),
+                    algo=algo, mesh=mesh)
     runner.learn(num_learning_iterations=iterations,
                  init_at_random_ep_len=True)
     return runner
@@ -134,10 +156,11 @@ def main(argv=None):
                    help="cse = concurrent state estimation (default); "
                         "rma = teacher-student with an env-factor encoder "
                         "(learn/ppo_rma.py)")
-    p.add_argument("--mesh", action="store_true",
-                   help="shard envs over all local devices (item 22)")
-    p.add_argument("--multihost", action="store_true",
-                   help="several hosts (item 22)")
+    p.add_argument("--mesh", "--multihost", dest="mesh", action="store_true",
+                   help="join the process group of the launcher's variables "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR, ... as torchrun "
+                        "sets them) and split the envs over its ranks "
+                        "(env-axis data parallel; one process: one rank)")
     p.add_argument("--exact", action="store_true",
                    help="exact per-substep dynamics (reuse_matrices off)")
     p.add_argument("--terrain", choices=["flat", "rough"], default="flat",
@@ -162,19 +185,22 @@ def main(argv=None):
                    help="give the eval slice its own terrain rows "
                         "(appended after the train rows)")
     p.add_argument("--resume", type=str, default=None, metavar="CKPT",
-                   help="a train_state_*.pkl to resume from: restores the "
-                        "full train state incl. env/curriculum/generator "
-                        "states; training continues from the stored "
-                        "iteration count")
+                   help="checkpoint to resume from: a train_state_*.pkl "
+                        "(local pickle) or a shared-storage directory (any "
+                        "number of ranks).  Restores the full train state "
+                        "incl. env/curriculum/generator states; training "
+                        "continues from the stored iteration count")
     p.add_argument("--shared-ckpt", type=str, default=None, metavar="DIR",
-                   help="shared-storage checkpoints (item 22)")
+                   help="also commit the train state to this shared-storage "
+                        "directory at every save interval and at the end, "
+                        "as a common resume point for every rank")
     a = p.parse_args(argv)
     log_dir = a.log_dir or os.path.join(
         "runs", "gait-conditioned-agility",
         datetime.now().strftime("%Y-%m-%d/train/%H%M%S"))
     train_go1(a.num_envs, a.iterations, log_dir, a.seed,
               num_eval_envs=a.num_eval_envs, eval_expert=a.eval_expert,
-              algo=a.algo, use_mesh=a.mesh, multihost=a.multihost,
+              algo=a.algo, use_mesh=a.mesh,
               exact=a.exact, terrain=a.terrain, warm_start=a.warm_start,
               warm_iters=a.warm_iters, resume=a.resume,
               eval_dr=a.eval_dr, eval_terrain=a.eval_terrain,
