@@ -3,9 +3,8 @@
 First the port's dense engine on `box()` against the JAX package's, substep
 by substep: `box()` is no star of 3-dof chains, so this is the dense
 route's `torch.linalg.inv` branch of `_mass_matrix_inverse`.  Then the
-port's experiments against MuJoCo at the JAX script's gates (the Go1
-replays, about 1,600 Go1 substeps and the MuJoCo chaos floor, are marked
-slow).  The JAX package's own study is committed in runs/mujoco_parity/.
+port's experiments against MuJoCo at the JAX script's gates.  The JAX
+package's own study is committed in runs/mujoco_parity/.
 """
 import json
 import os
@@ -121,14 +120,12 @@ def test_go1_standing_forces(out, mujoco):
     assert mp.run_go1_standing(out, "cpu")
 
 
-@pytest.mark.slow
 def test_go1_closed_loop_replay(out, mujoco):
     """2 s closed-loop PD dance: exact mode within mm/deg-scale of MuJoCo;
     matrix-reuse mode no worse than the same-control-rate exact run."""
     assert mp.run_go1_replay(out, "cpu")
 
 
-@pytest.mark.slow
 def test_go1_replay_through_actuator_net(out, mujoco):
     """2 s dance with torques from the actuator network + the per-substep
     6-deep lag buffer in both engines."""

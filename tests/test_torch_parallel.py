@@ -62,6 +62,7 @@ from walk_these_ways_tpu_torch.scripts import multihost_smoke as smoke
 from walk_these_ways_tpu_torch.utils import checkpoint as ckpt
 from walk_these_ways_tpu_torch.utils import convert
 
+from process_group import kill_group
 from test_torch_ppo import (A_MAT, ARGS, B_MAT, PRIV, runs)  # noqa: F401
 
 torch.set_num_threads(1)
@@ -74,6 +75,10 @@ RUNNER_ARGS = dict(num_steps_per_env=STEPS, log_freq=1,
                    save_interval=10 ** 9, curriculum_dump_freq=10 ** 9)
 # tests/test_sharding.py's tolerances for a sharded iteration's parameters
 RTOL, ATOL = 3e-3, 4e-4
+# subprocess waits, under the 240 s wall limit of the test that waits: the
+# smoke's two clusters take about 30 s alone on the CPU, the stub
+# learners' test 12 s in a whole tier-1 run
+SMOKE_TIMEOUT, STUB_TIMEOUT = 200, 120
 
 
 def _env():
@@ -89,19 +94,20 @@ def smoke_run(tmp_path_factory):
     proc = subprocess.Popen(
         [sys.executable, "-m", smoke.MODULE, *SMOKE, "--record", rec],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=REPO, env=_env())
+        cwd=REPO, env=_env(), start_new_session=True)
     done = {}
 
     def wait():
         if not done:
-            out = proc.communicate(timeout=900)[0]
+            try:
+                out = proc.communicate(timeout=SMOKE_TIMEOUT)[0]
+            finally:
+                kill_group(proc)
             done.update(out=out, rc=proc.returncode)
         return done, rec
 
     yield types.SimpleNamespace(wait=wait)
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    kill_group(proc)
 
 
 @pytest.fixture(scope="module")
@@ -209,9 +215,14 @@ def test_two_rank_learner_matches_the_jax_iteration(runs, tmp_path):
         env=dict(_env(), RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
                  LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
                  MASTER_PORT=str(port)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
         for r in range(2)]
-    logs = [p.communicate(timeout=300)[0] for p in procs]
+    try:
+        logs = [p.communicate(timeout=STUB_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            kill_group(p)
     assert [p.returncode for p in procs] == [0, 0], logs
     res = [pickle.load(open(out % r, "rb")) for r in range(2)]
     worst = 0.0
