@@ -10,6 +10,7 @@ import torch
 
 import dataclasses
 
+from walk_these_ways_tpu_torch.envs import go1_env
 from walk_these_ways_tpu_torch.envs.go1_env import LeggedRobotEnv, make_generator
 from walk_these_ways_tpu_torch.go1_config import (mob_train_cfg,
                                                   rough_train_cfg,
@@ -600,3 +601,116 @@ def test_two_ranks_share_the_card_and_agree_with_one(cuda, tmp_path):
     for what in ("reset", "step"):
         assert mh.differing_leaves(a[0][what], one[what], 256,
                                    close=("bin_task_sums",)) == []
+
+
+def _named_leaves(tree, path="out"):
+    """(path, leaf) of a tree of named tuples, tuples and dicts."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f, x in zip(tree._fields, tree):
+            yield from _named_leaves(x, f"{path}.{f}")
+    elif isinstance(tree, tuple):
+        for i, x in enumerate(tree):
+            yield from _named_leaves(x, f"{path}[{i}]")
+    elif isinstance(tree, dict):
+        for k, x in tree.items():
+            yield from _named_leaves(x, f"{path}[{k}]")
+    else:
+        yield path, tree
+
+
+def _bits(x):
+    """A float tensor as the integers of its bits (-0.0 is not 0.0)."""
+    if x.dtype.is_floating_point:
+        return x.contiguous().view(
+            {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()])
+    return x
+
+
+def _differing(a, b, close=()):
+    """[paths of the leaves of two step outputs that differ in a bit]; the
+    leaves named in `close` to 1e-6."""
+    out = []
+    for (path, x), (_, y) in zip(_named_leaves(a), _named_leaves(b),
+                                 strict=True):
+        if isinstance(x, torch.Tensor) and path.rsplit(".", 1)[-1] in close:
+            same = torch.allclose(x, y, rtol=1e-6, atol=1e-6)
+        elif isinstance(x, torch.Tensor):
+            same = (x.shape == y.shape and x.dtype == y.dtype
+                    and torch.equal(_bits(x), _bits(y)))
+        elif isinstance(x, torch.Generator):
+            same = torch.equal(x.get_state(), y.get_state())
+        else:
+            same = x is None and y is None
+        if not same:
+            out.append(path)
+    return out
+
+
+@pytest.mark.parametrize("case", ["flat", "eval_split", "rough", "p"])
+def test_graphed_step_is_the_eager_step_bit_for_bit_on_the_card(cuda, case):
+    """The env step replayed from its CUDA graph against the eager step,
+    40 control steps from the same state and generator state with random
+    actions and random episode lengths (terminations, time-outs, command
+    resampling and resets on the way): on mob_train_cfg(4000) (K4), with
+    400 eval envs under rand_large (K4), on rough_train_cfg(4000) (K4b)
+    and on small_train_cfg(4000) (P control, K4c).  Every output and state
+    leaf and the generator's state are bit-equal at every step but the
+    curriculum's per-bin task sums, held to 1e-6: the card's `index_add`
+    sums them in the order its atomics land, so the eager step does not
+    repeat them bit for bit either (it differed from itself in 26 of 40
+    steps on an H100, the same 40 steps from the same state); a step's
+    returned tensors share no storage with the graph and are unchanged two
+    steps later; the kernel's counter rises by one a step; the first call
+    after the env's eager reset captures and every call replays."""
+    from walk_these_ways_tpu_torch.learn.eval_metrics import DR_SETTINGS
+    n, steps = 4000, 40
+    cfg = {"rough": rough_train_cfg, "p": small_train_cfg}.get(
+        case, mob_train_cfg)(n)
+    eval_cfg = None
+    if case == "eval_split":
+        eval_cfg = dataclasses.replace(mob_train_cfg(400),
+                                       domain_rand=DR_SETTINGS["rand_large"])
+    counter = {"rough": "normal_launches", "p": "p_launches"}.get(
+        case, "launches")
+    env = LeggedRobotEnv(cfg, eval_cfg=eval_cfg, device=cuda)
+    assert env.graphed and env._graph is None
+    eager_before = go1_env.eager_steps
+    state0, _ = env.reset(make_generator(2147483651, cuda),
+                          random_episode_lengths=True)
+    assert go1_env.eager_steps == eager_before + 1
+    g_act = make_generator(7, cuda)
+    actions = [3.0 * torch.randn((env.num_envs, 12), generator=g_act,
+                                 device=cuda) for _ in range(steps)]
+
+    def start():
+        gen = torch.Generator(device=cuda)
+        gen.set_state(state0.rng.get_state())
+        return state0._replace(rng=gen)
+
+    s_e, s_g = start(), start()
+    kept, dones, terminations = [], 0, 0
+    captures, replays = go1_env.graph_captures, go1_env.graph_replays
+    eager_before = go1_env.eager_steps
+    for t, a in enumerate(actions):
+        out_e = env._step(s_e, a)
+        launches = getattr(megastep, counter)
+        out_g = env.step(s_g, a)
+        assert getattr(megastep, counter) == launches + 1
+        assert _differing(out_g, out_e, close=("bin_task_sums",)) == [], t
+        s_e, s_g = out_e[0], out_g[0]
+        dones += int(out_g[3].sum())
+        terminations += int((out_g[3] & ~out_g[4].time_outs).sum())
+        static = {x.untyped_storage().data_ptr()
+                  for x in env._graph.static_ins + env._graph.static_outs}
+        mine = [(p, x) for p, x in _named_leaves(out_g)
+                if isinstance(x, torch.Tensor)]
+        assert not [p for p, x in mine
+                    if x.untyped_storage().data_ptr() in static], t
+        kept.append([(p, x, x.clone()) for p, x in mine])
+        if t >= 2:
+            assert [p for p, x, c in kept[t - 2]
+                    if not torch.equal(_bits(x), _bits(c))] == [], t
+    assert dones > 0 and terminations > 0
+    assert go1_env.graph_captures == captures + 1
+    assert go1_env.graph_replays == replays + steps
+    assert go1_env.eager_steps == eager_before

@@ -163,6 +163,8 @@ def sample(
     generator: torch.Generator,
     n: int,
     keep=None,
+    centroids: "torch.Tensor | None" = None,
+    bin_sizes: "torch.Tensor | None" = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sample (commands, bins, categories) for n envs.
 
@@ -171,7 +173,9 @@ def sample(
     command ~ uniform within the bin cell.  With `keep` (a function of the
     rows of a draw) the draws are made for all n envs and the rows it keeps
     returned: a rank of a data-parallel run draws what the whole batch
-    draws (parallel/mesh.EnvRows)."""
+    draws (parallel/mesh.EnvRows).  `centroids` and `bin_sizes` are the
+    grid's `grid` and `bin_sizes` already on the device (made from `grid`
+    when not given)."""
     dev = state.weights.device
     C, B = state.weights.shape
     cats = _keep(torch.randint(0, C, (n,), generator=generator, device=dev),
@@ -179,10 +183,13 @@ def sample(
     logw = torch.log(torch.clamp(state.weights, min=1e-12))   # (C, B)
     g = _keep(_gumbel((n, B), generator, dev), keep)
     bins = torch.argmax(logw[cats] + g, dim=-1)            # (n,)
-    centroids = _const(grid.grid, state.weights)[bins]     # (n, 15)
+    if centroids is None:
+        centroids = _const(grid.grid, state.weights)
+    if bin_sizes is None:
+        bin_sizes = _const(grid.bin_sizes, state.weights)
     jitter = _keep(torch.rand((n, grid.grid.shape[1]), generator=generator,
                               device=dev), keep) - 0.5
-    cmds = centroids + jitter * _const(grid.bin_sizes, state.weights)[None, :]
+    cmds = centroids[bins] + jitter * bin_sizes[None, :]   # (n, 15)
     return cmds, bins.to(torch.int32), cats.to(torch.int32)
 
 

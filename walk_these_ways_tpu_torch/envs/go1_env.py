@@ -54,6 +54,18 @@ reward terms' signs come from their sums over every env.  So W ranks
 compute what one rank computes.  `StepInfo`'s episode sums are the rank's
 own (the learner sums them over the ranks once an iteration).  With a mesh
 of one rank nothing changes, bit for bit.
+
+CUDA graph: on a CUDA device, with one rank and a control-step kernel route
+(`sim.use_pallas_contact` and `sim.megastep`), `step` runs its first call
+eagerly, captures the step once on its second call and from then on
+replays that graph: a thousand small device ops become one graph launch
+per control step, with the same kernels in the same order, so the outputs
+and the generator's state are bit for bit the eager step's (but for the
+curriculum's per-bin task sums, which the card's `index_add` sums in the
+order its atomics land, eager step or not).  Every other
+env (the CPU, a distributed mesh, whose gathers are collectives, the
+per-substep and dense routes) steps eagerly.  The module counters
+`graph_captures`, `graph_replays` and `eager_steps` count what `step` did.
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..config import Cfg
 from ..models import actuator_net
@@ -79,6 +92,141 @@ COMMAND_SUM_KEYS = curr.TASK_KEYS + (
     "lin_vel_raw", "ang_vel_raw", "lin_vel_residual", "ang_vel_residual",
     "ep_timesteps",
 )
+
+
+# what `LeggedRobotEnv.step` did, over every env of the process: CUDA
+# graphs captured, steps replayed from one, steps run eagerly
+graph_captures = 0
+graph_replays = 0
+eager_steps = 0
+
+# ops/megastep's launch counters, which a captured step moves: the capture
+# counts nothing, and every replay adds what the captured step added
+_LAUNCH_COUNTERS = ("launches", "p_launches", "normal_launches",
+                    "p_normal_launches", "exact_launches", "p_exact_launches")
+
+
+def _signature(leaves):
+    """What a graph's static input must match in each leaf: a tensor's
+    shape, dtype and device, else the leaf's type."""
+    return tuple((x.shape, x.dtype, x.device) if isinstance(x, torch.Tensor)
+                 else type(x) for x in leaves)
+
+
+def _dense(x: torch.Tensor) -> bool:
+    """Whether `x` covers its storage without gaps or overlaps: then
+    `empty_like` gives its strides, and a tensor of its strides is a flat
+    copy of it."""
+    return torch.empty_like(x).stride() == x.stride()
+
+
+def _copy(dsts, srcs, dense):
+    """dst.copy_(src) for each pair (`dense` says which dsts are dense):
+    pairs of dense tensors of the same strides through one multi-tensor
+    copy per dtype, the rest one by one."""
+    groups = {}
+    for d, s, flat in zip(dsts, srcs, dense):
+        if d.numel() == 0:
+            continue
+        if flat and d.stride() == s.stride() and d.dtype == s.dtype and \
+                d.device == s.device:
+            ds, ss = groups.setdefault(d.dtype, ([], []))
+            ds.append(d)
+            ss.append(s)
+        else:
+            d.copy_(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+class _StepGraph:
+    """One CUDA graph of `LeggedRobotEnv._step`, captured from the call it
+    is built on, with static copies of that call's state and actions as
+    its inputs and the generator of its own that it draws from.
+
+    `replay(state, actions)` copies the caller's tensors into the static
+    inputs and the caller's generator state into the graph's generator,
+    replays, hands the advanced generator state back, and returns copies
+    of the static outputs that the caller owns (nothing it returns aliases
+    the graph's buffers); an output the step passed through from its input
+    is the caller's own tensor, as in the eager step.  A call whose
+    structure, shapes, dtypes or devices differ from the captured one's
+    gets None."""
+
+    def __init__(self, env: "LeggedRobotEnv", state, actions):
+        global graph_captures
+        leaves, self.structure = pytree.tree_flatten((state, actions))
+        self.signature = _signature(leaves)
+        gens = [i for i, x in enumerate(leaves)
+                if isinstance(x, torch.Generator)]
+        if len(gens) != 1:
+            raise ValueError("a step's state carries one generator")
+        self.gen_index = gens[0]
+        self.gen = torch.Generator(device=env.device)
+        self.tensors = [i for i, x in enumerate(leaves)
+                        if isinstance(x, torch.Tensor)]
+        self.inputs = list(leaves)
+        for i in self.tensors:
+            self.inputs[i] = torch.empty_like(leaves[i])
+        self.inputs[self.gen_index] = self.gen
+        self.static_ins = [self.inputs[i] for i in self.tensors]
+        self.in_dense = [_dense(x) for x in self.static_ins]
+        _copy(self.static_ins, [leaves[i] for i in self.tensors],
+              self.in_dense)
+        self.gen.set_state(leaves[self.gen_index].get_state())
+        # the device tensors the kernels read whose owner may drop them:
+        # the graph holds their addresses, so it holds them too
+        self.keep = env._graph_operands()
+        counts = [getattr(megastep_ops, n) for n in _LAUNCH_COUNTERS]
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.gen)
+        static_state, static_actions = pytree.tree_unflatten(
+            self.inputs, self.structure)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            out = env._step(static_state, static_actions)
+        self.launches = []
+        for n, before in zip(_LAUNCH_COUNTERS, counts):
+            self.launches.append((n, getattr(megastep_ops, n) - before))
+            setattr(megastep_ops, n, before)
+        graph_captures += 1
+        outs, self.out_structure = pytree.tree_flatten(out)
+        # each output leaf: ("in", i) the caller's leaf i, which the step
+        # passed through; ("new", j) the j-th copy made on every replay
+        by_id = {id(x): i for i, x in enumerate(self.inputs)}
+        self.static_outs, self.out_plan, made = [], [], {}
+        for x in outs:
+            if id(x) in by_id:
+                self.out_plan.append(("in", by_id[id(x)]))
+            elif isinstance(x, torch.Tensor):
+                if id(x) not in made:
+                    made[id(x)] = len(self.static_outs)
+                    self.static_outs.append(x)
+                self.out_plan.append(("new", made[id(x)]))
+            else:
+                raise TypeError(f"a step output of type {type(x)}")
+        # `empty_like` keeps a dense output's strides
+        self.out_dense = [_dense(x) for x in self.static_outs]
+
+    def replay(self, state, actions):
+        global graph_replays
+        leaves, structure = pytree.tree_flatten((state, actions))
+        if structure != self.structure or \
+                _signature(leaves) != self.signature:
+            return None
+        _copy(self.static_ins, [leaves[i] for i in self.tensors],
+              self.in_dense)
+        rng = leaves[self.gen_index]
+        self.gen.set_state(rng.get_state())
+        self.graph.replay()
+        rng.set_state(self.gen.get_state())
+        fresh = [torch.empty_like(x) for x in self.static_outs]
+        _copy(fresh, self.static_outs, self.out_dense)
+        for n, d in self.launches:
+            setattr(megastep_ops, n, getattr(megastep_ops, n) + d)
+        graph_replays += 1
+        return pytree.tree_unflatten(
+            [leaves[i] if kind == "in" else fresh[i]
+             for kind, i in self.out_plan], self.out_structure)
 
 
 class EnvState(NamedTuple):
@@ -300,6 +448,22 @@ class LeggedRobotEnv:
                 pen.append(i)
         self.penalised_indices = tuple(pen)
         self.termination_indices = (0,)  # base
+        # the same as index tensors, and the other constants the step reads:
+        # a tensor made from host data inside the step is a copy from
+        # pageable memory every step, which a CUDA graph cannot capture
+        def idx(x):
+            return torch.tensor(x, dtype=torch.long, device=dev)
+        self._feet_idx = idx(self.feet_indices)
+        self._penalised_idx = idx(self.penalised_indices)
+        self._termination_idx = idx(self.termination_indices)
+        self._init_pos = f32(cfg.init_state.pos)
+        self._init_rot = f32(cfg.init_state.rot)
+        self._init_span = f32([cfg.terrain.x_init_range,
+                               cfg.terrain.y_init_range])
+        self._init_offset = f32([cfg.terrain.x_init_offset,
+                                 cfg.terrain.y_init_offset])
+        self._x_axis = f32([1.0, 0.0, 0.0])
+        self._z_axis = f32([0.0, 0.0, 1.0])
 
         # commands scale (legged_robot.py:1196-1203)
         osc = cfg.obs_scales
@@ -317,15 +481,18 @@ class LeggedRobotEnv:
         self._gravity_base = f32([0.0, 0.0, -9.8])
 
         # curriculum ------------------------------------------------------
+        # each grid's adjacency, centroids and bin sizes on the device
+        def on_device(grid):
+            return (f32(grid.adjacency), f32(grid.grid), f32(grid.bin_sizes))
         self.curr_grid = curr.make_grid(cfg.commands)
-        self._curr_adjacency = f32(self.curr_grid.adjacency)
+        self._curr_consts = on_device(self.curr_grid)
         # per-split command curriculum: the eval slice samples from its own
         # grid over eval_cfg.commands (reference _call_train_eval,
         # legged_robot.py:531-544, 710-824)
-        self.curr_grid_eval = self._curr_adjacency_eval = None
+        self.curr_grid_eval = self._curr_consts_eval = None
         if self.eval_commands_differ:
             self.curr_grid_eval = curr.make_grid(eval_cfg.commands)
-            self._curr_adjacency_eval = f32(self.curr_grid_eval.adjacency)
+            self._curr_consts_eval = on_device(self.curr_grid_eval)
         # dt-scaled reward scales (legged_robot.py:1394-1400)
         self.reward_names = rew_mod.active_terms(cfg)
         scales = dict(cfg.reward_scales.items())
@@ -380,6 +547,14 @@ class LeggedRobotEnv:
         self.gravity_rand_duration = int(np.ceil(
             self.gravity_rand_interval * cfg.domain_rand.gravity_impulse_duration))
         self._dr_ranges = {}
+
+        # the step's CUDA graph (module docstring): captured on the second
+        # call of `step` where the env takes one
+        self.graphed = (self.device.type == "cuda"
+                        and not self.rows.distributed
+                        and cfg.sim.use_pallas_contact and cfg.sim.megastep)
+        self._graph = None
+        self._stepped = False
 
     @staticmethod
     def _field(arrays, dev) -> engine.Terrain:
@@ -499,13 +674,9 @@ class LeggedRobotEnv:
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        init_pos = torch.tensor(cfg.init_state.pos, dtype=torch.float32,
-                                device=dev)
-        init_rot = torch.tensor(cfg.init_state.rot, dtype=torch.float32,
-                                device=dev)
         phys = engine.PhysicsState(
-            base_pos=self.env_origins + init_pos,
-            base_quat=init_rot.repeat(N, 1),
+            base_pos=self.env_origins + self._init_pos,
+            base_quat=self._init_rot.repeat(N, 1),
             base_lin_vel=z(N, 3),
             base_ang_vel=z(N, 3),
             q=self.default_dof_pos.repeat(N, 1),
@@ -678,14 +849,11 @@ class LeggedRobotEnv:
         if cfg.env.observe_only_lin_vel:
             obs = torch.cat([base_lin_vel_b * osc.lin_vel, obs], dim=-1)
         if cfg.env.observe_yaw:
-            fwd = qops.quat_apply(
-                state.phys.base_quat,
-                torch.tensor([1.0, 0.0, 0.0], device=self.device))
+            fwd = qops.quat_apply(state.phys.base_quat, self._x_axis)
             heading = torch.atan2(fwd[:, 1], fwd[:, 0])[:, None]
             obs = torch.cat([obs, heading], dim=-1)
         if cfg.env.observe_contact_states:
-            cs = (state.contact_forces[:, list(self.feet_indices), 2]
-                  > 1.0) * 1.0
+            cs = (state.contact_forces[:, self._feet_idx, 2] > 1.0) * 1.0
             obs = torch.cat([obs, cs], dim=-1)
         if cfg.noise.add_noise:
             noise = 2 * self._env_uniform(gen, obs.shape[1:]) - 1
@@ -781,19 +949,15 @@ class LeggedRobotEnv:
         dev = self.device
         q = self.default_dof_pos[None, :] * self._env_uniform(
             gen, (12,), 0.5, 1.5)
-        pos = self.env_origins + torch.tensor(
-            cfg.init_state.pos, dtype=torch.float32, device=dev)
-        span = torch.tensor([cfg.terrain.x_init_range,
-                             cfg.terrain.y_init_range], device=dev)
+        pos = self.env_origins + self._init_pos
+        span = self._init_span
         xy = self._env_uniform(gen, (2,), -span, span)
         if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
-            off = torch.tensor([cfg.terrain.x_init_offset,
-                                cfg.terrain.y_init_offset], device=dev)
-            pos = torch.cat([pos[:, :2] + xy + off, pos[:, 2:]], dim=1)
+            pos = torch.cat([pos[:, :2] + xy + self._init_offset, pos[:, 2:]],
+                            dim=1)
         yaw = self._env_uniform(gen, (), -cfg.terrain.yaw_init_range,
                                 cfg.terrain.yaw_init_range)
-        quat = qops.quat_from_angle_axis(
-            yaw, torch.tensor([0.0, 0.0, 1.0], device=dev))
+        quat = qops.quat_from_angle_axis(yaw, self._z_axis)
         vel6 = self._env_uniform(gen, (6,), -0.5, 0.5)
         return engine.PhysicsState(
             base_pos=pos, base_quat=quat,
@@ -846,6 +1010,33 @@ class LeggedRobotEnv:
 
     # -- main step ---------------------------------------------------------
     def step(self, state: EnvState, actions: torch.Tensor):
+        """One control step: (state, actions) -> (state, obs_dict, reward,
+        done, StepInfo).  Where the env takes a CUDA graph (`graphed`), the
+        first call runs eagerly, the second captures the step and every
+        call from then on replays it; a call the graph does not fit (other
+        shapes or structure) runs eagerly."""
+        global eager_steps
+        if self.graphed:
+            if self._graph is None and self._stepped:
+                self._graph = _StepGraph(self, state, actions)
+            if self._graph is not None:
+                out = self._graph.replay(state, actions)
+                if out is not None:
+                    return out
+            self._stepped = True
+        eager_steps += 1
+        return self._step(state, actions)
+
+    def _graph_operands(self):
+        """The device tensors the step's kernel reads that the env does not
+        hold itself: the packed actuator weights, which ops/megastep caches
+        (and may drop)."""
+        if self.actuator_blockdiag is None:
+            return ()
+        return (megastep_ops.team_actuator_weights(*self.actuator_blockdiag),)
+
+    def _step(self, state: EnvState, actions: torch.Tensor):
+        """The step itself, eagerly (see `step`)."""
         cfg = self.cfg
         N = self.num_envs
         m = self.model
@@ -1024,7 +1215,7 @@ class LeggedRobotEnv:
 
         # 10. termination (legged_robot.py:138-148)
         term_f = torch.linalg.norm(
-            state.contact_forces[:, list(self.termination_indices), :], dim=-1)
+            state.contact_forces[:, self._termination_idx, :], dim=-1)
         reset = torch.any(term_f > 1.0, dim=1)
         time_out = episode_length > self.max_episode_length
         reset = reset | time_out
@@ -1065,12 +1256,12 @@ class LeggedRobotEnv:
             foot_indices=state.foot_indices,
             last_contacts=state.last_contacts,
             dof_pos_limits=self.dof_pos_limits,
-            feet_indices=self.feet_indices,
-            penalised_indices=self.penalised_indices,
+            feet_indices=self._feet_idx,
+            penalised_indices=self._penalised_idx,
         )
         rew_total, episode_sums, command_sums = self._compute_reward(
             ctx, state, base_lin_vel_b, base_ang_vel_b)
-        new_last_contacts = state.contact_forces[:, list(self.feet_indices), 2] > 1.0
+        new_last_contacts = state.contact_forces[:, self._feet_idx, 2] > 1.0
         state = state._replace(last_contacts=new_last_contacts,
                                episode_sums=episode_sums,
                                command_sums=command_sums)
@@ -1174,8 +1365,8 @@ class LeggedRobotEnv:
             foot_indices=state.foot_indices,
             last_contacts=state.last_contacts,
             dof_pos_limits=self.dof_pos_limits,
-            feet_indices=self.feet_indices,
-            penalised_indices=self.penalised_indices,
+            feet_indices=self._feet_idx,
+            penalised_indices=self._penalised_idx,
         )
 
     def _compute_reward(self, ctx, state, base_lin_vel_b, base_ang_vel_b):
@@ -1245,12 +1436,12 @@ class LeggedRobotEnv:
         else:
             whole = [(slice(None), rows.take)]
         splits = [(whole[0], state.curriculum, self.curr_grid,
-                   self._curr_adjacency, self.cfg.commands,
+                   self._curr_consts, self.cfg.commands,
                    min(lim, self.resample_interval))]
         if self.eval_commands_differ:
             ev = self.eval_cfg.commands
             splits.append((whole[1], state.curriculum_eval,
-                           self.curr_grid_eval, self._curr_adjacency_eval, ev,
+                           self.curr_grid_eval, self._curr_consts_eval, ev,
                            min(lim, int(ev.resampling_time / self.dt))))
         # the curriculum scores every env of the batch: the ranks' rows
         # gathered first (one collective)
@@ -1258,14 +1449,16 @@ class LeggedRobotEnv:
             [mask, state.env_command_bins, state.env_command_categories,
              state.command_sums[:, :K]])
         curs, parts = [], []
-        for (sl, _), cur, grid, adjacency, _, ep_len in splits:
+        for (sl, _), cur, grid, (adjacency, _, _), _, ep_len in splits:
             curs.append(curr.update(
                 cur, grid, g_mask[sl], g_bins[sl], g_cats[sl],
                 g_sums[sl] / ep_len, self.task_thresholds,
                 adjacency=adjacency))
-        for ((sl, keep), _, grid, _, cmd_cfg, _), cur in zip(splits, curs):
+        for ((sl, keep), _, grid, (_, centroids, bin_sizes), cmd_cfg, _), \
+                cur in zip(splits, curs):
             n = g_mask[sl].shape[0]
-            cmds, bins, cats = curr.sample(cur, grid, gen, n, keep)
+            cmds, bins, cats = curr.sample(cur, grid, gen, n, keep,
+                                           centroids, bin_sizes)
             parts.append((curr.postprocess_gaitwise(cmds, cats, cmd_cfg),
                           bins, cats))
         new_cmds, new_bins, new_cats = (torch.cat(x) for x in zip(*parts))

@@ -45,8 +45,10 @@ class RewardCtx(NamedTuple):
     foot_indices: torch.Tensor          # (N, 4) raw gait phases in [0,1)
     last_contacts: torch.Tensor         # (N, 4) bool
     dof_pos_limits: torch.Tensor        # (12, 2) soft limits
-    feet_indices: tuple                # report indices of feet
-    penalised_indices: tuple           # report indices of thigh+calf
+    # report indices of the feet and of thigh + calf: index tensors on the
+    # device (the env's), or tuples
+    feet_indices: "torch.Tensor | tuple"
+    penalised_indices: "torch.Tensor | tuple"
 
 
 def tracking_lin_vel(c: RewardCtx):
@@ -93,7 +95,7 @@ def action_rate(c: RewardCtx):
 
 def collision(c: RewardCtx):
     # corl_rewards.py:49-52 (thigh/calf contacts)
-    f = c.contact_forces[:, list(c.penalised_indices), :]
+    f = c.contact_forces[:, c.penalised_indices, :]
     return torch.sum(1.0 * (torch.linalg.norm(f, dim=-1) > 0.1), dim=1)
 
 
@@ -113,7 +115,7 @@ def jump(c: RewardCtx):
 
 def tracking_contacts_shaped_force(c: RewardCtx):
     # corl_rewards.py:67-75
-    foot_forces = torch.linalg.norm(c.contact_forces[:, list(c.feet_indices), :], dim=-1)
+    foot_forces = torch.linalg.norm(c.contact_forces[:, c.feet_indices, :], dim=-1)
     desired = c.desired_contact_states
     r = -(1 - desired) * (
         1 - torch.exp(-foot_forces ** 2 / c.cfg.rewards.gait_force_sigma))
@@ -155,7 +157,7 @@ def action_smoothness_2(c: RewardCtx):
 
 def feet_slip(c: RewardCtx):
     # corl_rewards.py:107-113 (uses the step's contact OR'd with last step's)
-    contact = c.contact_forces[:, list(c.feet_indices), 2] > 1.0
+    contact = c.contact_forces[:, c.feet_indices, 2] > 1.0
     contact_filt = torch.logical_or(contact, c.last_contacts)
     foot_speed_sq = torch.square(
         torch.linalg.norm(c.foot_velocities[:, :, 0:2], dim=2))
@@ -171,7 +173,7 @@ def feet_contact_vel(c: RewardCtx):
 
 def feet_contact_forces(c: RewardCtx):
     # corl_rewards.py:122-125
-    f = torch.linalg.norm(c.contact_forces[:, list(c.feet_indices), :], dim=-1)
+    f = torch.linalg.norm(c.contact_forces[:, c.feet_indices, :], dim=-1)
     return torch.sum(torch.clamp(f - c.cfg.rewards.max_contact_force, min=0.0), dim=1)
 
 
@@ -187,15 +189,17 @@ def feet_clearance_cmd_linear(c: RewardCtx):
 def feet_impact_vel(c: RewardCtx):
     # corl_rewards.py:134-140
     prev_vz = c.prev_foot_velocities[:, :, 2]
-    contact = torch.linalg.norm(c.contact_forces[:, list(c.feet_indices), :], dim=-1) > 1.0
+    contact = torch.linalg.norm(c.contact_forces[:, c.feet_indices, :], dim=-1) > 1.0
     return torch.sum(contact * torch.square(torch.clamp(prev_vz, -100.0, 0.0)), dim=1)
 
 
 def orientation_control(c: RewardCtx):
     # corl_rewards.py:148-159
     roll_cmd, pitch_cmd = c.commands[:, 11], c.commands[:, 10]
-    quat_roll = qops.quat_from_angle_axis(-roll_cmd, torch.tensor([1.0, 0.0, 0.0], device=roll_cmd.device))
-    quat_pitch = qops.quat_from_angle_axis(-pitch_cmd, torch.tensor([0.0, 1.0, 0.0], device=roll_cmd.device))
+    # the x and y axes made on the device: no host data in the step
+    axes = torch.eye(3, device=roll_cmd.device)
+    quat_roll = qops.quat_from_angle_axis(-roll_cmd, axes[0])
+    quat_pitch = qops.quat_from_angle_axis(-pitch_cmd, axes[1])
     desired_q = qops.quat_mul(quat_roll, quat_pitch)
     desired_pg = qops.quat_rotate_inverse(desired_q, c.gravity_vec)
     return torch.sum(

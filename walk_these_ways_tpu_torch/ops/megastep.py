@@ -129,6 +129,21 @@ def team_actuator_weights(W0b, b0b, W1b, b1b, W2b, b2b):
     return _team_weights[key][1]
 
 
+# the plain version's tables on the device, one per (model, name, device):
+# a host array copied each call would be a host-to-device copy every step;
+# the entry keeps the model alive, so its id is not reused
+_DEVICE_TABLES = {}
+
+
+def _device_table(model, name, array, dev):
+    key = (id(model), name, str(dev))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        hit = _DEVICE_TABLES[key] = (model, torch.tensor(
+            array, dtype=torch.float32, device=dev))
+    return hit[1]
+
+
 def _softsign(x):
     return x / (1.0 + torch.abs(x))
 
@@ -278,7 +293,7 @@ def control_step_reference(em, rh_t, mu_t, e_t, g_t, n_t,
 
     anc, anc_p, groups = _topology(model)
     joint_body = np.asarray(model.joint_body)
-    anc_pn = torch.tensor(anc_p, dtype=f32, device=dev)
+    anc_pn = _device_table(model, "anc_p", anc_p, dev)
     warm0 = lam_in_t is not None
 
     q, qd, pos, quat, lin, ang = q_t, qd_t, pos_t, quat_t, lin_t, ang_t

@@ -191,6 +191,7 @@ class _Tables(NamedTuple):
     cp_radius: torch.Tensor     # (P,)
     cp_mask: torch.Tensor       # (1, P, nv, 1) dof moves the point's body
     cp_feet: torch.Tensor       # (4,) long: the foot points
+    cp_report: torch.Tensor     # (P,) long: each point's report body
     rep_onehot: torch.Tensor    # (P, num_report_bodies)
     foot_body: torch.Tensor     # (4,) long
     foot_offset: torch.Tensor   # (4, 3)
@@ -246,6 +247,7 @@ def _make_tables(model: RobotModel, dev) -> _Tables:
         cp_offset=f32(model.cp_offset), cp_radius=f32(model.cp_radius),
         cp_mask=f32(anc[:, cp_body].T[None, :, :, None]),
         cp_feet=idx(np.nonzero(model.cp_is_foot)[0]),
+        cp_report=idx(model.cp_report_body),
         rep_onehot=f32(np.eye(model.num_report_bodies,
                               dtype=np.float32)[model.cp_report_body]),
         foot_body=idx(model.foot_body), foot_offset=f32(model.foot_offset),
@@ -673,10 +675,8 @@ def _contact_inputs(model: RobotModel, dyn: DynamicsParams, Npad: int,
                     block: int):
     """Flat-ground contact operands, env-minor: (rh_t (P, Npad) point
     radii, mu_t (1, Npad), e_t (1, Npad), g_t (3, Npad))."""
-    f32 = dyn.gravity.dtype
     P = model.cp_body.shape[0]
-    radius = torch.tensor(np.asarray(model.cp_radius), dtype=f32,
-                          device=dyn.gravity.device)
+    radius = _tables(model, dyn.gravity.device).cp_radius
     rh_t = radius[:, None].expand(P, Npad).contiguous()
     # ground friction 1.0 averaged in with the robot's shape friction
     mu_t = pc.to_env_minor(0.5 * (dyn.friction[:, None] + 1.0), block)
@@ -747,8 +747,7 @@ def _velocity_bounds(model: RobotModel, params: SimParams, f32, dev):
     return torch.cat([
         torch.full((3,), params.max_base_ang_vel, dtype=f32, device=dev),
         torch.full((3,), params.max_base_lin_vel, dtype=f32, device=dev),
-        torch.tensor(np.asarray(model.dof_vel_limit), dtype=f32,
-                     device=dev)])[:, None].contiguous()
+        _tables(model, dev).dof_vel_limit])[:, None].contiguous()
 
 
 def build_dynamics_cache(model: RobotModel, params: SimParams,
@@ -997,10 +996,9 @@ def megakernel_args(
     vlim = _velocity_bounds(model, params, f32, dev)
     tlim = torch.as_tensor(torque_limits, dtype=f32,
                            device=dev)[:, None].contiguous()
-    qlo = torch.tensor(np.asarray(model.dof_lower), dtype=f32,
-                       device=dev)[:, None]
-    qhi = torch.tensor(np.asarray(model.dof_upper), dtype=f32,
-                       device=dev)[:, None]
+    tb = _tables(model, dev)
+    qlo = tb.dof_lower[:, None]
+    qhi = tb.dof_upper[:, None]
 
     args = (em, rh_t, mu_t, e_t, g_t, n_t,
             q_t, qd_t, pos_t, quat_t, lin_t, ang_t,
@@ -1084,14 +1082,12 @@ def contact_report_from_lam_t(model: RobotModel, lam_t: torch.Tensor,
     """Materialize the report-body contact forces from env-minor impulses
     (P, 3, Npad) — called once per control step."""
     forces = pc.from_env_minor(lam_t, N) / dt            # (N, P, 3)
-    rep = torch.as_tensor(np.asarray(model.cp_report_body), dtype=torch.long,
-                          device=lam_t.device)
+    tb = _tables(model, lam_t.device)
     seg = torch.zeros((N, model.num_report_bodies, 3), dtype=lam_t.dtype,
                       device=lam_t.device)
-    seg.index_add_(1, rep, forces)
-    feet = torch.as_tensor(np.nonzero(model.cp_is_foot)[0], dtype=torch.long,
-                           device=lam_t.device)
-    return ContactInfo(report_forces=seg, foot_forces=forces[:, feet, :])
+    seg.index_add_(1, tb.cp_report, forces)
+    return ContactInfo(report_forces=seg,
+                       foot_forces=forces[:, tb.cp_feet, :])
 
 
 def foot_state_from_pcp_t(model: RobotModel, p_cp_t: torch.Tensor,
@@ -1100,8 +1096,7 @@ def foot_state_from_pcp_t(model: RobotModel, p_cp_t: torch.Tensor,
     points of the last substep: positions are the foot rows of p_cp,
     velocities the backward difference the kernel advanced them with.
     Returns ((N,4,3), (N,4,3)) in FL FR RL RR order."""
-    feet = torch.as_tensor(np.nonzero(model.cp_is_foot)[0], dtype=torch.long,
-                           device=p_cp_t.device)
+    feet = _tables(model, p_cp_t.device).cp_feet
     p_foot_t = p_cp_t[feet]
     v_foot_t = (p_cp_t[feet] - p_cp_prev_t[feet]) / dt
     return pc.from_env_minor(p_foot_t, N), pc.from_env_minor(v_foot_t, N)
