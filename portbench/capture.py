@@ -65,6 +65,7 @@ class Capture:
 
     def __init__(self, job, sample):
         self.job = job
+        self.seeds = job.seeds
         self.sample = set(sample)
         self.k = -1
         self.t = 0
@@ -76,6 +77,8 @@ class Capture:
         self.losses = []       # per iteration: value + surrogate loss
         self.first_grad = {}   # "main:<leaf>" / "adapt:<leaf>" -> gradient
         self.params_after = None
+        self.replicas = []     # the other ranks' {first_grad, params_after,
+        #                        losses}, where the capture is gathered
         self._undo = []
         self._step_buf = None
 
@@ -148,3 +151,86 @@ class Capture:
         self._undo = []
         self.params_after = {n: p.detach().to("cpu", copy=True)
                              for n, p in self.job.ts.policy.named_parameters()}
+        self.job = None        # the program's state is not the capture's
+
+
+# -- a capture over several ranks ------------------------------------------------
+
+# the env-state leaves that are one value for the whole batch, which every
+# rank holds whole, and the leaf whose env axis is its last (padded to the
+# control-step kernel's block): the rule of the program's parallel/mesh.py,
+# copied
+WHOLE_BATCH = frozenset(("rng", "common_step", "gravity_offset",
+                         "curriculum", "curriculum_eval"))
+ENV_MINOR = "contact_lam_t"
+
+
+def _join_tree(x, name, n, join, pad):
+    """A host state tree (`to_host`) of this rank's `n` rows joined over
+    the ranks: the leaves with `n` rows along their first axis, the
+    env-minor leaf along its last (cut to its rows, the joined one padded
+    by `pad`); whole-batch leaves and the rest are this rank's."""
+    if name in WHOLE_BATCH:
+        return x
+    if isinstance(x, torch.Tensor):
+        if name == ENV_MINOR:
+            g = join(x[..., :n].contiguous(), -1)
+            return None if g is None else pad(g)
+        return join(x, 0) if x.ndim and x.shape[0] == n else x
+    if isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str):
+        if x[0] == "torch.Generator":
+            return x
+        return (x[0], {f: _join_tree(v, f, n, join, pad)
+                       for f, v in x[1].items()})
+    if isinstance(x, dict):
+        return {k: _join_tree(v, k, n, join, pad) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_join_tree(v, name, n, join, pad) for v in x)
+    return x
+
+
+def join_ranks(cap, rank: int, world: int, join, pad):
+    """The capture of the whole batch from each rank's capture of its rows
+    (`cap`, removed): every rank calls this, and `join(x, axis)` returns the
+    ranks' `x` joined along `axis` in rank order on rank 0 (None on the
+    others), called on every rank in the same order.  The env rows (each
+    step's reward, done and time-out, the sampled steps' states, actions
+    and outputs, the rollouts, the returns and advantages) are joined in
+    the global batch's order; the learner state, replicated over the
+    ranks, is rank 0's, and the other ranks' first gradients, parameters
+    after the iterations and losses go into `replicas`.  Rank 0 gets the
+    joined capture, the others None."""
+    import types
+    n = cap.traj[0]["actions"].shape[1]
+    steps = cap.traj[0]["actions"].shape[0]
+
+    def tree(x):
+        return _join_tree(x, "", n, join, pad)
+
+    out = types.SimpleNamespace(seeds=cap.seeds, sample=cap.sample,
+                                losses=cap.losses,
+                                first_grad=cap.first_grad,
+                                params_after=cap.params_after)
+    out.raw = [{f: join(v, 1) for f, v in r.items()} for r in cap.raw]
+    out.traj = [{f: join(v, 1) for f, v in t.items()} for t in cap.traj]
+    out.last_obs = [{f: join(v, 0) for f, v in o.items()}
+                    for o in cap.last_obs]
+    out.gae = []
+    for ret, adv in cap.gae:
+        g = [join(x.view(steps, n), 1) for x in (ret, adv)]
+        out.gae.append(None if rank else tuple(x.reshape(-1) for x in g))
+    out.env_checks = [dict(key=c["key"], actions=join(c["actions"], 0),
+                           pre=tree(c["pre"]), post=tree(c["post"]))
+                      for c in cap.env_checks]
+    def every(leaves):
+        """Each leaf of every rank, stacked (rank 0)."""
+        return {n: join(leaves[n].unsqueeze(0), 0) for n in sorted(leaves)}
+    grads, params = every(cap.first_grad), every(cap.params_after)
+    losses = join(torch.tensor(cap.losses, dtype=torch.float64)[None], 0)
+    if rank:
+        return None
+    out.replicas = [dict(first_grad={n: g[r] for n, g in grads.items()},
+                         params_after={n: p[r] for n, p in params.items()},
+                         losses=losses[r].tolist())
+                    for r in range(1, world)]
+    return out

@@ -1,7 +1,9 @@
-"""The comparison that decides `correct`: the plain reference
-(portbench.reference.wtw, a frozen copy of the program's plain code that
-imports nothing of the program) follows what the timed path produced in the
-job's first iterations (portbench.capture).
+"""The comparison that decides `correct`: the plain reference the cell's
+configuration names (portbench.reference.wtw by default, a frozen copy of
+the program's plain code that imports nothing of the program) follows what
+the timed path produced in the job's first iterations (portbench.capture);
+on a cell over several ranks, the capture joined over the ranks, which the
+one-rank reference follows as the whole batch.
 
 - The env steps: at each sampled step the reference env steps from the
   program's own state before it (the generator's state included) with the
@@ -15,7 +17,9 @@ job's first iterations (portbench.capture).
   (first iteration, where both start from the same weights), each
   iteration's loss, the first gradient of each optimiser (from its state
   after one step), and each leaf's change of the parameters over the
-  iterations.
+  iterations; over several ranks the loss, the gradients and the change
+  are each rank's (the learner state is replicated), the worst rank
+  counting.
 
 Every number is a gap read against a scale of the reference's own, so
 that 0 is agreement; `verdict` holds each against its limit."""
@@ -51,21 +55,28 @@ def gap(prog: torch.Tensor, ref: torch.Tensor, scale: float) -> float:
     return d / max(scale, 1e-30)
 
 
-def norm_gap(prog: dict, ref: dict, keep=None) -> float:
-    """Worst leaf of |‖prog‖ - ‖ref‖| over the larger of the leaf's
-    reference norm and the median leaf's."""
+def leaf_gaps(prog: dict, ref: dict, keep=None) -> dict:
+    """Each leaf's |‖prog‖ - ‖ref‖| over the larger of its reference norm
+    and the median leaf's; inf for a leaf the program lacks, shapes
+    differently or holds a value that is not finite in."""
     names = sorted(ref if keep is None else keep)
     rn = {n: float(torch.linalg.vector_norm(ref[n].double())) for n in names}
     med = float(np.median(list(rn.values())))
-    worst = 0.0
+    out = {}
     for n in names:
         p = prog.get(n)
         if p is None or tuple(p.shape) != tuple(ref[n].shape) \
                 or not bool(torch.isfinite(p).all()):
-            return math.inf
+            out[n] = math.inf
+            continue
         pn = float(torch.linalg.vector_norm(p.double()))
-        worst = max(worst, abs(pn - rn[n]) / max(rn[n], med, 1e-30))
-    return worst
+        out[n] = abs(pn - rn[n]) / max(rn[n], med, 1e-30)
+    return out
+
+
+def norm_gap(prog: dict, ref: dict, keep=None) -> float:
+    """The worst leaf's gap (`leaf_gaps`)."""
+    return max(leaf_gaps(prog, ref, keep).values())
 
 
 # -- the env steps -------------------------------------------------------------
@@ -237,7 +248,7 @@ def learner_numbers(cap, cell, R, device):
     change over the iterations)."""
     cfg = cell.config
     algo = cfg["algo"]
-    seeds = cap.job.seeds
+    seeds = cap.seeds
     N = cap.traj[0]["actions"].shape[1]
     steps = cap.traj[0]["actions"].shape[0]
     args = R.ppo.PPO_Args(**cfg["ppo"])
@@ -257,6 +268,7 @@ def learner_numbers(cap, cell, R, device):
                                        ts.adapt_optimizer, first_grad)
 
     out = dict(policy=0.0, gae=0.0, loss=0.0)
+    ref_losses = []
     lr = ts.lr
     ac = R.actor_critic
     for k in range(len(cap.traj)):
@@ -310,13 +322,20 @@ def learner_numbers(cap, cell, R, device):
         lr, ms = R.learner.update(policy, (ts.optimizer, ts.adapt_optimizer),
                                   lr, data, perm, args, rows)
         loss = float(ms.value_loss.mean() + ms.surrogate_loss.mean())
+        ref_losses.append(loss)
         out["loss"] = max(out["loss"], abs(cap.losses[k] - loss)
                           / max(abs(loss), 1e-30))
         del cols, data, traj
     for h in hooks:
         h.remove()
 
-    out["grad"] = norm_gap(cap.first_grad, first_grad)
+    ranks = [dict(first_grad=cap.first_grad, params_after=cap.params_after,
+                  losses=cap.losses)] + list(cap.replicas)
+    for r in ranks[1:]:
+        for loss, ref in zip(r["losses"], ref_losses, strict=True):
+            out["loss"] = max(out["loss"], abs(loss - ref)
+                              / max(abs(ref), 1e-30))
+    out["grad"] = max(norm_gap(r["first_grad"], first_grad) for r in ranks)
     # a leaf's gradient: the larger of its first gradients under the two
     # optimisers (RMA's adaptation module gets none from the main loss)
     gn = {}
@@ -329,9 +348,17 @@ def learner_numbers(cap, cell, R, device):
     w0 = {n: v.cpu() for n, v in weights.items()}
     d_ref = {n: p.detach().cpu() - w0[n]
              for n, p in policy.named_parameters()}
-    d_prog = {n: cap.params_after[n] - w0[n]
-              for n in d_ref if n in cap.params_after}
-    out["change"] = norm_gap(d_prog, d_ref, keep)
+    change = [leaf_gaps({n: r["params_after"][n] - w0[n]
+                         for n in d_ref if n in r["params_after"]},
+                        d_ref, keep) for r in ranks]
+    out["change"] = max(max(g.values()) for g in change)
+    # the steady forms of `loss` and `change` (PERF.md): the first
+    # iteration's loss, before the KL-adaptive lr can branch apart, and
+    # the median leaf's change
+    out["loss_first"] = max(abs(r["losses"][0] - ref_losses[0])
+                            / max(abs(ref_losses[0]), 1e-30) for r in ranks)
+    out["change_median"] = max(float(np.median(list(g.values())))
+                               for g in change)
     left_out = sorted(set(d_ref) - set(keep))
     return out, left_out
 
@@ -339,7 +366,7 @@ def learner_numbers(cap, cell, R, device):
 def numbers(cap, cell, device):
     """Every compared number of the run and the readings of a state left
     unchanged, from the capture of its first iterations."""
-    R = job_mod.side(job_mod.REFERENCE, cell.config["algo"])
+    R = job_mod.reference_side(cell.config)
     cfg = getattr(R.go1_config, cell.config["env_cfg"])(
         num_envs=int(cell.traffic["num_envs"]))
     ref_env = R.go1_env.LeggedRobotEnv(cfg, device=device)

@@ -2,11 +2,13 @@
 benchmark's own runs do not run this.
 
     python3 -m portbench.control --workload <cell> --seeds 1,2,3
-        [--side program|control] [--fault none|half_batch]
+        [--side program|control] [--fault none|half_batch,...]
 
-For each seed, one process: the job is built and driven through its
-checked iterations as in a run (no measured window: a training cell's
-readings need none), and every compared number is printed as one JSON line.
+For each fault and seed, in one process (one a rank): the job is built and
+driven through its checked iterations as in a run (no measured window: a
+training cell's readings need none), and every compared number is printed
+as one JSON line.  A cell over several ranks runs the program on them as a
+run does (`ranks.py`), its capture joined on rank 0, which prints.
 
 - `--side program`: the program, as the benchmark runs it (the sound
   readings, the lower end of each limit).
@@ -18,7 +20,14 @@ readings need none), and every compared number is printed as one JSON line.
   one env's reward and done altered where the env step produces them;
   `--fault one_env_stale` (`three_envs_stale`): the last env's (the last
   three envs') physics state returned unchanged by every env step, as a
-  kernel that leaves a tail block unstepped would.
+  kernel that leaves a tail block unstepped would; `--fault
+  state_unchanged`: every env's; `--fault exchange_left_out`: every sum
+  over the ranks left at the rank's own part.  Over several ranks a
+  fault is planted on the last rank alone (its envs, its minibatches), so
+  that what is read is a fault off rank 0; the exchange on every rank.
+- The control over several ranks: the reference runs one rank, so it is
+  put in the place of the whole program, on the first card at the cell's
+  envs, and computes the batch that the ranks share.
 A step that returns its state unchanged needs no run: every line carries
 what the physics and the observations would read then (`stale`), and the
 parameters' change reads 1."""
@@ -31,7 +40,12 @@ import json
 import sys
 import time
 
-from . import harness, spec
+from . import harness
+from . import ranks as ranks_mod
+from . import spec
+
+FAULTS = ("none", "half_batch", "answer_altered", "one_env_stale",
+          "three_envs_stale", "state_unchanged", "exchange_left_out")
 
 
 ALTERED_ENV = 3      # the env whose step outputs `answer_altered` alters
@@ -79,6 +93,35 @@ def tail_stale(go1_env, envs: int):
 
 
 @contextlib.contextmanager
+def state_unchanged(go1_env):
+    """The physics state returned unchanged by the env step."""
+    cls = go1_env.LeggedRobotEnv
+    orig = cls.step
+
+    def step(self, state, actions):
+        out = orig(self, state, actions)
+        return (out[0]._replace(phys=state.phys),) + tuple(out[1:])
+    cls.step = step
+    try:
+        yield
+    finally:
+        cls.step = orig
+
+
+@contextlib.contextmanager
+def exchange_left_out(mesh_mod):
+    """The exchange between the ranks left out: every sum over the ranks
+    (`parallel/mesh.all_reduce_sum`, through which the env rows' gathers
+    go too) returns this rank's own part."""
+    orig = mesh_mod.all_reduce_sum
+    mesh_mod.all_reduce_sum = lambda tensors, mesh: list(tensors)
+    try:
+        yield
+    finally:
+        mesh_mod.all_reduce_sum = orig
+
+
+@contextlib.contextmanager
 def half_batch(ppo):
     orig = ppo.minibatches
 
@@ -94,20 +137,30 @@ def half_batch(ppo):
         ppo.minibatches = orig
 
 
-def readings(cell, seed: int, device, side: str, fault: str) -> dict:
+def readings(cell, seed: int, device, side: str, fault: str, ranks=None,
+             mesh=None) -> dict:
+    """The compared numbers of one seed; on a rank of several but 0,
+    None."""
     import torch
 
     from . import check
     from . import job as job_mod
-    package = job_mod.PROGRAM if side == "program" else job_mod.REFERENCE
+    package = job_mod.PROGRAM if side == "program" \
+        else spec.reference(cell.config)
     phases = {}
     t = time.perf_counter()
-    sd = job_mod.side(package, cell.config["algo"])
+    sd = job_mod.side(package, cell.config)
+    # a fault on the last rank alone, but the exchange, which every rank
+    # leaves out (a rank alone would wait for the others)
+    here = ranks is None or ranks.rank == ranks.world - 1 \
+        or fault == "exchange_left_out"
     ctx = {"half_batch": lambda: half_batch(sd.ppo),
            "answer_altered": lambda: answer_altered(sd.go1_env),
            "one_env_stale": lambda: tail_stale(sd.go1_env, 1),
            "three_envs_stale": lambda: tail_stale(sd.go1_env, 3),
-           "none": contextlib.nullcontext}[fault]()
+           "state_unchanged": lambda: state_unchanged(sd.go1_env),
+           "exchange_left_out": lambda: exchange_left_out(sd.mesh),
+           "none": contextlib.nullcontext}[fault if here else "none"]()
     with ctx:
         if side == "control":
             # the env is built in float32 (it refuses TF32), then the
@@ -125,11 +178,16 @@ def readings(cell, seed: int, device, side: str, fault: str) -> dict:
                 job_mod.build = orig_build
                 torch.backends.cuda.matmul.allow_tf32 = False
         else:
-            job, cap = harness.set_up(cell, seed, device, package, phases)
+            job, cap = harness.set_up(cell, seed, device, package, phases,
+                                      mesh)
     del job
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if ranks is not None:
+        cap = harness.join_capture(cap, cell, ranks, device)
+        if ranks.rank:
+            return None
     nums, extras = check.numbers(cap, cell, device)
     return dict(seed=seed, side=side, fault=fault, numbers=nums,
                 stale=extras["stale"],
@@ -144,11 +202,16 @@ def main(argv=None):
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--side", choices=("program", "control"),
                     default="program")
-    ap.add_argument("--fault", choices=("none", "half_batch",
-                                        "answer_altered", "one_env_stale",
-                                        "three_envs_stale"),
-                    default="none")
+    ap.add_argument("--fault", default="none",
+                    help="one of " + ", ".join(FAULTS) + ", or several "
+                    "joined by commas")
+    # a worker's place, given by rank 0 (ranks.py)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
+    faults = a.fault.split(",")
+    if set(faults) - set(FAULTS):
+        ap.error(f"--fault: {sorted(set(faults) - set(FAULTS))} not in "
+                 f"{FAULTS}")
     cell = spec.load_cell(a.workload)
     harness.prepare_caches()
     import torch
@@ -157,12 +220,40 @@ def main(argv=None):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    world = spec.ranks(cell) if a.side == "program" else 1
+    if torch.cuda.device_count() < world:
+        harness.log(f"{cell.name} needs {world} cards")
+        return 2
+    ranks = mesh = None
     device = torch.device("cuda", 0)
-    for s in a.seeds.split(","):
-        row = readings(cell, int(s), device, a.side, a.fault)
-        row.update(workload=cell.name, card=torch.cuda.get_device_name(0),
-                   power_limit=harness.power_limit())
-        print(json.dumps(row), flush=True)
+    if world > 1:
+        if a.rank is None:
+            ranks = ranks_mod.start(
+                "portbench.control", ["--workload", cell.name, "--seeds",
+                                      a.seeds, "--side", a.side, "--fault",
+                                      a.fault], world, spec.ROOT)
+        else:
+            ranks = ranks_mod.attach(a.rank, world)
+        ranks.deadline(ranks_mod.JOIN_S, "the ranks' start and join")
+        mesh = ranks_mod.join_mesh("cuda")
+        device = mesh.device
+    for fault in faults:
+        for s in a.seeds.split(","):
+            if ranks is not None:
+                ranks.deadline(ranks_mod.SETUP_S + ranks_mod.CHECK_S,
+                               f"seed {s}, fault {fault}")
+            row = readings(cell, int(s), device, a.side, fault, ranks, mesh)
+            if row is None:
+                continue
+            row.update(workload=cell.name,
+                       card=torch.cuda.get_device_name(0),
+                       power_limit=harness.power_limit())
+            print(json.dumps(row), flush=True)
+    if ranks is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        if ranks.rank == 0 and not ranks.finish():
+            return 3
     return 0
 
 

@@ -1,7 +1,10 @@
 """One training job of a cell: the env, the learner and the weights, built
 from the cell's files and the seed on one side: the program
-(walk_these_ways_tpu_torch) or, in its place for the control, the frozen
-reference (portbench.reference.wtw), which has the same interface.
+(walk_these_ways_tpu_torch) or, in its place for the control, the plain
+reference the configuration names (portbench.reference.wtw unless its file
+says `"reference"`), which has the same interface.  On a cell over several
+ranks each rank builds its rows of the batch on an env mesh, as the
+program's `scripts.train --mesh` does.
 
 The benchmark makes the weights itself from the seed, on the device in one
 draw, and hands the same to both sides; the env's reset and the learner's
@@ -17,15 +20,16 @@ import types
 import numpy as np
 import torch
 
+from . import spec
+
 PROGRAM = "walk_these_ways_tpu_torch"
-REFERENCE = "portbench.reference.wtw"
 
 
 @dataclasses.dataclass(frozen=True)
 class Side:
     """The modules of one side: config, env, engine, curriculum, the PPO
-    core, the learner (the PPO core for cse, `ppo_rma` for rma), the
-    policy's module and the env rows' module."""
+    core, the configuration's learner, the policy's module and the env
+    rows' module."""
     name: str
     go1_config: types.ModuleType
     go1_env: types.ModuleType
@@ -37,17 +41,28 @@ class Side:
     mesh: types.ModuleType
 
 
-def side(package: str, algo: str) -> Side:
-    if algo not in ("cse", "rma"):
-        raise ValueError(f"unknown algo {algo!r}")
+def side(package: str, config: dict) -> Side:
+    """The modules of `package` (the program's, or a reference's) for the
+    configuration: its learner by `spec.learner`.  A package that does not
+    import raises naming it."""
+    learner = spec.learner(config)
+    try:
+        importlib.import_module(package)
+    except ImportError as e:
+        raise ImportError(f"the package {package!r} does not import: "
+                          f"{e}") from e
 
     def imp(name):
         return importlib.import_module(f"{package}.{name}")
-    ppo = imp("learn.ppo")
     return Side(package, imp("go1_config"), imp("envs.go1_env"),
-                imp("physics.engine"), imp("envs.curriculum"), ppo,
-                ppo if algo == "cse" else imp("learn.ppo_rma"),
+                imp("physics.engine"), imp("envs.curriculum"),
+                imp("learn.ppo"), imp(learner),
                 imp("models.actor_critic"), imp("parallel.mesh"))
+
+
+def reference_side(config: dict) -> Side:
+    """The configuration's plain reference."""
+    return side(spec.reference(config), config)
 
 
 def seeds(seed: int) -> dict:
@@ -121,9 +136,12 @@ class Job:
     weights: dict          # the initial weights, as made from the seed
 
 
-def build(side_: Side, cell, device, seed: int, phases: dict | None = None):
+def build(side_: Side, cell, device, seed: int, phases: dict | None = None,
+          mesh=None):
     """The env reset and the learner with the seed's weights, ready for its
-    first iteration.  `phases` collects the seconds of env_build, reset
+    first iteration; with `mesh` (the program's parallel/mesh.EnvMesh) the
+    env holds this rank's rows and every rank makes the same weights and
+    learner seed.  `phases` collects the seconds of env_build, reset
     (which loads or builds the control-step kernel at the first step) and
     learner_build."""
     phases = {} if phases is None else phases
@@ -132,7 +150,7 @@ def build(side_: Side, cell, device, seed: int, phases: dict | None = None):
     t = time.perf_counter()
     cfg = getattr(side_.go1_config, cfg_c["env_cfg"])(
         num_envs=int(traffic["num_envs"]))
-    env = side_.go1_env.LeggedRobotEnv(cfg, device=device)
+    env = side_.go1_env.LeggedRobotEnv(cfg, device=device, mesh=mesh)
     for key, attr in (("num_obs", "num_obs"),
                       ("num_privileged_obs", "num_privileged_obs"),
                       ("num_obs_history", "num_obs_history"),

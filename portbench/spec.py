@@ -28,6 +28,36 @@ class Cell:
     per_layer: tuple
 
 
+# the plain reference a configuration runs against unless its file names
+# another (`"reference"`: a package under portbench/reference/, as a
+# module path), and the learner module under that package and the
+# program's unless it names one (`"learner"`), by its `algo`
+REFERENCE = "portbench.reference.wtw"
+LEARNERS = {"cse": "learn.ppo", "rma": "learn.ppo_rma"}
+
+
+def reference(config: dict) -> str:
+    """The module path of the configuration's plain reference package."""
+    return config.get("reference", REFERENCE)
+
+
+def learner(config: dict) -> str:
+    """The learner's module path under the program's and the reference's
+    package: the configuration's `learner`, else its algo's."""
+    if "learner" in config:
+        return config["learner"]
+    if config.get("algo") not in LEARNERS:
+        raise ValueError(f"unknown algo {config.get('algo')!r} and no "
+                         "learner named")
+    return LEARNERS[config["algo"]]
+
+
+def ranks(cell) -> int:
+    """The processes a cell runs on, one card each (`"ranks"` in its
+    traffic file)."""
+    return int(cell.traffic.get("ranks", 1))
+
+
 def load_benchmark(root: str = ROOT) -> dict:
     with open(os.path.join(root, "BENCHMARK.json")) as fh:
         return json.load(fh)

@@ -16,6 +16,9 @@ import torch
 
 ROLLOUT, UPDATE, ITERATION = ("portbench.rollout", "portbench.update",
                               "portbench.iteration")
+COLLECTIVE = "portbench.collective"
+# the iterations of the stretch in which the collectives are timed
+COLLECTIVE_ITERATION = "portbench.collective_iteration"
 # host events of the profiler itself, not of the program
 PROFILER_BOOKKEEPING = ("Activity Buffer Request",)
 
@@ -34,6 +37,7 @@ class Spans:
         self.device = device
         self.times = defaultdict(list)
         self._orig = {}
+        self._patched = []      # (owner, attribute, original)
 
     def _wrap(self, attr, name):
         orig = getattr(self.learner, attr)
@@ -52,18 +56,52 @@ class Spans:
         self._wrap("collect", ROLLOUT)
         self._wrap("update", UPDATE)
 
+    def install_collectives(self, mesh_mod):
+        """Each outermost call of the program's `parallel/mesh`
+        `all_reduce_sum`, `broadcast_` and `EnvRows.gather` (which sums
+        through `all_reduce_sum`) a span under COLLECTIVE: a synchronise,
+        the call, a synchronise, so that the span is the collective with
+        the wait for the other ranks, not the work queued before it."""
+        depth = [0]
+
+        def wrap(owner, attr):
+            orig = getattr(owner, attr)
+            self._patched.append((owner, attr, orig))
+
+            def call(*a, **kw):
+                if depth[0]:
+                    return orig(*a, **kw)
+                depth[0] += 1
+                try:
+                    _sync(self.device)
+                    t = time.perf_counter()
+                    with torch.profiler.record_function(COLLECTIVE):
+                        out = orig(*a, **kw)
+                        _sync(self.device)
+                    self.times[COLLECTIVE].append(time.perf_counter() - t)
+                finally:
+                    depth[0] -= 1
+                return out
+            setattr(owner, attr, call)
+        wrap(mesh_mod, "all_reduce_sum")
+        wrap(mesh_mod, "broadcast_")
+        wrap(mesh_mod.EnvRows, "gather")
+
     @contextlib.contextmanager
-    def iteration(self):
+    def iteration(self, name: str = ITERATION):
         t = time.perf_counter()
-        with torch.profiler.record_function(ITERATION):
+        with torch.profiler.record_function(name):
             yield
             _sync(self.device)
-        self.times[ITERATION].append(time.perf_counter() - t)
+        self.times[name].append(time.perf_counter() - t)
 
     def remove(self):
         for attr, orig in self._orig.items():
             setattr(self.learner, attr, orig)
         self._orig = {}
+        for owner, attr, orig in reversed(self._patched):
+            setattr(owner, attr, orig)
+        self._patched = []
 
 
 def _annotation(e) -> bool:

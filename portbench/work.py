@@ -165,10 +165,14 @@ def work_per_env(model, decimation: int, warm_iters: int, hidden: int = 32,
 def kernel_work(config: dict, num_envs: int, model=None):
     """(bytes, operations) of one control-step launch over `num_envs` envs
     in the configuration's mode (the cache built in the launch, warm
-    solves), for the robot `model` (the reference's Go1 by default)."""
+    solves), for the robot `model` (by default the Go1 of the plain
+    reference the configuration names)."""
     if model is None:
-        from .reference.wtw.models.robot import go1
-        model = go1()
+        import importlib
+
+        from . import spec
+        model = importlib.import_module(
+            spec.reference(config) + ".models.robot").go1()
     k = config["kernel"]
     b, ops = work_per_env(model, config["decimation"], k["warm_iters"],
                           hidden=k["actuator_hidden"],
